@@ -9,3 +9,8 @@ try:
     import hypothesis  # noqa: F401
 except ModuleNotFoundError:
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "_stubs"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one")

@@ -3,7 +3,7 @@
 from .encoding import CombinedEncoder, IntervalEncoder, RoundingEncoder
 from .filtering import BestFilter, TrimFilter
 from .rerank import brute_force_topk, normalize, rerank_topk
-from .search import FUSED_ENGINES, VectorIndex
+from .search import FUSED_ENGINES, SearchParams, VectorIndex
 
 __all__ = [
     "CombinedEncoder",
@@ -12,6 +12,7 @@ __all__ = [
     "BestFilter",
     "TrimFilter",
     "VectorIndex",
+    "SearchParams",
     "FUSED_ENGINES",
     "brute_force_topk",
     "normalize",

@@ -1,15 +1,30 @@
 """Public two-phase search API (paper §2.2): VectorIndex.
 
     idx = VectorIndex.build(vectors, encoder=RoundingEncoder(2))
-    ids, sims = idx.search(queries, k=10, page=320, trim=TrimFilter(0.05),
-                           engine="fused")
+    ids, sims = idx.search(queries, k=10, page=320, trim=TrimFilter(0.05))
 
-Phase 1 retrieves ``page`` candidates; phase 2 re-ranks them by exact fp32
-cosine (:mod:`repro_torch.core.rerank`).  The engine ported so far is
-``fused``: code-match scoring and a running top-``page`` in one kernel
-pass (:mod:`repro_torch.kernels.fused_phase1`), never a (Q, n_docs) score
-matrix.  Every other engine of the reference raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+Phase 1 retrieves ``page`` candidates with one of the engines
+
+* ``postings``     -- paper-faithful inverted index
+  (:mod:`repro_torch.core.postings`), the default
+* ``codes``        -- code-match streaming in plain torch
+  (:mod:`repro_torch.core.codes`)
+* ``onehot``       -- a float32 matrix product over the one-hot token
+  vocabulary
+* ``codes_pallas`` -- the code_match kernel (full score matrix;
+  :mod:`repro_torch.kernels.code_match`)
+* ``fused``        -- the fused kernel: code-match scoring + running
+  top-``page`` in one pass, no (Q, n_docs) score matrix
+  (:mod:`repro_torch.kernels.fused_phase1`)
+* ``fused_int8``   -- the fused kernel over the int8 per-row quantized copy
+  of the vectors (:mod:`repro_torch.core.quantize`, derived lazily and
+  cached per index instance) -- phase-1 selection only
+
+The composed engines (the first four) select the page with a stable
+top-``page`` over their (Q, n_docs) scores, ties to the lower doc id as
+``jax.lax.top_k`` breaks them.  Phase 2 re-ranks the page by exact fp32
+cosine (:mod:`repro_torch.core.rerank`) for every engine, the quantized one
+included, so reported scores are always exact fp32.
 
 Filtering (trim/best) is query-side, choosable per request, with optional
 index-side ``best`` at build time.  The index lives on one device
@@ -24,26 +39,22 @@ from typing import Optional, Tuple
 
 import torch
 
+from .codes import score_codes, score_onehot
 from .encoding import Encoder, RoundingEncoder
 from .filtering import (BestFilter, TrimFilter, expand_mask, feature_mask,
                         index_best_codes)
-from .postings import Postings, build_postings, df_lookup, idf_weights
-from .rerank import brute_force_topk, normalize, rerank_topk
+from .postings import (Postings, build_postings, df_lookup, idf_weights,
+                       score_postings_batch)
+from .quantize import QuantizedTable, quantize_table
+from .rerank import brute_force_topk, normalize, rerank_topk, stable_topk
 
-__all__ = ["VectorIndex", "FUSED_ENGINES"]
+__all__ = ["VectorIndex", "SearchParams", "phase1_engine_scores",
+           "FUSED_ENGINES"]
 
-# engines that fuse phase-1 scoring with candidate selection
+# engines that fuse phase-1 scoring with candidate selection: they return
+# the candidate page directly instead of a (Q, d) score matrix, so they
+# dispatch around phase1_engine_scores
 FUSED_ENGINES = ("fused", "fused_int8")
-
-# the ROADMAP item that ports each engine not ported yet
-_NOT_PORTED = {
-    "postings": "Queue 1 item 2 (with core/postings.py score_postings)",
-    "codes": "Queue 1 item 2 (with core/codes.py)",
-    "onehot": "Queue 1 item 2 (with core/codes.py)",
-    "codes_pallas": "Queue 1 item 2 and Queue 2 item 3 (code_match kernel)",
-    "fused_int8": "Queue 1 item 2 and Queue 2 item 2 (fused_phase1_quant "
-                  "kernel, core/quantize.py)",
-}
 
 _SENTINEL = {  # never-matching code per dtype (outside any bucket range)
     torch.int8: 127,
@@ -54,6 +65,45 @@ _SENTINEL = {  # never-matching code per dtype (outside any bucket range)
 # rows encoded per step at build: the elementwise temporaries of encode
 # then stay a few hundred MB at paper scale
 _ENCODE_ROWS = 1 << 18
+
+
+def phase1_engine_scores(
+    codes: torch.Tensor,           # (d, C) document codes
+    postings: Postings,
+    qcodes: torch.Tensor,          # (Q, C)
+    col_weights: torch.Tensor,     # (Q, C), 0 where the token is filtered
+    engine: str,
+    max_postings: Optional[int],
+    max_abs_bucket: int,
+) -> torch.Tensor:
+    """Phase-1 scores (Q, d) under one of the composed engines: the single
+    engine-dispatch point, so every caller (this index, and later the
+    per-shard query phase) gets every engine."""
+    if engine == "postings":
+        return score_postings_batch(
+            postings, qcodes, col_weights > 0, max_postings=max_postings,
+            weighting="count",   # the weights are folded into col_weights
+            col_weights=col_weights)
+    if engine == "codes":
+        return score_codes(codes, qcodes, col_weights)
+    if engine == "codes_pallas":
+        from repro_torch.kernels.code_match import ops as cm_ops
+
+        return cm_ops.code_match(codes, qcodes, col_weights)
+    if engine == "onehot":
+        return score_onehot(codes, qcodes, col_weights, max_abs_bucket)
+    raise ValueError(f"unknown engine {engine!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchParams:
+    k: int = 10
+    page: int = 320
+    trim: Optional[TrimFilter] = None
+    best: Optional[BestFilter] = None
+    engine: str = "postings"  # postings|codes|onehot|codes_pallas|fused|fused_int8
+    weighting: str = "idf"         # idf | count
+    max_postings: Optional[int] = None  # None -> exact (= n_docs)
 
 
 @dataclasses.dataclass
@@ -102,6 +152,18 @@ class VectorIndex:
     def n_features(self) -> int:
         return self.vectors.shape[1]
 
+    @property
+    def quantized(self) -> QuantizedTable:
+        """int8 per-row quantized copy of ``vectors`` for ``fused_int8``
+        phase-1 selection.  Derived at first use (a pure function of the
+        vector bits, never stored) and cached on this instance: the index
+        is immutable, so the cache cannot go stale."""
+        cached = self.__dict__.get("_quant_cache")
+        if cached is None:
+            cached = quantize_table(self.vectors)
+            self.__dict__["_quant_cache"] = cached
+        return cached
+
     # ---------------------------------------------------------- query encode
     def encode_queries(
         self,
@@ -126,6 +188,18 @@ class VectorIndex:
             raise ValueError(f"unknown weighting {weighting!r}")
         return q, qcodes, torch.where(mask, w, 0.0)
 
+    # ----------------------------------------------------------------- phase 1
+    def phase1_scores(
+        self,
+        qcodes: torch.Tensor,
+        col_weights: torch.Tensor,
+        engine: str,
+        max_postings: Optional[int],
+    ) -> torch.Tensor:
+        return phase1_engine_scores(
+            self.codes, self.postings, qcodes, col_weights, engine,
+            max_postings, self.encoder.max_abs_bucket)
+
     # ------------------------------------------------------------------ search
     def search(
         self,
@@ -134,27 +208,39 @@ class VectorIndex:
         page: int = 320,
         trim: Optional[TrimFilter] = None,
         best: Optional[BestFilter] = None,
-        engine: str = "fused",
+        engine: str = "postings",
         weighting: str = "idf",
+        max_postings: Optional[int] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Two-phase search -> (ids (Q,k) int32, cosine scores (Q,k) f32),
-        on the index's device.  Only ``engine="fused"`` is ported; phase 2
-        is the exact-fp32 rerank."""
-        if engine != "fused":
-            if engine in _NOT_PORTED:
-                raise NotImplementedError(
-                    f"engine {engine!r} is not ported to repro_torch yet: "
-                    f"ROADMAP {_NOT_PORTED[engine]}; use engine='fused'")
-            raise ValueError(f"unknown engine {engine!r}")
-        from repro_torch.kernels.fused_phase1 import ops as fp_ops
+        on the index's device.
 
-        queries = torch.as_tensor(queries, dtype=torch.float32,
-                                  device=self.device)
-        queries = torch.atleast_2d(queries)
+        ``fused`` selects exactly what ``codes`` selects, without the score
+        matrix; ``fused_int8`` trades candidate recall for a quarter of
+        the phase-1 bytes, and reads no tokens, so trim, best and
+        weighting do not apply to it.  ``max_postings`` caps every posting
+        list the ``postings`` engine walks (None: exact)."""
+        queries = torch.atleast_2d(torch.as_tensor(
+            queries, dtype=torch.float32, device=self.device))
         page = min(page, self.n_docs)
         k = min(k, page)
+        if engine == "fused_int8":
+            from repro_torch.kernels.fused_phase1 import ops as fp_ops
+
+            q = normalize(queries)
+            qt = self.quantized
+            _, cand = fp_ops.fused_phase1_quant(qt.codes, qt.scale, qt.zero,
+                                                q, page=page)
+            return rerank_topk(self.vectors, cand, q, k)
         q, qcodes, w = self.encode_queries(queries, trim, best, weighting)
-        _, cand = fp_ops.fused_phase1(self.codes, qcodes, w, page=page)
+        if engine == "fused":
+            from repro_torch.kernels.fused_phase1 import ops as fp_ops
+
+            _, cand = fp_ops.fused_phase1(self.codes, qcodes, w, page=page)
+        else:
+            scores1 = self.phase1_scores(qcodes, w, engine, max_postings)
+            _, cand = stable_topk(scores1, page)
+            del scores1
         return rerank_topk(self.vectors, cand, q, k)
 
     def gold_topk(self, queries, k: int = 10):

@@ -1,47 +1,51 @@
-"""Launcher of the hand-written CUDA fused phase-1 kernel
-(``csrc/fused_phase1.cu``, which replaces the TPU kernel
-``src/repro/kernels/fused_phase1/kernel.py::fused_phase1_pallas``).
+"""Launchers of the hand-written CUDA fused phase-1 kernels:
 
-The kernel allocates nothing: this module checks its inputs, sizes the
-launch (query tile, doc tile, doc splits) against the card, allocates the
-partial and final outputs with ``torch.empty`` on the input's device, and
-launches on PyTorch's current stream.  It raises on anything the kernel
-does not take, and when the launch reports a CUDA error.
+* ``fused_phase1_cuda`` (``csrc/fused_phase1.cu``), replacing the TPU
+  kernel ``src/repro/kernels/fused_phase1/kernel.py::fused_phase1_pallas``;
+* ``fused_phase1_quant_cuda`` (``csrc/fused_phase1_quant.cu``), replacing
+  ``src/repro/kernels/fused_phase1/kernel.py::fused_phase1_quant_pallas``.
+
+Both share the running top-``page`` fold of ``csrc/topk_fold.cuh``.  The
+kernels allocate nothing: this module checks the inputs, sizes the launch
+(query tile, doc tile, doc splits) against the card, allocates the partial
+and final outputs with ``torch.empty`` on the input's device, and launches
+on PyTorch's current stream.  It raises on anything a kernel does not
+take, and when a launch reports a CUDA error.
 """
 
 from __future__ import annotations
 
 import ctypes
 import pathlib
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["fused_phase1_cuda", "KERNELS_PER_CALL", "MAX_PAGE", "MAX_COLUMNS",
-           "library"]
+__all__ = ["fused_phase1_cuda", "fused_phase1_quant_cuda", "KERNELS_PER_CALL",
+           "library", "quant_library"]
 
 KERNELS_PER_CALL = 2       # score_fold_kernel, then merge_splits_kernel
 
-MAX_PAGE = 1024            # next_pow2(page) slots per query in shared memory
-MAX_COLUMNS = 4096         # depth of the per-cell tree stack
 _MIN_TILE = 512            # docs sorted per tile (at least next_pow2(page))
-_BLOCK_Q = (8, 4, 2, 1)    # query-tile sizes, largest that fits wins
-_THREADS = 512             # kThreads of the kernel: cells scored at once
-_STAGE_BYTES = 1 << 16     # most shared memory for staged code rows
-_SMEM_OPTIN = 232448       # shared memory a block may opt into on sm_90
 _BLOCKS_PER_SM = 2         # doc splits aim at this many blocks per SM
 
-_SOURCES = (pathlib.Path(__file__).parent / "csrc" / "fused_phase1.cu",)
+_CSRC = pathlib.Path(__file__).parent / "csrc"
+_SHARED = (_CSRC / "topk_fold.cuh",
+           pathlib.Path(__file__).parents[1] / "csrc" / "match_tree.cuh")
+_SOURCES = (_CSRC / "fused_phase1.cu", *_SHARED)
+_QUANT_SOURCES = (_CSRC / "fused_phase1_quant.cu", *_SHARED)
 _ENTRY = {torch.int8: "fused_phase1_int8", torch.int16: "fused_phase1_int16",
           torch.int32: "fused_phase1_int32"}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
              + [ctypes.c_void_p] * 5)
+_QUANT_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p] * 5)
 
 
 def library() -> ctypes.CDLL:
-    """The built kernel library (nvcc at first use, then cached)."""
+    """The built fp32 kernel library (nvcc at first use, then cached)."""
     lib = _build.load_library("fused_phase1", _SOURCES)
     for fn in _ENTRY.values():
         getattr(lib, fn).argtypes = _ARGTYPES
@@ -51,79 +55,108 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def quant_library() -> ctypes.CDLL:
+    """The built int8 kernel library (nvcc at first use, then cached)."""
+    lib = _build.load_library("fused_phase1_quant", _QUANT_SOURCES)
+    lib.fused_phase1_quant.argtypes = _QUANT_ARGTYPES
+    lib.fused_phase1_quant.restype = ctypes.c_int
+    lib.fused_phase1_quant_smem_bytes.argtypes = [ctypes.c_int] * 6
+    lib.fused_phase1_quant_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
 def _next_pow2(x: int) -> int:
     return 1 << max(x - 1, 0).bit_length()
 
 
-def _row_stride(C: int, itemsize: int) -> int:
-    """Elements per staged code row: at least C, a whole and odd number of
-    4-byte words, so the 32 rows a warp reads at one column fall in 32
-    different shared-memory banks."""
-    per_word = 4 // itemsize
-    words = -(-C // per_word)
-    return (words + 1 - words % 2) * per_word
+def _fits(smem: Callable, Q: int, width: int, itemsize: int, page: int,
+          smem_max: int):
+    """-> (block_q, sub, stride, tile) for ``page``, or None when even a
+    query tile of one does not fit the card's shared memory."""
+    pp = _next_pow2(page)
+    tile = max(pp, _MIN_TILE)
+    if 16 * pp > smem_max:                 # merge_splits_kernel's buffers
+        return None
+    try:
+        sizes = _build.launch_sizes(
+            lambda bq, sub, stride: smem(bq, page, tile, sub, stride),
+            Q, width, itemsize, tile, smem_max)
+    except ValueError:
+        return None
+    return (*sizes, tile)
 
 
-def _launch_sizes(lib, itemsize, Q, C, page, tile, smem_max):
-    """-> (block_q, sub, stride): the largest query tile (at most Q) whose
-    shared memory fits, with ``sub`` staged rows (about one cell per
-    thread where the staging budget allows)."""
-    stride = _row_stride(C, itemsize)
-    need = None
-    for block_q in _BLOCK_Q:
-        block_q = min(block_q, Q)
-        sub = min(1 << ((_THREADS // block_q).bit_length() - 1), tile)
-        while sub > 1 and sub * stride * itemsize > _STAGE_BYTES:
-            sub //= 2
-        need = lib.fused_phase1_smem_bytes(itemsize, block_q, page, tile, C,
-                                           sub, stride)
-        if need <= smem_max:
-            return block_q, sub, stride
-    raise ValueError(f"C={C}, page={page} need {need} B of shared memory, "
-                     f"more than the card's {smem_max}")
+def _fold_plan(smem: Callable, d: int, Q: int, width: int, itemsize: int,
+               page: int, props):
+    """Launch sizes of one fold -> (block_q, sub, stride, tile, chunk,
+    splits).  Raises ValueError naming the largest page that fits when
+    ``page`` does not."""
+    smem_max = _build.smem_optin(props)
+    got = _fits(smem, Q, width, itemsize, page, smem_max)
+    if got is None:
+        p = _next_pow2(page) // 2
+        while p >= 1 and _fits(smem, 1, width, itemsize, p, smem_max) is None:
+            p //= 2
+        raise ValueError(f"page={page} does not fit the card's {smem_max} B "
+                         f"of shared memory at width {width}; the largest "
+                         f"page that fits is {p}")
+    block_q, sub, stride, tile = got
+    n_qt = -(-Q // block_q)
+    n_tiles = -(-d // tile)
+    splits = max(1, min(n_tiles, 65535,
+                        -(-_BLOCKS_PER_SM * props.multi_processor_count
+                          // n_qt)))
+    chunk = -(-n_tiles // splits) * tile
+    splits = -(-d // chunk)
+    return block_q, sub, stride, tile, chunk, splits
+
+
+def _same_device(dev, **tensors):
+    for name, t in tensors.items():
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name} on {t.device}, expected {dev}")
+
+
+def _contiguous(**tensors):
+    for name, t in tensors.items():
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_live(live, d):
+    if live is not None and (live.dtype != torch.bool
+                             or live.shape != (d,)):
+        raise ValueError(f"live must be bool of shape ({d},)")
+
+
+def _check_page(page, d):
+    if d < 1:
+        raise ValueError(f"empty doc table: d={d}")
+    if d >= 2 ** 31:
+        raise ValueError(f"d={d} does not fit int32 doc ids")
+    if not 1 <= page <= d:
+        raise ValueError(f"page={page} outside [1, d={d}]")
 
 
 def _check(doc_codes, qcodes, col_weights, page, live):
-    dev = doc_codes.device
-    if dev.type != "cuda":
-        raise ValueError(f"fused_phase1 kernel needs CUDA tensors, got {dev}")
-    for name, t in (("qcodes", qcodes), ("col_weights", col_weights),
-                    ("live", live)):
-        if t is not None and t.device != dev:
-            raise ValueError(f"{name} on {t.device}, doc_codes on {dev}")
-    if doc_codes.dtype not in _ENTRY:
-        raise TypeError(f"doc code dtype {doc_codes.dtype} not supported "
-                        f"(int8, int16, int32)")
-    if qcodes.dtype != doc_codes.dtype:
-        raise TypeError(f"qcodes {qcodes.dtype} != doc codes "
-                        f"{doc_codes.dtype}")
-    if col_weights.dtype != torch.float32:
-        raise TypeError(f"col_weights must be float32, got "
-                        f"{col_weights.dtype}")
-    if live is not None and (live.dtype != torch.bool
-                             or live.shape != (doc_codes.shape[0],)):
-        raise ValueError(f"live must be bool of shape "
-                         f"({doc_codes.shape[0]},)")
-    if doc_codes.dim() != 2 or qcodes.dim() != 2:
-        raise ValueError("doc_codes (d, C) and qcodes (Q, C) must be 2-D")
-    d, C = doc_codes.shape
-    Q = qcodes.shape[0]
-    if qcodes.shape[1] != C or col_weights.shape != (Q, C):
-        raise ValueError(f"shape mismatch: doc_codes {tuple(doc_codes.shape)}"
-                         f", qcodes {tuple(qcodes.shape)}, col_weights "
-                         f"{tuple(col_weights.shape)}")
-    for name, t in (("doc_codes", doc_codes), ("qcodes", qcodes),
-                    ("col_weights", col_weights), ("live", live)):
-        if t is not None and not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if d < 1 or Q < 1 or C < 1:
-        raise ValueError(f"empty input: d={d}, Q={Q}, C={C}")
-    if d >= 2 ** 31:
-        raise ValueError(f"d={d} does not fit int32 doc ids")
-    if C > MAX_COLUMNS:
-        raise ValueError(f"C={C} > {MAX_COLUMNS} code columns")
-    if not 1 <= page <= min(MAX_PAGE, d):
-        raise ValueError(f"page={page} outside [1, min({MAX_PAGE}, d={d})]")
+    _build.check_code_inputs("fused_phase1", doc_codes, qcodes, col_weights)
+    _same_device(doc_codes.device, live=live)
+    _check_live(live, doc_codes.shape[0])
+    _contiguous(live=live)
+    _check_page(page, doc_codes.shape[0])
+
+
+def _outputs(dev, Q, splits, page):
+    pp = _next_pow2(page)
+    return (torch.empty((Q, splits, pp), dtype=torch.float32, device=dev),
+            torch.empty((Q, splits, pp), dtype=torch.int32, device=dev),
+            torch.empty((Q, page), dtype=torch.float32, device=dev),
+            torch.empty((Q, page), dtype=torch.int32, device=dev))
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
 def fused_phase1_cuda(
@@ -133,37 +166,86 @@ def fused_phase1_cuda(
     page: int,
     live: Optional[torch.Tensor] = None,   # (d,) bool
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel -> (scores (Q, page) f32, ids (Q, page) int32)."""
+    """Launch the fp32 kernel -> (scores (Q, page) f32, ids (Q, page)
+    int32)."""
     _check(doc_codes, qcodes, col_weights, page, live)
     dev = doc_codes.device
     d, C = doc_codes.shape
     Q = qcodes.shape[0]
-    pp = _next_pow2(page)
-    tile = max(pp, _MIN_TILE)
-    props = torch.cuda.get_device_properties(dev)
-    smem_max = getattr(props, "shared_memory_per_block_optin", _SMEM_OPTIN)
+    es = doc_codes.element_size()
     lib = library()
-    block_q, sub, stride = _launch_sizes(
-        lib, doc_codes.element_size(), Q, C, page, tile, smem_max)
-    n_qt = -(-Q // block_q)
-    n_tiles = -(-d // tile)
-    splits = max(1, min(n_tiles, 65535,
-                        -(-_BLOCKS_PER_SM * props.multi_processor_count
-                          // n_qt)))
-    chunk = -(-n_tiles // splits) * tile
-    splits = -(-d // chunk)
-    part_s = torch.empty((Q, splits, pp), dtype=torch.float32, device=dev)
-    part_i = torch.empty((Q, splits, pp), dtype=torch.int32, device=dev)
-    out_s = torch.empty((Q, page), dtype=torch.float32, device=dev)
-    out_i = torch.empty((Q, page), dtype=torch.int32, device=dev)
+    block_q, sub, stride, tile, chunk, splits = _fold_plan(
+        lambda bq, p, t, sb, st: lib.fused_phase1_smem_bytes(
+            es, bq, p, t, C, sb, st),
+        d, Q, C, es, page, torch.cuda.get_device_properties(dev))
+    part_s, part_i, out_s, out_i = _outputs(dev, Q, splits, page)
     fn = getattr(lib, _ENTRY[doc_codes.dtype])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(doc_codes.data_ptr(), qcodes.data_ptr(), col_weights.data_ptr(),
-             None if live is None else live.data_ptr(),
-             d, C, Q, page, block_q, tile, sub, stride, chunk, splits,
-             part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
-             out_i.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_phase1 kernel launch failed: CUDA error "
-                           f"{err}")
+    _raise_on(fn(doc_codes.data_ptr(), qcodes.data_ptr(),
+                 col_weights.data_ptr(),
+                 None if live is None else live.data_ptr(),
+                 d, C, Q, page, block_q, tile, sub, stride, chunk, splits,
+                 part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
+                 out_i.data_ptr(), stream), "fused_phase1")
+    return out_s, out_i
+
+
+def _check_quant(codes8, scale, zero, queries, page, live):
+    dev = codes8.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_phase1_quant kernel needs CUDA tensors, "
+                         f"got {dev}")
+    _same_device(dev, scale=scale, zero=zero, queries=queries, live=live)
+    if codes8.dtype != torch.int8:
+        raise TypeError(f"codes8 must be int8, got {codes8.dtype}")
+    for name, t in (("scale", scale), ("zero", zero), ("queries", queries)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if codes8.dim() != 2 or queries.dim() != 2:
+        raise ValueError("codes8 (d, n) and queries (Q, n) must be 2-D")
+    d, n = codes8.shape
+    Q = queries.shape[0]
+    if queries.shape[1] != n or scale.shape != (d,) or zero.shape != (d,):
+        raise ValueError(f"shape mismatch: codes8 {tuple(codes8.shape)}, "
+                         f"scale {tuple(scale.shape)}, zero "
+                         f"{tuple(zero.shape)}, queries "
+                         f"{tuple(queries.shape)}")
+    _check_live(live, d)
+    _contiguous(codes8=codes8, scale=scale, zero=zero, queries=queries,
+                live=live)
+    if Q < 1 or n < 1:
+        raise ValueError(f"empty input: Q={Q}, n={n}")
+    _check_page(page, d)
+
+
+def fused_phase1_quant_cuda(
+    codes8: torch.Tensor,       # (d, n) int8 quantized rows, on the card
+    scale: torch.Tensor,        # (d,) f32
+    zero: torch.Tensor,         # (d,) f32
+    queries: torch.Tensor,      # (Q, n) f32
+    page: int,
+    live: Optional[torch.Tensor] = None,   # (d,) bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the int8 kernel -> (scores (Q, page) f32, ids (Q, page)
+    int32).  The query sums are taken here, as the reference's wrapper
+    takes them."""
+    _check_quant(codes8, scale, zero, queries, page, live)
+    dev = codes8.device
+    d, n = codes8.shape
+    Q = queries.shape[0]
+    qsum = queries.sum(dim=-1).contiguous()
+    lib = quant_library()
+    block_q, sub, stride, tile, chunk, splits = _fold_plan(
+        lambda bq, p, t, sb, st: lib.fused_phase1_quant_smem_bytes(
+            bq, p, t, n, sb, st),
+        d, Q, n, 1, page, torch.cuda.get_device_properties(dev))
+    part_s, part_i, out_s, out_i = _outputs(dev, Q, splits, page)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(lib.fused_phase1_quant(
+        codes8.data_ptr(), scale.data_ptr(), zero.data_ptr(),
+        queries.data_ptr(), qsum.data_ptr(),
+        None if live is None else live.data_ptr(),
+        d, n, Q, page, block_q, tile, sub, stride, chunk, splits,
+        part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
+        out_i.data_ptr(), stream), "fused_phase1_quant")
     return out_s, out_i

@@ -1,21 +1,25 @@
-"""Public wrapper of the fused phase-1 kernel.
+"""Public wrappers of the fused phase-1 kernels.
 
 ``fused_phase1`` scores every document by weighted code matches and keeps
-the top-``page`` in one pass, with no (Q, d) score matrix.  A CUDA tensor
-goes to the hand-written kernel (:mod:`.kernel`) or raises; a CPU tensor
-goes to the plain version (:func:`.ref.fused_phase1_stream`, folding the
-doc axis in tiles of 512).  Both are bit-equal to the composed reference
-in scores, and equal in ids wherever the score is finite.
+the top-``page`` in one pass, with no (Q, d) score matrix;
+``fused_phase1_quant`` does the same over the int8 per-row table
+(:mod:`repro_torch.core.quantize`).  A CUDA tensor goes to the hand-written
+kernel (:mod:`.kernel`) or raises; a CPU tensor goes to the plain version
+(:func:`.ref.fused_phase1_stream`, :func:`.ref.fused_phase1_quant_stream`,
+folding the doc axis in tiles of 512).  ``fused_phase1`` is bit-equal to
+the composed reference in scores, and equal in ids wherever the score is
+finite; ``fused_phase1_quant`` agrees with its composed reference to float
+tolerance (the order of the dot differs).
 
 Contract for -inf slots: when fewer than ``page`` docs are live, the
 trailing -inf slots carry an unspecified but in-range doc id.
 
-``launches`` counts the CUDA kernels this wrapper launched: each call on
-the card launches two, ``score_fold_kernel`` and ``merge_splits_kernel``
-(:data:`.kernel.KERNELS_PER_CALL`).  Calls made straight to
-:func:`.kernel.fused_phase1_cuda`, as a comparison with the plain version
-does, are not counted.  A run resets it to 0 to show that a path went
-through the kernels.
+``launches`` and ``quant_launches`` count the CUDA kernels each wrapper
+launched: each call on the card launches two, ``score_fold_kernel`` and
+``merge_splits_kernel`` (:data:`.kernel.KERNELS_PER_CALL`).  Calls made
+straight to :mod:`.kernel`, as a comparison with the plain version does,
+are not counted.  A run resets them to 0 to show that a path went through
+the kernels.
 """
 
 from __future__ import annotations
@@ -26,9 +30,11 @@ import torch
 
 from . import kernel, ref
 
-__all__ = ["fused_phase1", "launches"]
+__all__ = ["fused_phase1", "fused_phase1_quant", "launches",
+           "quant_launches"]
 
 launches = 0
+quant_launches = 0
 
 _CPU_BLOCK_D = 512
 
@@ -52,4 +58,28 @@ def fused_phase1(
         return out
     s, i = ref.fused_phase1_stream(doc_codes, qcodes, col_weights, page,
                                    live, block=_CPU_BLOCK_D)
+    return s, torch.clamp(i, max=d - 1)
+
+
+def fused_phase1_quant(
+    codes8: torch.Tensor,      # (d, n) int8 quantized rows
+    scale: torch.Tensor,       # (d,) f32
+    zero: torch.Tensor,        # (d,) f32
+    queries: torch.Tensor,     # (Q, n) f32
+    page: int,
+    live: Optional[torch.Tensor] = None,   # (d,) bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused int8 phase-1 -> (scores (Q, page) f32, ids (Q, page) int32),
+    with ``page`` clamped to the doc count.  Candidate selection only:
+    callers rescore the page against the exact fp32 vectors."""
+    global quant_launches
+    d = codes8.shape[0]
+    page = int(min(page, d))
+    if codes8.is_cuda:
+        out = kernel.fused_phase1_quant_cuda(codes8, scale, zero, queries,
+                                             page, live)
+        quant_launches += kernel.KERNELS_PER_CALL
+        return out
+    s, i = ref.fused_phase1_quant_stream(codes8, scale, zero, queries, page,
+                                         live, block=_CPU_BLOCK_D)
     return s, torch.clamp(i, max=d - 1)

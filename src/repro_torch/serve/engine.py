@@ -2,8 +2,8 @@
 
 Incoming query vectors are buffered until ``batch_size`` requests or
 ``max_wait_s`` after the OLDEST queued request (whichever first), padded
-to the fixed batch shape, run as ONE ``index.search`` on the index's
-device, and scattered back to their futures as numpy arrays.  Batch 1 is
+to the fixed batch shape, handed to ONE ``index.search`` as a CPU tensor
+(the index moves it to its own device), and scattered back to their futures as numpy arrays.  Batch 1 is
 the lowest latency; batch N trades latency for N-fold throughput.
 
 The engine is index-polymorphic: anything with the ``VectorIndex.search``
@@ -41,12 +41,15 @@ class BatchedSearchEngine:
         k: int = 10,
         page: int = 320,
         trim: Optional[TrimFilter] = TrimFilter(0.05),
-        engine: str = "fused",
+        engine: str = "codes",
+        max_postings: Optional[int] = None,
     ):
         self.index = index
         self.batch_size = batch_size
         self.max_wait_s = max_wait_s
         self.k, self.page, self.trim, self.engine = k, page, trim, engine
+        # None omits the argument, so an index without it keeps serving
+        self.max_postings = max_postings
         self._lock = threading.Condition()
         self._queue: List[tuple] = []      # (query, future, enqueue time)
         self._stop = False
@@ -147,10 +150,13 @@ class BatchedSearchEngine:
         pad = self.batch_size - qs.shape[0]
         if pad:
             qs = np.concatenate([qs, np.zeros((pad, qs.shape[1]), qs.dtype)])
-        device = getattr(index, "device", "cpu")
+        kwargs = {}
+        if self.max_postings is not None:
+            kwargs["max_postings"] = self.max_postings
+        # the index puts the batch on its own device
         ids, scores = index.search(
-            torch.as_tensor(qs, device=device), k=self.k, page=self.page,
-            trim=self.trim, engine=self.engine)
+            torch.from_numpy(qs), k=self.k, page=self.page, trim=self.trim,
+            engine=self.engine, **kwargs)
         return np.asarray(torch.as_tensor(ids).cpu()), \
             np.asarray(torch.as_tensor(scores).cpu())
 

@@ -1,7 +1,10 @@
-"""repro_torch fused phase-1 (plain version and CUDA kernel) against JAX.
+"""repro_torch fused phase-1 (plain versions and CUDA kernels) against JAX.
 
 The fp32 contract: scores bit-equal everywhere, ids equal wherever the
-score is finite, every id in range.  On the CPU the public wrapper runs the
+score is finite, every id in range.  The int8 contract
+(``fused_phase1_quant``) is the reference suite's ``_assert_quant_parity``:
+scores within rtol 1e-5 and atol 1e-4, ids equal wherever the reference
+separates neighbours by more than 1e-4, every id in range.  On the CPU the public wrapper runs the
 plain version; the CUDA kernel's algorithm (bit-reversed tree per cell,
 bitonic tile sort and merge, doc splits) is pinned here by a numpy
 emulation, and the kernel itself by ``tests/test_torch_cuda.py`` on the
@@ -13,8 +16,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import quantize as jquant
 from repro.kernels.fused_phase1 import ops as jops
 from repro.kernels.fused_phase1 import ref as jref
+from repro_torch.core import quantize as tquant
+from repro_torch.kernels import _build
 from repro_torch.kernels.fused_phase1 import kernel as tkernel
 from repro_torch.kernels.fused_phase1 import ops as tops
 from repro_torch.kernels.fused_phase1 import ref as tref
@@ -113,11 +119,98 @@ def test_stream_block_invariance(block):
 
 
 def test_kernel_wrapper_rejects_cpu_tensors():
-    """The CUDA launcher never runs the plain version: a CPU tensor is an
+    """The CUDA launchers never run the plain versions: a CPU tensor is an
     error there, raised before any build."""
     D, Q, W = _t(*_inputs(10, 1, 4, np.int8))
     with pytest.raises(ValueError, match="CUDA"):
         tkernel.fused_phase1_cuda(D, Q, W, 5)
+    codes, scale, zero = tquant.quantize_rows(torch.randn(10, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        tkernel.fused_phase1_quant_cuda(codes, scale, zero,
+                                        torch.randn(2, 4), 5)
+
+
+# ------------------------------------------------------------ int8 fold
+def _assert_quant_parity(got, want, d, tol=1e-4):
+    s_g, i_g = (np.asarray(x) for x in got)
+    s_w, i_w = (np.asarray(x) for x in want)
+    assert s_g.dtype == np.float32 and i_g.dtype == np.int32
+    fin = np.isfinite(s_w)
+    assert np.array_equal(fin, np.isfinite(s_g))
+    np.testing.assert_allclose(s_g[fin], s_w[fin], rtol=1e-5, atol=tol)
+    sep = fin.copy()
+    if s_w.shape[1] > 1:
+        with np.errstate(invalid="ignore"):   # -inf slots: nan gap, no tie
+            tie = np.abs(s_w[:, :-1] - s_w[:, 1:]) <= tol
+        sep[:, 1:] &= ~tie
+        sep[:, :-1] &= ~tie
+    assert np.array_equal(i_g[sep], i_w[sep])
+    assert (i_g >= 0).all() and (i_g < d).all()
+
+
+def _quant_inputs(d, n, q, seed):
+    """The reference suite's inputs: rows at mixed scales, quantized by
+    JAX; the port gets the very same table."""
+    rng = np.random.default_rng(seed)
+    V = rng.normal(size=(d, n)).astype(np.float32) * \
+        rng.uniform(0.1, 4.0, size=(d, 1)).astype(np.float32)
+    codes, scale, zero = (np.array(a) for a in
+                          jquant.quantize_rows(jnp.asarray(V)))
+    Q = rng.normal(size=(q, n)).astype(np.float32)
+    return codes, scale, zero, Q, rng
+
+
+QUANT_SHAPES = [(64, 8, 1, 16), (300, 16, 4, 33), (513, 32, 8, 64),
+                (100, 1, 2, 10), (2000, 24, 9, 320)]
+
+
+@pytest.mark.parametrize("shape", QUANT_SHAPES)
+def test_fused_phase1_quant_vs_jax(shape):
+    """The port's int8 wrapper (streamed fold), its composed reference and
+    the JAX wrapper (Pallas interpret) against the JAX composed oracle."""
+    d, n, q, page = shape
+    codes, scale, zero, Q, _ = _quant_inputs(d, n, q, sum(shape))
+    jargs = [jnp.asarray(a) for a in (codes, scale, zero, Q)]
+    want = jref.fused_phase1_quant_ref(*jargs, page=page)
+    before = tops.quant_launches
+    got = tops.fused_phase1_quant(*_t(codes, scale, zero, Q), page=page)
+    assert tops.quant_launches == before    # the CPU path launches nothing
+    _assert_quant_parity(got, want, d)
+    _assert_quant_parity(tref.fused_phase1_quant_ref(
+        *_t(codes, scale, zero, Q), page=page), want, d)
+    _assert_quant_parity(got, jops.fused_phase1_quant(
+        *jargs, page=page, force_pallas=True), d)
+
+
+@pytest.mark.parametrize("force", [False, True])
+def test_fused_phase1_quant_live_mask(force):
+    """Fewer live docs than page: the finite prefix is the live docs'
+    ranking, the rest -inf with in-range ids."""
+    d, n, q, page = 90, 12, 3, 48
+    codes, scale, zero, Q, rng = _quant_inputs(d, n, q, 4)
+    live = rng.random(d) < 0.3
+    n_live = int(live.sum())
+    assert 0 < n_live < page
+    want = jops.fused_phase1_quant(
+        *[jnp.asarray(a) for a in (codes, scale, zero, Q)], page=page,
+        live=jnp.asarray(live), force_pallas=force)
+    got = tops.fused_phase1_quant(*_t(codes, scale, zero, Q), page=page,
+                                  live=torch.from_numpy(live))
+    _assert_quant_parity(got, want, d)
+    s = got[0].numpy()
+    assert (np.isfinite(s).sum(axis=1) == n_live).all()
+    assert live[got[1].numpy()[np.isfinite(s)]].all()
+
+
+@pytest.mark.parametrize("block", [1, 7, 64, 512, 4096])
+def test_quant_stream_block_invariance(block):
+    """The int8 plain fold agrees with its composed reference for any doc
+    tile (the product's reduction order may differ per tile width)."""
+    codes, scale, zero, Q, _ = _quant_inputs(300, 16, 4, 9)
+    args = _t(codes, scale, zero, Q)
+    want = tref.fused_phase1_quant_ref(*args, page=33)
+    got = tref.fused_phase1_quant_stream(*args, page=33, block=block)
+    _assert_quant_parity(got, want, 300)
 
 
 # ---------------------------------------------------- kernel emulation
@@ -190,7 +283,8 @@ def _emu_merge(acc_s, acc_i, src_s, src_i):
 
 
 def _emu_kernel(D, Q, W, page, live, splits, tile):
-    """score_fold_kernel over `splits` doc splits, then merge_splits."""
+    """score_fold_kernel over `splits` doc splits (each tile's entrants
+    compacted, sorted and merged), then merge_splits."""
     d = D.shape[0]
     pp = 1 << max(page - 1, 0).bit_length()
     tile = max(tile, pp)
@@ -209,6 +303,17 @@ def _emu_kernel(D, Q, W, page, live, splits, tile):
             ts = np.where(ok, S[:, np.minimum(doc, d - 1)], -np.inf).astype(
                 np.float32)
             ti = np.broadcast_to(doc, ts.shape).copy()
+            # only entries ahead of the accumulator's last can enter: those
+            # move to the front, the rest become (-inf, INT_MAX) padding
+            keep = _before(ts, ti, acc_s[:, -1:], acc_i[:, -1:])
+            if not keep.any():
+                continue
+            order = np.argsort(~keep, axis=1, kind="stable")
+            ts = np.where(np.take_along_axis(keep, order, 1),
+                          np.take_along_axis(ts, order, 1),
+                          np.float32(-np.inf)).astype(np.float32)
+            ti = np.where(np.take_along_axis(keep, order, 1),
+                          np.take_along_axis(ti, order, 1), 2**31 - 1)
             _emu_sort(ts, ti)
             _emu_merge(acc_s, acc_i, ts, ti)
         parts.append((acc_s, acc_i))
@@ -240,8 +345,30 @@ def test_kernel_algorithm_emulation(shape, splits):
 def test_staged_row_stride_is_bank_conflict_free(C, itemsize):
     """The kernel stages code rows at this stride: the 32 rows a warp
     reads at one column must sit in 32 different 4-byte banks."""
-    stride = tkernel._row_stride(C, itemsize)
+    stride = _build.row_stride(C, itemsize)
     assert stride >= C and (stride * itemsize) % 4 == 0
     for c in (0, C - 1):
         banks = {((j * stride + c) * itemsize // 4) % 32 for j in range(32)}
         assert len(banks) == 32
+
+
+@pytest.mark.parametrize("sources", [
+    tkernel._SOURCES, tkernel._QUANT_SOURCES,
+    __import__("repro_torch.kernels.code_match.kernel",
+               fromlist=["_SOURCES"])._SOURCES],
+    ids=["fused_phase1", "fused_phase1_quant", "code_match"])
+def test_library_sources_name_every_included_header(sources):
+    """A library is cached under the hash of its sources, so every header
+    its .cu files include (directly or through another header) must be
+    among them: else an edit to the header would reuse a stale build."""
+    import re
+
+    listed = {p.resolve() for p in sources}
+    todo = [p for p in sources if p.suffix == ".cu"]
+    assert todo
+    while todo:
+        src = todo.pop()
+        for inc in re.findall(r'#include "([^"]+)"', src.read_text()):
+            dep = (src.parent / inc).resolve()
+            assert dep in listed, f"{src.name} includes {inc}, not listed"
+            todo.append(dep)

@@ -2,7 +2,7 @@
 
 A JAX ``VectorIndex`` is carried across with ``interop.index_from_numpy``
 so that both packages search the very same index bits with
-``engine="fused"``.  Stated tolerances: final scores within 1e-5 (the fp32
+``engine="fused"`` (every other engine: ``tests/test_torch_engines.py``).  Stated tolerances: final scores within 1e-5 (the fp32
 rescore reduces in another order), ids equal wherever neighbouring gold
 scores are more than 1e-5 apart, query codes exact, idf weights rtol 1e-6,
 ``normalize`` atol 1e-6, ``exact_scores`` atol 1e-5.
@@ -148,20 +148,12 @@ def test_build_from_raw_vectors(enc_pair, index_best):
         jidx.search(jnp.asarray(Q), k=10, page=N_DOCS, engine="fused"))
 
 
-@pytest.mark.parametrize("engine", ["postings", "codes", "onehot",
-                                    "codes_pallas", "fused_int8"])
-def test_unported_engines_raise(pair, engine):
-    _, tidx, Q = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tidx.search(Q, engine=engine)
-
-
 def test_unknown_engine_and_params():
     X, _ = _data()
     tidx = VectorIndex.build(X[:50], device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         tidx.search(X[:2], engine="nope")
-    ids, s = tidx.search(X[0], k=100, page=500)   # "fused" by default
+    ids, s = tidx.search(X[0], k=100, page=500)   # "postings" by default
     assert ids.shape == s.shape == (1, 50)        # k and page clamp to d
 
 

@@ -1,6 +1,6 @@
 """repro_torch BatchedSearchEngine: batching is invisible and the
 lifecycle is safe -- the reference's engine contract, on the port's index
-with the ``fused`` engine.
+(with the ``fused`` engine unless a test names another).
 
 Results come back as numpy and equal a direct ``index.search`` of the same
 padded batch bit for bit; a single request equals its unpadded search in
@@ -55,9 +55,9 @@ def test_batched_results_match_direct_search(index, queries):
         np.testing.assert_allclose(scores, gold_s[i], rtol=1e-6, atol=0)
 
 
-def test_defaults_serve_the_fused_engine(index, queries):
-    """With no engine named, the engine serves through ``fused``, the one
-    engine ported, with the reference's other defaults."""
+def test_defaults_serve_the_codes_engine(index, queries):
+    """With no engine named, the engine serves through ``codes`` with the
+    reference's other defaults, as the reference's engine does."""
     eng = BatchedSearchEngine(index)
     try:
         ids, scores = eng.submit(queries[0]).result(timeout=60)
@@ -65,7 +65,7 @@ def test_defaults_serve_the_fused_engine(index, queries):
         eng.close()
     want_ids, want_s = index.search(torch.from_numpy(queries[:1]), k=10,
                                     page=320, trim=TrimFilter(0.05),
-                                    engine="fused")
+                                    engine="codes")
     assert np.array_equal(ids, want_ids[0].numpy())
     np.testing.assert_allclose(scores, want_s[0].numpy(), rtol=1e-6, atol=0)
 
@@ -289,13 +289,66 @@ def test_plain_index_has_no_ingest(index, queries, op):
         eng.close()
 
 
-def test_unported_engine_fails_its_batch(index, queries):
-    """The engine never quietly swaps engines: an unported one fails the
-    batch with NotImplementedError."""
-    eng = BatchedSearchEngine(index, batch_size=2, k=5, page=N_DOCS,
-                              engine="codes")
+class _RecordingIndex:
+    """index.search stand-in that records what each call was given."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.calls = []
+
+    def search(self, queries, **kw):
+        self.calls.append((queries, kw))
+        return self.inner.search(queries, **kw)
+
+
+@pytest.mark.parametrize("max_postings", [None, 3])
+def test_max_postings_reaches_the_index(index, queries, max_postings):
+    """``max_postings`` is passed through to ``index.search``, and left
+    out when it is None, as in the reference; the capped search answers
+    what a direct capped search answers."""
+    rec = _RecordingIndex(index)
+    eng = BatchedSearchEngine(rec, batch_size=2, k=5, page=40,
+                              engine="postings", max_postings=max_postings)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ids, _ = eng.submit(queries[0]).result(timeout=60)
+    finally:
+        eng.close()
+    (_, kw), = rec.calls
+    assert kw.get("max_postings") == max_postings
+    assert ("max_postings" in kw) == (max_postings is not None)
+    padded = np.concatenate([queries[:1], np.zeros((1, N_FEAT), np.float32)])
+    want, _ = index.search(torch.from_numpy(padded), k=5, page=40,
+                           trim=TrimFilter(0.05), engine="postings",
+                           max_postings=max_postings)
+    assert np.array_equal(ids, want[0].numpy())
+
+
+def test_batch_reaches_the_index_on_the_cpu(index, queries):
+    """The engine hands the padded batch over as a CPU tensor and the
+    index puts it on its own device: an index without ``device`` is not
+    served on a device the engine guessed."""
+    rec = _RecordingIndex(index)
+    eng = BatchedSearchEngine(rec, batch_size=4, **KW)
+    try:
+        eng.submit(queries[0]).result(timeout=60)
+    finally:
+        eng.close()
+    (batch, _), = rec.calls
+    assert isinstance(batch, torch.Tensor) and batch.device.type == "cpu"
+    assert batch.shape == (4, N_FEAT) and batch.dtype == torch.float32
+
+
+def test_unknown_engine_fails_only_its_batch(index, queries):
+    """A search that raises (here an unknown engine) fails its own batch
+    with the index's error, and the worker serves the next batch."""
+    eng = BatchedSearchEngine(index, batch_size=2, k=5, page=N_DOCS,
+                              engine="nope")
+    try:
+        with pytest.raises(ValueError, match="unknown engine"):
             eng.submit(queries[0]).result(timeout=60)
+        assert eng._worker.is_alive()
+        eng.engine = "codes"
+        ids, _ = eng.submit(queries[1]).result(timeout=60)
+        assert ids.shape == (5,)
     finally:
         eng.close()

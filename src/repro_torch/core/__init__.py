@@ -2,6 +2,8 @@
 
 from .encoding import CombinedEncoder, IntervalEncoder, RoundingEncoder
 from .filtering import BestFilter, TrimFilter
+from .metrics import avg_diff, ndcg_k, precision_at_k
+from .mlt import MLTIndex
 from .rerank import brute_force_topk, normalize, rerank_topk
 from .search import FUSED_ENGINES, SearchParams, VectorIndex
 
@@ -11,9 +13,13 @@ __all__ = [
     "RoundingEncoder",
     "BestFilter",
     "TrimFilter",
+    "MLTIndex",
     "VectorIndex",
     "SearchParams",
     "FUSED_ENGINES",
+    "avg_diff",
+    "ndcg_k",
+    "precision_at_k",
     "brute_force_topk",
     "normalize",
     "rerank_topk",

@@ -14,7 +14,7 @@ from typing import Tuple
 import torch
 
 __all__ = ["normalize", "exact_scores", "rerank_topk", "brute_force_topk",
-           "stable_topk"]
+           "stable_topk", "check_fp32_matmul"]
 
 
 def stable_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor,
@@ -25,7 +25,8 @@ def stable_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor,
     return s[..., :k], pos[..., :k]
 
 
-def _check_fp32_matmul(t: torch.Tensor) -> None:
+def check_fp32_matmul(t: torch.Tensor) -> None:
+    """Raise when a float32 product on ``t``'s card would run in TF32."""
     if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("exact fp32 rescore needs "
                            "torch.backends.cuda.matmul.allow_tf32 = False")
@@ -39,7 +40,7 @@ def normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 def exact_scores(vectors: torch.Tensor, ids: torch.Tensor,
                  queries: torch.Tensor) -> torch.Tensor:
     """Exact cosines of the selected ids, (Q, k) from a (Q, k, n) product."""
-    _check_fp32_matmul(vectors)
+    check_fp32_matmul(vectors)
     return torch.einsum("qkn,qn->qk", vectors[ids], queries)
 
 
@@ -50,7 +51,7 @@ def rerank_topk(
     k: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact cosine top-k among the candidates -> (ids (Q,k), scores (Q,k))."""
-    _check_fp32_matmul(vectors)
+    check_fp32_matmul(vectors)
     cand_ids = cand_ids.long()
     scores = torch.einsum("qpn,qn->qp", vectors[cand_ids], queries)
     _, top_pos = stable_topk(scores, k)
@@ -69,7 +70,7 @@ def brute_force_topk(
     The doc axis is walked in blocks folded into a running stable top-k,
     so no (Q, d) matrix larger than a block ever exists.  ``k`` clamps to
     the corpus size."""
-    _check_fp32_matmul(vectors)
+    check_fp32_matmul(vectors)
     d = vectors.shape[0]
     k = min(k, d)
     Q = queries.shape[0]

@@ -9,9 +9,17 @@ package's ``kernel.py`` / ``ops.py`` / ``ref.py`` split:
   of the same file); both share the fold of ``csrc/topk_fold.cuh``;
 * ``code_match`` -- the full (Q, d) code-match matrix (the
   ``codes_pallas`` engine; ``csrc/code_match.cu``, replacing
-  ``src/repro/kernels/code_match/kernel.py::code_match_pallas``).
+  ``src/repro/kernels/code_match/kernel.py::code_match_pallas``);
+* ``rerank_topk`` -- phase-2 exact scores of a candidate page, the gather
+  of the rows by id fused in (``csrc/rerank_topk.cu``, replacing
+  ``src/repro/kernels/rerank_topk/kernel.py::rerank_scores_pallas``);
+* ``bucketize`` -- fused row normalize + quantize at build and ingest
+  (``csrc/bucketize.cu``, replacing
+  ``src/repro/kernels/bucketize/kernel.py::bucketize_pallas``).
 
-``csrc/match_tree.cuh`` holds the fp32 code-match cell scorer both
-code-match kernels use.  ``_build`` compiles the CUDA sources with
-``nvcc`` at first use.
+As in the JAX package, ``VectorIndex`` does not call the last two: they
+are reached through their wrappers, ``rerank_topk.ops.rerank_topk`` and
+``bucketize.ops.encode``.  ``csrc/match_tree.cuh`` holds the fp32
+code-match cell scorer both code-match kernels use.  ``_build`` compiles
+the CUDA sources with ``nvcc`` at first use.
 """

@@ -17,8 +17,9 @@
 // before any is compared with the accumulator; tiles are scored with no
 // overlap of loads and compute.
 //
-// Limits: C <= 4096 (stack depth), and the shared memory the wrapper
-// computes must fit the card's opt-in maximum.
+// Limits: C <= 4096 (stack depth), and the queries and staged rows must
+// fit the card's shared memory; any page runs (topk_fold.cuh's workspace
+// route past P2 = 8192).
 
 #include "topk_fold.cuh"
 
@@ -64,7 +65,8 @@ template <typename T>
 int launch(const void* doc_codes, const void* qcodes, const void* col_weights,
            const void* live, int d, int C, int Q, int page, int block_q,
            int tile, int sub, int stride, int chunk, int splits, void* part_s,
-           void* part_i, void* out_s, void* out_i, void* stream) {
+           void* part_i, void* out_s, void* out_i, void* fold_ws,
+           void* merge_ws, void* stream) {
   if (C < 1 || C > (1 << kMaxLogC)) return (int)cudaErrorInvalidValue;
   const MatchScorer<T> sc{static_cast<const T*>(qcodes),
                           static_cast<const float*>(col_weights), C,
@@ -74,30 +76,35 @@ int launch(const void* doc_codes, const void* qcodes, const void* col_weights,
       static_cast<const uint8_t*>(live), d, C, Q, page, block_q, tile, sub,
       stride, chunk, splits, static_cast<float*>(part_s),
       static_cast<int*>(part_i), static_cast<float*>(out_s),
-      static_cast<int*>(out_i), stream);
+      static_cast<int*>(out_i), static_cast<int*>(fold_ws),
+      static_cast<int*>(merge_ws), stream);
 }
 
 template <typename T>
 long long smem_bytes(int block_q, int page, int tile, int C, int sub,
-                     int stride) {
+                     int stride, int spill) {
   const MatchScorer<T> sc{nullptr, nullptr, C, 0};
   return (long long)topk_fold::scorer_layout(sc, block_q,
                                              1 << log2_ceil(page), tile, sub,
-                                             stride)
+                                             stride, spill != 0)
       .total;
 }
 
 }  // namespace
 
-// Shared memory bytes pass 1 needs for these launch sizes (-1 for an
-// element size the kernel does not take).
+// Shared memory bytes pass 1 needs for these launch sizes, with the
+// accumulator and tile in shared memory (spill 0) or in the workspace
+// (spill 1); -1 for an element size the kernel does not take.
 extern "C" long long fused_phase1_smem_bytes(int esize, int block_q,
                                              int page, int tile, int C,
-                                             int sub, int stride) {
+                                             int sub, int stride, int spill) {
   switch (esize) {
-    case 1: return smem_bytes<int8_t>(block_q, page, tile, C, sub, stride);
-    case 2: return smem_bytes<int16_t>(block_q, page, tile, C, sub, stride);
-    case 4: return smem_bytes<int32_t>(block_q, page, tile, C, sub, stride);
+    case 1:
+      return smem_bytes<int8_t>(block_q, page, tile, C, sub, stride, spill);
+    case 2:
+      return smem_bytes<int16_t>(block_q, page, tile, C, sub, stride, spill);
+    case 4:
+      return smem_bytes<int32_t>(block_q, page, tile, C, sub, stride, spill);
     default: return -1;
   }
 }
@@ -108,10 +115,10 @@ extern "C" long long fused_phase1_smem_bytes(int esize, int block_q,
                       int C, int Q, int page, int block_q, int tile,         \
                       int sub, int stride, int chunk, int splits,            \
                       void* part_s, void* part_i, void* out_s, void* out_i,  \
-                      void* stream) {                                        \
+                      void* fold_ws, void* merge_ws, void* stream) {         \
     return launch<T>(doc_codes, qcodes, col_weights, live, d, C, Q, page,    \
                      block_q, tile, sub, stride, chunk, splits, part_s,      \
-                     part_i, out_s, out_i, stream);                          \
+                     part_i, out_s, out_i, fold_ws, merge_ws, stream);       \
   }
 
 FUSED_PHASE1_ENTRY(fused_phase1_int8, int8_t)

@@ -103,14 +103,16 @@ struct QuantScorer {
 
 }  // namespace
 
-// Shared memory bytes pass 1 needs for these launch sizes.
+// Shared memory bytes pass 1 needs for these launch sizes, with the
+// accumulator and tile in shared memory (spill 0) or in the workspace
+// (spill 1).
 extern "C" long long fused_phase1_quant_smem_bytes(int block_q, int page,
                                                    int tile, int n, int sub,
-                                                   int stride) {
+                                                   int stride, int spill) {
   const QuantScorer sc{nullptr, nullptr, nullptr, nullptr, n};
   return (long long)topk_fold::scorer_layout(sc, block_q,
                                              1 << log2_ceil(page), tile, sub,
-                                             stride)
+                                             stride, spill != 0)
       .total;
 }
 
@@ -120,7 +122,8 @@ extern "C" int fused_phase1_quant(const void* codes8, const void* scale,
                                   int n, int Q, int page, int block_q,
                                   int tile, int sub, int stride, int chunk,
                                   int splits, void* part_s, void* part_i,
-                                  void* out_s, void* out_i, void* stream) {
+                                  void* out_s, void* out_i, void* fold_ws,
+                                  void* merge_ws, void* stream) {
   if (n < 1 || stride % 4) return (int)cudaErrorInvalidValue;
   const QuantScorer sc{static_cast<const float*>(queries),
                        static_cast<const float*>(qsum),
@@ -131,5 +134,6 @@ extern "C" int fused_phase1_quant(const void* codes8, const void* scale,
       static_cast<const uint8_t*>(live), d, n, Q, page, block_q, tile, sub,
       stride, chunk, splits, static_cast<float*>(part_s),
       static_cast<int*>(part_i), static_cast<float*>(out_s),
-      static_cast<int*>(out_i), stream);
+      static_cast<int*>(out_i), static_cast<int*>(fold_ws),
+      static_cast<int*>(merge_ws), stream);
 }

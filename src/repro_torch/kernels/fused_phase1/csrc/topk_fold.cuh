@@ -35,10 +35,17 @@
 //   float cell(const float* qa, const unsigned char* qb, int q,
 //              const Row* row, int doc)   -- one cell (device)
 //
-// Limits: every buffer is dynamic shared memory; the wrapper sizes the
-// launch against the card's opt-in maximum and raises when even a query
-// tile of one does not fit (the accumulator and the tile take 16 bytes
-// per slot of P2, so P2 <= 8192 on an H100).
+// Where the buffers live: the accumulator and the tile take 16 bytes per
+// slot of P2 and query, so past P2 = 8192 they do not fit a block's shared
+// memory on an H100 even at a query tile of one.  Then the wrapper hands
+// pass 1 a device-memory workspace (`fold_ws`, one slice per block) and
+// the accumulator and tile live there; the queries, the counts and the
+// staged rows stay in shared memory.  The selection code is the same on
+// either route: it takes plain pointers, and __syncthreads() orders a
+// block's global accesses as it orders its shared ones.  Pass 2 keeps its
+// accumulator (8 bytes per slot) in shared memory, or in `merge_ws` when
+// that does not fit, and reads the split lists straight from `part`.
+// Every buffer is allocated by the wrapper; the kernels allocate nothing.
 
 #pragma once
 
@@ -165,21 +172,30 @@ __device__ int compact_entrants(float* til_s, int* til_i, const float* acc_s,
 // Byte offsets of score_fold_kernel's shared memory: the one layout the
 // kernel addresses and the wrapper sizes its launch by.  Every buffer
 // starts on a 16-byte boundary, so a scorer may read its queries and rows
-// with vector loads.
+// with vector loads.  With `spill` the accumulator and tile take no
+// shared memory: they live in the workspace (fold_ws_words per block).
 struct FoldLayout {
   size_t acc_s, acc_i, til_s, til_i, count, qa, qb, rows, total;
 };
 
+__host__ __device__ inline size_t fold_ws_words(int block_q, int pp,
+                                                int tile) {
+  return (size_t)block_q * (pp + tile) * 2;
+}
+
 __host__ __device__ inline FoldLayout fold_layout(int block_q, int pp,
                                                   int tile, size_t qa_bytes,
                                                   size_t qb_bytes,
-                                                  size_t rows_bytes) {
+                                                  size_t rows_bytes,
+                                                  bool spill) {
   FoldLayout L;
+  const size_t acc = spill ? 0 : (size_t)block_q * pp * 4;
+  const size_t til = spill ? 0 : (size_t)block_q * tile * 4;
   size_t o = 0;
-  L.acc_s = o; o = align16(o + (size_t)block_q * pp * 4);
-  L.acc_i = o; o = align16(o + (size_t)block_q * pp * 4);
-  L.til_s = o; o = align16(o + (size_t)block_q * tile * 4);
-  L.til_i = o; o = align16(o + (size_t)block_q * tile * 4);
+  L.acc_s = o; o = align16(o + acc);
+  L.acc_i = o; o = align16(o + acc);
+  L.til_s = o; o = align16(o + til);
+  L.til_i = o; o = align16(o + til);
   L.count = o; o = align16(o + (size_t)block_q * 4);
   L.qa = o;    o = align16(o + qa_bytes);
   L.qb = o;    o = align16(o + qb_bytes);
@@ -191,10 +207,11 @@ __host__ __device__ inline FoldLayout fold_layout(int block_q, int pp,
 template <typename S>
 __host__ __device__ inline FoldLayout scorer_layout(const S& sc, int block_q,
                                                     int pp, int tile,
-                                                    int sub, int stride) {
+                                                    int sub, int stride,
+                                                    bool spill) {
   return fold_layout(block_q, pp, tile, sc.qa_bytes(block_q),
                      sc.qb_bytes(block_q),
-                     (size_t)sub * stride * sizeof(typename S::Row));
+                     (size_t)sub * stride * sizeof(typename S::Row), spill);
 }
 
 // Pass 1 (see the file note).
@@ -204,14 +221,24 @@ score_fold_kernel(const S sc, const typename S::Row* __restrict__ rows_g,
                   const uint8_t* __restrict__ live, int d, int width, int Q,
                   int block_q, int pp, int tile, int sub, int stride,
                   int chunk, int splits, float* __restrict__ part_s,
-                  int* __restrict__ part_i) {
+                  int* __restrict__ part_i, int* __restrict__ fold_ws) {
   using Row = typename S::Row;
   extern __shared__ __align__(16) unsigned char smem[];
-  const FoldLayout L = scorer_layout(sc, block_q, pp, tile, sub, stride);
+  const bool spill = fold_ws != nullptr;
+  const FoldLayout L =
+      scorer_layout(sc, block_q, pp, tile, sub, stride, spill);
   float* acc_s = reinterpret_cast<float*>(smem + L.acc_s);
   int* acc_i = reinterpret_cast<int*>(smem + L.acc_i);
   float* til_s = reinterpret_cast<float*>(smem + L.til_s);
   int* til_i = reinterpret_cast<int*>(smem + L.til_i);
+  if (spill) {             // this block's slice of the workspace
+    int* ws = fold_ws + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) *
+                            fold_ws_words(block_q, pp, tile);
+    acc_s = reinterpret_cast<float*>(ws);
+    acc_i = ws + (size_t)block_q * pp;
+    til_s = reinterpret_cast<float*>(ws + (size_t)2 * block_q * pp);
+    til_i = ws + (size_t)2 * block_q * pp + (size_t)block_q * tile;
+  }
   int* count = reinterpret_cast<int*>(smem + L.count);
   float* s_qa = reinterpret_cast<float*>(smem + L.qa);
   unsigned char* s_qb = smem + L.qb;
@@ -276,49 +303,49 @@ score_fold_kernel(const S sc, const typename S::Row* __restrict__ rows_g,
   }
 }
 
-// Pass 2: shared memory 16 * pp bytes (accumulator and one source list).
+// Pass 2: one block per query folds the split lists into an accumulator
+// in shared memory (8 * pp bytes), or in `merge_ws` (pp slots a query)
+// when that does not fit; the lists are read where pass 1 wrote them.
 __global__ void __launch_bounds__(kThreads)
 merge_splits_kernel(const float* __restrict__ part_s,
                     const int* __restrict__ part_i, int splits, int pp,
-                    int page, int d, float* __restrict__ out_s,
-                    int* __restrict__ out_i) {
+                    int page, int d, int* __restrict__ merge_ws,
+                    float* __restrict__ out_s, int* __restrict__ out_i) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int q = blockIdx.x;
   float* acc_s = reinterpret_cast<float*>(smem);
   int* acc_i = reinterpret_cast<int*>(acc_s + pp);
-  float* src_s = reinterpret_cast<float*>(acc_i + pp);
-  int* src_i = reinterpret_cast<int*>(src_s + pp);
-
-  const int q = blockIdx.x;
+  if (merge_ws != nullptr) {
+    acc_s = reinterpret_cast<float*>(merge_ws + (size_t)q * 2 * pp);
+    acc_i = merge_ws + (size_t)q * 2 * pp + pp;
+  }
   const size_t row = (size_t)q * splits * pp;
   for (int i = threadIdx.x; i < pp; i += blockDim.x) {
     acc_s[i] = part_s[row + i];
     acc_i[i] = part_i[row + i];
   }
-  for (int sp = 1; sp < splits; ++sp) {
-    for (int i = threadIdx.x; i < pp; i += blockDim.x) {
-      src_s[i] = part_s[row + (size_t)sp * pp + i];
-      src_i[i] = part_i[row + (size_t)sp * pp + i];
-    }
-    __syncthreads();
-    merge_into(acc_s, acc_i, src_s, src_i, 1, pp, pp);
-  }
   __syncthreads();
+  for (int sp = 1; sp < splits; ++sp)
+    merge_into(acc_s, acc_i, part_s + row + (size_t)sp * pp,
+               part_i + row + (size_t)sp * pp, 1, pp, pp);
   for (int i = threadIdx.x; i < page; i += blockDim.x) {
     out_s[(size_t)q * page + i] = acc_s[i];
     out_i[(size_t)q * page + i] = min(acc_i[i], d - 1);
   }
 }
 
-inline size_t merge_smem_bytes(int pp) { return (size_t)16 * pp; }
+inline size_t merge_smem_bytes(int pp) { return (size_t)8 * pp; }
 
 // Both passes on `stream`; returns a cudaError_t (0 on success).  Launch
 // sizes come from the wrapper and are checked here, not trusted.
+// `fold_ws` (grid blocks x fold_ws_words ints) and `merge_ws` (Q x 2 pp
+// ints) are null on the shared-memory routes.
 template <typename S>
 int launch_fold(const S& sc, const typename S::Row* rows,
                 const uint8_t* live, int d, int width, int Q, int page,
                 int block_q, int tile, int sub, int stride, int chunk,
                 int splits, float* part_s, int* part_i, float* out_s,
-                int* out_i, void* stream) {
+                int* out_i, int* fold_ws, int* merge_ws, void* stream) {
   const int pp = 1 << log2_ceil(page);
   if (width < 1 || page < 1 || tile < pp || (tile & (tile - 1)) ||
       tile < 32 || sub < 1 || (sub & (sub - 1)) || sub > tile ||
@@ -327,7 +354,8 @@ int launch_fold(const S& sc, const typename S::Row* rows,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const size_t smem1 =
-      scorer_layout(sc, block_q, pp, tile, sub, stride).total;
+      scorer_layout(sc, block_q, pp, tile, sub, stride, fold_ws != nullptr)
+          .total;
   cudaError_t err = cudaFuncSetAttribute(
       score_fold_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem1);
@@ -335,16 +363,16 @@ int launch_fold(const S& sc, const typename S::Row* rows,
   dim3 grid1((Q + block_q - 1) / block_q, splits);
   score_fold_kernel<S><<<grid1, kThreads, smem1, st>>>(
       sc, rows, live, d, width, Q, block_q, pp, tile, sub, stride, chunk,
-      splits, part_s, part_i);
+      splits, part_s, part_i, fold_ws);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t smem2 = merge_smem_bytes(pp);
+  const size_t smem2 = merge_ws != nullptr ? 0 : merge_smem_bytes(pp);
   err = cudaFuncSetAttribute(merge_splits_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem2);
   if (err != cudaSuccess) return (int)err;
   merge_splits_kernel<<<Q, kThreads, smem2, st>>>(
-      part_s, part_i, splits, pp, page, d, out_s, out_i);
+      part_s, part_i, splits, pp, page, d, merge_ws, out_s, out_i);
   return (int)cudaGetLastError();
 }
 

@@ -14,12 +14,19 @@ import torch
 
 from repro_torch.core import encoding as tenc
 from repro_torch.core import quantize as tquant
+from repro_torch.core import rerank as trerank
+from repro_torch.kernels.bucketize import kernel as bk_kernel
+from repro_torch.kernels.bucketize import ops as bk_ops
+from repro_torch.kernels.bucketize import ref as bk_ref
 from repro_torch.kernels.code_match import kernel as cm_kernel
 from repro_torch.kernels.code_match import ops as cm_ops
 from repro_torch.kernels.code_match import ref as cm_ref
 from repro_torch.kernels.fused_phase1 import kernel as tkernel
 from repro_torch.kernels.fused_phase1 import ops as tops
 from repro_torch.kernels.fused_phase1 import ref as tref
+from repro_torch.kernels.rerank_topk import kernel as rk_kernel
+from repro_torch.kernels.rerank_topk import ops as rk_ops
+from repro_torch.kernels.rerank_topk import ref as rk_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -66,11 +73,13 @@ def test_fused_phase1_kernel_rejects_bad_input(gen):
         tkernel.fused_phase1_cuda(D.T.contiguous().T, Q.to(torch.int8), W, 8)
     with pytest.raises(ValueError, match="shape"):
         tops.fused_phase1(D, Q.to(torch.int8)[:, :4], W, 8)
-    # past the shared memory of the card, the error names the largest
-    # page that fits
-    big = torch.zeros((40000, 8), dtype=torch.int8, device="cuda")
-    with pytest.raises(ValueError, match="largest page that fits is 8192"):
-        tops.fused_phase1(big, Q.to(torch.int8), W, 20000)
+    # past the shared memory of the card the fold spills to device memory
+    # and answers: no page that fits device memory is refused
+    big = torch.randint(-8, 8, (40000, 8), generator=gen,
+                        device="cuda").to(torch.int8)
+    s, i = tops.fused_phase1(big, Q.to(torch.int8), W, 20000)
+    ws, wi = tref.fused_phase1_ref(big, Q.to(torch.int8), W, 20000)
+    assert torch.equal(s, ws) and torch.equal(i, wi)
 
 
 def _assert_quant_parity(got, want, d, tol=1e-4):
@@ -165,6 +174,29 @@ def test_fused_kernels_answer_page_5000(gen):
     ws, wi = tref.fused_phase1_ref(D, Qc, W, page)
     assert torch.equal(s, ws) and torch.equal(i, wi)
     codes, scale, zero, Q = _quant_inputs(gen, d, 400, 4)
+    _assert_quant_parity(
+        tops.fused_phase1_quant(codes, scale, zero, Q, page),
+        tref.fused_phase1_quant_ref(codes, scale, zero, Q, page), d)
+
+
+def test_fused_kernels_answer_page_16384(gen):
+    """d 65,536, Q 8, page 16,384: past the shared-memory route, both
+    fused kernels fold in the device workspace and hold their
+    contracts."""
+    d, q, page = 65536, 8, 16384
+    D = torch.randint(-8, 8, (d, 400), generator=gen,
+                      device="cuda").to(torch.int8)
+    Qc = torch.randint(-8, 8, (q, 400), generator=gen,
+                       device="cuda").to(torch.int8)
+    W = torch.rand((q, 400), generator=gen, device="cuda")
+    live = torch.rand(d, generator=gen, device="cuda") < 0.9
+    for lv in (None, live):
+        s, i = tops.fused_phase1(D, Qc, W, page, live=lv)
+        ws, wi = tref.fused_phase1_ref(D, Qc, W, page, live=lv)
+        assert torch.equal(s, ws)
+        fin = torch.isfinite(ws)
+        assert torch.equal(i[fin], wi[fin])
+    codes, scale, zero, Q = _quant_inputs(gen, d, 400, q)
     _assert_quant_parity(
         tops.fused_phase1_quant(codes, scale, zero, Q, page),
         tref.fused_phase1_quant_ref(codes, scale, zero, Q, page), d)
@@ -267,3 +299,137 @@ def test_search_engines_card_vs_cpu(gen, engine):
         assert same.float().mean() >= 0.99
         torch.testing.assert_close(got[1].cpu()[same], want[1][same],
                                    rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("d,q,p,n", [
+    (131072, 32, 320, 400), (20000, 32, 8192, 400), (5000, 9, 777, 37),
+    (1000, 3, 50, 401), (64, 1, 1, 1)])
+def test_rerank_kernel_vs_plain(gen, d, q, p, n):
+    """rtol 1e-4 / atol 5e-5 against the plain gather + einsum, in both
+    forms (table + ids, gathered); rerank_topk selects the core path's
+    ids away from near-ties, with the core path's bits; one CUDA kernel
+    per call counted."""
+    V = trerank.normalize(torch.randn((d, n), generator=gen, device="cuda"))
+    ids = torch.randint(0, d, (q, p), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    Q = trerank.normalize(torch.randn((q, n), generator=gen, device="cuda"))
+    before = rk_ops.launches
+    got = rk_ops.candidate_scores(V, ids, Q)
+    assert rk_ops.launches == before + rk_kernel.KERNELS_PER_CALL
+    want = rk_ref.candidate_scores_ref(V, ids, Q)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=5e-5)
+    cand = V[ids.long()]
+    torch.testing.assert_close(rk_ops.rerank_scores(cand, Q),
+                               rk_ref.rerank_scores_ref(cand, Q),
+                               rtol=1e-4, atol=5e-5)
+    k = min(10, p)
+    i_g, s_g = rk_ops.rerank_topk(V, ids, Q, k)
+    i_c, s_c = trerank.rerank_topk(V, ids, Q, k)
+    srt = torch.sort(want, dim=1, descending=True).values
+    apart = (srt[:, k - 1] - srt[:, k] > 1e-4) if k < p else \
+        torch.ones(q, dtype=torch.bool, device="cuda")
+    assert torch.equal(i_g[apart], i_c[apart])
+    same = i_g == i_c
+    assert torch.equal(s_g[same], s_c[same])
+
+
+def test_rerank_kernel_rejects_bad_input(gen):
+    V = torch.randn((64, 8), generator=gen, device="cuda")
+    ids = torch.zeros((2, 5), dtype=torch.int32, device="cuda")
+    Q = torch.randn((2, 8), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        rk_kernel.rerank_scores_cuda(V.cpu(), ids.cpu(), Q.cpu())
+    with pytest.raises(ValueError, match="on cpu"):
+        rk_kernel.rerank_scores_cuda(V, ids, Q.cpu())
+    with pytest.raises(TypeError, match="int32"):
+        rk_kernel.rerank_scores_cuda(V, ids.long(), Q)
+    with pytest.raises(TypeError, match="float32"):
+        rk_ops.candidate_scores(V.double(), ids, Q)
+    with pytest.raises(ValueError, match="shape"):
+        rk_ops.candidate_scores(V, ids, Q[:, :4].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        rk_ops.candidate_scores(V, ids, torch.cat([Q, Q], 1)[:, ::2])
+    with pytest.raises(ValueError, match="contiguous"):
+        rk_ops.rerank_scores(V[:10].reshape(2, 5, 8).transpose(0, 1), Q)
+
+
+def _assert_codes(got, want):
+    """The reference suite's contract: >= 99.99% of codes equal, every
+    other code one bucket off."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    diff = (got.long() - want.long()).abs()
+    assert (diff == 0).float().mean() >= 0.9999
+    assert int(diff.max()) <= 1
+
+
+@pytest.mark.parametrize("mode,param,dtype", [
+    ("round", 100.0, torch.int8), ("round", 1000.0, torch.int16),
+    ("floor", 0.1, torch.int8), ("floor", 0.05, torch.int16)])
+@pytest.mark.parametrize("shape", [(131071, 400), (5001, 37), (64, 800),
+                                   (3, 1)])
+def test_bucketize_kernel_vs_plain(gen, mode, param, dtype, shape):
+    x = torch.randn(shape, generator=gen, device="cuda") * (
+        0.1 + 3 * torch.rand((shape[0], 1), generator=gen, device="cuda"))
+    x[0] = 0.0
+    before = bk_ops.launches
+    got = bk_ops.bucketize(x, mode, param, dtype)
+    assert bk_ops.launches == before + bk_kernel.KERNELS_PER_CALL
+    _assert_codes(got, bk_ref.bucketize_ref(x, mode, param, dtype))
+    assert (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("encoder", [
+    tenc.RoundingEncoder(2), tenc.IntervalEncoder(0.1),
+    tenc.CombinedEncoder(tenc.RoundingEncoder(1), tenc.IntervalEncoder(0.1))],
+    ids=lambda e: e.scheme_id)
+def test_bucketize_encode_vs_encoder(gen, encoder):
+    """ops.encode on the card against encoder.encode(normalize(x)); one
+    launch per encoder half."""
+    x = torch.randn((4096, 400), generator=gen, device="cuda")
+    before = bk_ops.launches
+    got = bk_ops.encode(x, encoder)
+    halves = 2 if isinstance(encoder, tenc.CombinedEncoder) else 1
+    assert bk_ops.launches == before + halves
+    _assert_codes(got, encoder.encode(trerank.normalize(x)))
+
+
+def test_bucketize_interval_codes_at_edges_equal_cpu(gen):
+    """Rows [1, e] (and [1, e, 0, 0], the vector path) have norm exactly
+    1 in any summation order, so the kernel's interval division meets
+    bucket edges e = k * width and their float neighbours as the CPU's
+    does: an IEEE division by the float32 width, never a multiply by its
+    reciprocal (which some of these inputs tell apart)."""
+    told_apart = 0
+    for width in (1e-4, 3e-5, 7e-5):
+        w = np.float32(width)
+        k = np.arange(-2, 3, dtype=np.float32)
+        e = (k * w).astype(np.float32)
+        e = np.concatenate([e, np.nextafter(e, e + 1), np.nextafter(e, e - 1)])
+        assert (np.float32(1) + (e.astype(np.float64) ** 2).max()
+                .astype(np.float32)) == 1
+        told_apart += int((np.floor(e / w)
+                           != np.floor(e * (np.float32(1) / w))).sum())
+        for n in (2, 4):
+            x = torch.zeros((e.size, n))
+            x[:, 0] = 1.0
+            x[:, 1] = torch.from_numpy(e)
+            got = bk_ops.bucketize(x.cuda(), "floor", float(w), torch.int16)
+            want = bk_ref.bucketize_ref(x, "floor", float(w), torch.int16)
+            assert torch.equal(got.cpu(), want)
+    assert told_apart > 0
+
+
+def test_bucketize_kernel_rejects_bad_input(gen):
+    x = torch.randn((16, 8), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        bk_kernel.bucketize_cuda(x.cpu(), "round", 10.0)
+    with pytest.raises(TypeError, match="float32"):
+        bk_ops.bucketize(x.double(), "round", 10.0)
+    with pytest.raises(TypeError, match="out_dtype"):
+        bk_ops.bucketize(x, "round", 10.0, torch.int32)
+    with pytest.raises(ValueError, match="mode"):
+        bk_ops.bucketize(x, "ceil", 10.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        bk_ops.bucketize(x.T, "round", 10.0)
+    with pytest.raises(ValueError, match="2-D"):
+        bk_ops.bucketize(x[0], "round", 10.0)

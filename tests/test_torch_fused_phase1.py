@@ -352,11 +352,64 @@ def test_staged_row_stride_is_bank_conflict_free(C, itemsize):
         assert len(banks) == 32
 
 
+class _H100:
+    """The properties of an H100 that the launch plan reads."""
+
+    multi_processor_count = 132
+    shared_memory_per_block_optin = 232448
+
+
+def _fold_smem(C, itemsize, qb_per_query):
+    """topk_fold.cuh's fold_layout bytes: accumulator and tile (none when
+    spilled), counts, the scorer's queries, the staged rows."""
+    def a16(x):
+        return -(-x // 16) * 16
+
+    def smem(bq, page, tile, sub, stride, spill):
+        pp = 1 << max(page - 1, 0).bit_length()
+        acc, til = (0, 0) if spill else (bq * pp * 4, bq * tile * 4)
+        return (2 * a16(acc) + 2 * a16(til) + a16(bq * 4) + a16(bq * C * 4)
+                + a16(bq * qb_per_query) + a16(sub * stride * itemsize))
+    return smem
+
+
+@pytest.mark.parametrize("scorer", ["fused_phase1", "fused_phase1_quant"])
+@pytest.mark.parametrize("d,Q,page", [
+    (4_181_504, 32, 320), (65_536, 8, 8192), (65_536, 8, 16_384),
+    (4_181_504, 32, 16_384), (300_000, 3, 200_000), (16_385, 1, 16_385)])
+def test_fold_plan_answers_any_page(scorer, d, Q, page):
+    """With an H100's properties, every page gets a plan: the accumulator
+    and tile in shared memory up to next_pow2(page) = 8192, in the device
+    workspace past it, with the doc splits cut so that the workspace stays
+    under WORKSPACE_BYTES (one split at least); the splits cover d."""
+    C = 400
+    smem = (_fold_smem(C, 1, C) if scorer == "fused_phase1"
+            else _fold_smem(C, 1, 4))
+    plan = tkernel._fold_plan(smem, d, Q, C, 1, page, _H100())
+    pp = 1 << (page - 1).bit_length()
+    assert plan.spill == (pp > 8192)
+    assert plan.merge_spill == (8 * pp > _H100.shared_memory_per_block_optin)
+    assert plan.tile >= pp and plan.chunk % plan.tile == 0
+    assert (plan.splits - 1) * plan.chunk < d <= plan.splits * plan.chunk
+    assert 1 <= plan.block_q <= min(8, Q)
+    assert smem(plan.block_q, page, plan.tile, plan.sub, plan.stride,
+                int(plan.spill)) <= _H100.shared_memory_per_block_optin
+    if plan.spill:
+        ws = (-(-Q // plan.block_q) * plan.splits
+              * tkernel._fold_ws_bytes(plan.block_q, pp, plan.tile))
+        assert plan.splits == 1 or ws <= tkernel.WORKSPACE_BYTES
+
+
 @pytest.mark.parametrize("sources", [
     tkernel._SOURCES, tkernel._QUANT_SOURCES,
     __import__("repro_torch.kernels.code_match.kernel",
+               fromlist=["_SOURCES"])._SOURCES,
+    __import__("repro_torch.kernels.bucketize.kernel",
+               fromlist=["_SOURCES"])._SOURCES,
+    __import__("repro_torch.kernels.rerank_topk.kernel",
                fromlist=["_SOURCES"])._SOURCES],
-    ids=["fused_phase1", "fused_phase1_quant", "code_match"])
+    ids=["fused_phase1", "fused_phase1_quant", "code_match", "bucketize",
+         "rerank_topk"])
 def test_library_sources_name_every_included_header(sources):
     """A library is cached under the hash of its sources, so every header
     its .cu files include (directly or through another header) must be

@@ -30,20 +30,27 @@ Phases, each printing one JSON line (D one per engine, then a summary):
   D  every other engine on phase C's index: BatchedSearchEngine with no
      engine named (``codes``), ``codes_pallas`` and ``fused_int8`` (128
      rows each), ``index.search`` with no engine named (``postings``, 32
-     rows), and ``onehot`` on the first 65,536 rows (32 rows); the same
-     checks, the kernels' launch counts, and each kernel's time, plain
-     time and bound at Q 32; then ``bucketize.ops.encode`` of the raw
-     4,181,504 x 400 rows held to ``index.codes`` (the encode_4m cell of
+     rows, served twice: both answers, and two runs of its phase-1
+     scores, bit-equal), and ``onehot`` on the first 65,536 rows (32
+     rows); the same checks, the kernels' launch counts, and each
+     kernel's time, plain time and bound at Q 32; then
+     ``bucketize.ops.encode`` of the raw 4,181,504 x 400 rows held to
+     ``index.codes`` (the encode_4m cell of
      ``src/repro/configs/vectordb_wiki.py``), and
      ``rerank_topk.ops.rerank_topk`` on the served candidates at page 320
-     and 8192 held to ``core.rerank.rerank_topk``;
+     and 8192 held to ``core.rerank.rerank_topk``, with its gathered
+     signature (``ops.rerank_scores`` on pre-gathered rows) timed beside
+     the einsum on the same rows;
   E  the paper's quality path: make_corpus (262,144 docs, vocabulary
      100,000, 400 topics) -> build_lsa(400) on the card -> VectorIndex
      (CombinedEncoder(P1, I10)) with bucketize held to its codes -> P@10,
      nDCG and avg.diff of ``codes``, ``fused`` and More-Like-This against
      brute force, the claims C1-C5 of tests/test_quality_claims.py, and
-     rerank_topk on the ``fused`` candidates.
-Then the ``kernels`` line, the card's name and power limit, and last
+     rerank_topk on the ``fused`` candidates; the LSA is built twice and
+     the MLT scores taken twice, each pair bit-equal.
+Then the ``kernels`` line (with each library's largest ptxas stack frame
+of a kernel: 0 bytes for the code-match scorers, checked), the card's
+name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the exit
 code is not 0.  Without a CUDA device, or without the ``src/repro_torch``
 package beside this file, it prints no result and exits 1.
@@ -222,6 +229,20 @@ def assert_quant_parity(got, want, d, ctx, tol=1e-4) -> float:
           f"{bad[:4].tolist()}; (plain, kernel) scores around: {near}")
     check(bool(((i_g >= 0) & (i_g < d)).all()), f"{ctx}: id out of range")
     return err
+
+
+def stack_frames(log_lines) -> dict:
+    """{mangled kernel name: bytes of its stack frame} from a library's
+    ``nvcc -Xptxas -v`` log."""
+    out, fn = {}, None
+    for ln in log_lines:
+        if "Function properties for" in ln:
+            fn = ln.rsplit(" ", 1)[-1]
+        elif "bytes stack frame" in ln and fn is not None:
+            if "kernel" in fn:
+                out[fn] = int(ln.split()[0])
+            fn = None
+    return out
 
 
 def code_match_plain(D, Qc, W, block=32768):
@@ -668,7 +689,9 @@ def rerank_case(index, q, cand, ctx) -> dict:
     times of the kernel, the plain version (gather + einsum) and the
     einsum alone on pre-gathered rows (device time, from a CUDA graph:
     at page 320 the wrapper's host work outlasts the kernel, so
-    ``call_ms`` times the calls as a caller makes them), and the bound."""
+    ``call_ms`` times the calls as a caller makes them), the gathered
+    signature (``ops.rerank_scores`` over the pre-gathered rows, the
+    like-for-like peer of the einsum), and the bound."""
     from repro_torch.core.rerank import rerank_topk as core_rerank
     from repro_torch.kernels.rerank_topk import kernel as rk_kernel
     from repro_torch.kernels.rerank_topk import ops as rk_ops
@@ -690,6 +713,14 @@ def rerank_case(index, q, cand, ctx) -> dict:
     check(torch.equal(s_g[same], s_c[same]),
           f"{ctx}: scores of equal ids not bit-equal")
     gathered = index.vectors[cand.long()]
+    # the gathered signature against the einsum on the same rows; these
+    # timing calls are not main-path launches, so the count is restored
+    n_launched = rk_ops.launches
+    g_err = float((rk_ops.rerank_scores(gathered, q) - plain).abs().max())
+    check(g_err <= 5e-5 + 1e-4 * float(plain.abs().max()),
+          f"{ctx}: gathered signature off the plain version by {g_err}")
+    gathered_ms = graph_ms(lambda: rk_ops.rerank_scores(gathered, q), 20)
+    rk_ops.launches = n_launched
     bound, by = rerank_bound_ms(cand, index.n_features)
     row = {"Q": cand.shape[0], "page": cand.shape[1],
            "ids_equal_share": float(same.float().mean()),
@@ -702,6 +733,7 @@ def rerank_case(index, q, cand, ctx) -> dict:
                index.vectors, cand, q), 5),
            "library_ms": graph_ms(lambda: torch.einsum(
                "qpn,qn->qp", gathered, q), 5),
+           "gathered_ms": gathered_ms, "gathered_max_abs_err": g_err,
            "bound_ms": bound, "bound_by": by}
     del gathered
     return row
@@ -751,19 +783,34 @@ def phase_d(gen, index, queries, src, raw_state) -> tuple:
         engines[name] = row
         emit({"phase": "D", **row})
 
-    # index.search with no engine named: postings, exact
+    # index.search with no engine named: postings, exact; served twice,
+    # and its phase-1 scores taken twice: each pair bit-equal
     qs = torch.from_numpy(queries[:BATCH])
-    lat = []
+    lat, answers = [], []
     torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         t = time.monotonic()
-        ids, scores = index.search(qs, k=K, page=PAGE, trim=TrimFilter(0.05))
+        answers.append(index.search(qs, k=K, page=PAGE,
+                                    trim=TrimFilter(0.05)))
         torch.cuda.synchronize()
         lat.append(time.monotonic() - t)
         progress(f"postings: batch served in {lat[-1]:.3f} s")
+    ids, scores = answers[-1]
+    served_equal = all(torch.equal(a, b) for a, b in zip(*answers))
+    check(served_equal, "postings: two servings differ")
+    _, qcodes, w = index.encode_queries(qs.cuda(), TrimFilter(0.05), None,
+                                        "idf")
+    first = index.phase1_scores(qcodes, w, "postings", None)
+    scores_equal = torch.equal(first,
+                               index.phase1_scores(qcodes, w, "postings",
+                                                   None))
+    check(scores_equal, "postings: two runs of phase-1 scores differ")
+    del first, answers
     row = {"engine": "postings", "engine_named": False, "queries": BATCH,
            "batch_latency_s": lat, "batch_latency_s_median": lat[-1],
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "runs_bit_equal": {"served": served_equal,
+                              "phase1_scores": scores_equal},
            **serve_check(index, queries[:BATCH], src[:BATCH],
                          list(zip(ids.cpu().numpy(), scores.cpu().numpy())),
                          "postings")}
@@ -799,7 +846,7 @@ def phase_d(gen, index, queries, src, raw_state) -> tuple:
     emit({"phase": "D", **row})
     del small
 
-    # the two new kernels alone at Q 32 on the served index
+    # the kernels alone at Q 32 on the served index
     q, qcodes, w = index.encode_queries(qs.cuda(), TrimFilter(0.05), None,
                                         "idf")
     got = cm_kernel.code_match_cuda(index.codes, qcodes, w)
@@ -923,12 +970,17 @@ def phase_e() -> tuple:
     corpus_s = time.monotonic() - t
     progress(f"corpus of {E_DOCS} docs made in {corpus_s:.1f} s")
     reset_launches()
-    t = time.monotonic()
-    pipe = build_lsa(corpus, n_features=N_FEATURES, device="cuda")
-    torch.cuda.synchronize()
-    lsa_s = time.monotonic() - t
-    progress(f"LSA built in {lsa_s:.1f} s")
-    vecs = pipe.doc_vectors
+    lsa_s, vecs = [], []
+    for _ in range(2):             # built twice: the same bits each time
+        t = time.monotonic()
+        vecs.append(build_lsa(corpus, n_features=N_FEATURES,
+                              device="cuda").doc_vectors)
+        torch.cuda.synchronize()
+        lsa_s.append(time.monotonic() - t)
+        progress(f"LSA built in {lsa_s[-1]:.1f} s")
+    lsa_equal = torch.equal(vecs[0], vecs[1])
+    check(lsa_equal, "two LSA builds differ")
+    vecs = vecs[0]
     check(vecs.shape == (E_DOCS, N_FEATURES)
           and bool(torch.isfinite(vecs).all()), "LSA vectors not finite")
     encoder = CombinedEncoder(RoundingEncoder(1), IntervalEncoder(0.1))
@@ -958,9 +1010,17 @@ def phase_e() -> tuple:
                          device="cuda")
     torch.cuda.synchronize()
     mlt_build_s = time.monotonic() - t
-    ids_m, _ = mlt.more_like_this(corpus.doc_terms[:E_QUERIES],
-                                  corpus.doc_tf[:E_QUERIES],
-                                  max_query_terms=25, k=K)
+    ids_m, s_m = mlt.more_like_this(corpus.doc_terms[:E_QUERIES],
+                                    corpus.doc_tf[:E_QUERIES],
+                                    max_query_terms=25, k=K)
+    mlt_runs = [mlt.scores(corpus.doc_terms[:E_QUERIES],
+                           corpus.doc_tf[:E_QUERIES], max_query_terms=25)
+                for _ in range(2)]
+    mlt_equal = (torch.equal(mlt_runs[0], mlt_runs[1])
+                 and torch.equal(s_m, torch.gather(mlt_runs[0], 1,
+                                                   ids_m.long())))
+    check(mlt_equal, "two runs of the MLT scores differ")
+    del mlt_runs
     sims_m = torch.gather(Q @ index.vectors.T, 1, ids_m.long())
     out["mlt"] = quality(ids_m, sims_m, gold_ids, gold_sims)
     del mlt
@@ -1021,7 +1081,10 @@ def phase_e() -> tuple:
                           "codes_differing": code_differ,
                           "max_abs_err": code_err},
             "rerank_topk": rerank, "launches": got,
-            "corpus_s": corpus_s, "lsa_s": lsa_s, "index_build_s": build_s,
+            "runs_bit_equal": {"lsa_doc_vectors": lsa_equal,
+                               "mlt_scores": mlt_equal},
+            "corpus_s": corpus_s, "lsa_s": lsa_s[0],
+            "lsa_s_second": lsa_s[1], "index_build_s": build_s,
             "mlt_build_s": mlt_build_s,
             "phase_s": time.monotonic() - t_phase,
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
@@ -1069,13 +1132,21 @@ def main(argv=None) -> int:
             f.result()
     build_s = time.monotonic() - t
     ptxas = {}
+    frames = {}
     for name in builds:
         log = _build.build_dir() / f"{name}.log"
-        ptxas[name] = [ln for ln in (log.read_text().splitlines()
-                                     if log.exists() else [])
+        lines = log.read_text().splitlines() if log.exists() else []
+        ptxas[name] = [ln for ln in lines
                        if "registers" in ln or "spill" in ln]
+        frames[name] = stack_frames(lines)
     emit({"device": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas})
+          "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
+          "stack_frames": frames})
+    for name, kernel in (("fused_phase1", "score_fold_kernel"),
+                         ("code_match", "code_match_kernel")):
+        scorers = {fn: b for fn, b in frames[name].items() if kernel in fn}
+        check(len(scorers) == 3 and not any(scorers.values()),
+              f"{name}: scorer kernels' stack frames {scorers}, want 0")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     a = c = None
@@ -1116,6 +1187,8 @@ def main(argv=None) -> int:
         "ms": ck.get("ms", ck.get("kernel_ms")),
         "plain_ms": ck.get("plain_ms"), "bound_ms": ck.get("bound_ms"),
         "bound_by": ck.get("bound_by"), "library_ms": None}]
+    entries[0]["stack_frame_bytes"] = max(frames["fused_phase1"].values(),
+                                          default=None)
     for name, source, replaces in (
             ("code_match",
              "src/repro_torch/kernels/code_match/csrc/code_match.cu",
@@ -1139,7 +1212,8 @@ def main(argv=None) -> int:
                                k.get("max_abs_err", 0.0)),
             "ms": k.get("ms"), "plain_ms": k.get("plain_ms"),
             "bound_ms": k.get("bound_ms"), "bound_by": k.get("bound_by"),
-            "library_ms": k.get("library_ms")})
+            "library_ms": k.get("library_ms"),
+            "stack_frame_bytes": max(frames[name].values(), default=None)})
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

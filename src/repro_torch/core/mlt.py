@@ -13,10 +13,12 @@ The reference reads a fixed window of ``max_postings`` entries per
 selected term from the start of its posting range, masked past its end;
 that is the range ``[lo, min(hi, lo + max_postings))``, and only those
 ranges are gathered here, for all queries at once, and added into a
-(Q, d) accumulator by ``index_add_``.  Both top-k selections are stable
-(ties to the lower index, as ``jax.lax.top_k`` breaks them).  On the card
-``index_add_`` is atomic, so a doc's sum runs in another order from run to
-run: scores agree to float tolerance.
+(Q, d) accumulator in a fixed order: one ``index_add_`` per selected-term
+slot (a "round"), slots in order.  A term's posting list names each doc
+once, so no round adds twice to one (query, doc), and every score is
+summed from +0.0 in the query's term-selection order: the same bits from
+run to run on the card.  Both top-k selections are stable (ties to the
+lower index, as ``jax.lax.top_k`` breaks them).
 """
 
 from __future__ import annotations
@@ -74,16 +76,16 @@ class MLTIndex:
                    doc_terms, doc_tf)
 
     # ------------------------------------------------------------------ query
-    def more_like_this(
+    def scores(
         self,
         query_terms,                # (Q, T) padded term ids (-1 = pad)
         query_tf,                   # (Q, T)
         max_query_terms: int = 25,
-        k: int = 10,
         max_postings: int = 4096,
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """-> (ids (Q, k) int32, mlt scores (Q, k) f32), on the index's
-        device."""
+    ) -> torch.Tensor:
+        """MLT scores (Q, d) f32 of every doc, on the index's device: the
+        query doc's top terms by tf-idf, each adding idf x (1 + log1p(tf))
+        to the docs of its posting window, one round per term slot."""
         p = self.postings
         dev = self.device
         qt = torch.as_tensor(query_terms, device=dev).long()
@@ -95,24 +97,49 @@ class MLTIndex:
         tfidf = torch.where(qt >= 0, (1.0 + torch.log1p(tf)) * p.idf[tid],
                             float("-inf"))
         sel_w, sel_pos = stable_topk(tfidf, min(max_query_terms, T))
-        sel_terms = torch.gather(tid, 1, sel_pos).to(torch.int32)
-        lo = torch.searchsorted(p.sorted_terms, sel_terms, side="left")
-        hi = torch.searchsorted(p.sorted_terms, sel_terms, side="right")
+        sel_terms = torch.gather(tid, 1, sel_pos)
+        lo = torch.searchsorted(p.sorted_terms, sel_terms.to(torch.int32),
+                                side="left")
+        hi = torch.searchsorted(p.sorted_terms, sel_terms.to(torch.int32),
+                                side="right")
         hi = torch.minimum(hi, lo + max_postings)
-        kq, kj = (torch.isfinite(sel_w) & (hi > lo)).nonzero(as_tuple=True)
+        # the kept (query, slot) pairs in round order: slot, then query
+        kj, kq = (torch.isfinite(sel_w) & (hi > lo)).T.nonzero(as_tuple=True)
         lo, lengths = lo[kq, kj], (hi - lo)[kq, kj]
-        # every kept posting position, in (query, selected term) order
+        per_slot = torch.zeros(sel_w.shape[1], dtype=torch.int64, device=dev)
+        per_slot = per_slot.index_add_(0, kj, lengths).tolist()
+        n = sum(per_slot)
+        # every kept posting position, in round order
         first = torch.repeat_interleave(torch.cumsum(lengths, 0) - lengths,
-                                        lengths)
-        pos = torch.repeat_interleave(lo, lengths)
-        pos += torch.arange(pos.shape[0], device=dev) - first
+                                        lengths, output_size=n)
+        pos = torch.repeat_interleave(lo, lengths, output_size=n)
+        pos += torch.arange(n, device=dev) - first
         del first
-        w = torch.repeat_interleave(p.idf[sel_terms[kq, kj].long()], lengths
-                                    ) * (1.0 + torch.log1p(p.sorted_tf[pos]))
-        flat = (torch.repeat_interleave(kq, lengths) * d
-                + p.sorted_docs[pos].long())
+        w = torch.repeat_interleave(p.idf[sel_terms[kq, kj]], lengths,
+                                    output_size=n)
+        w *= 1.0 + torch.log1p(p.sorted_tf[pos])
+        flat = torch.repeat_interleave(kq * d, lengths, output_size=n)
+        flat += p.sorted_docs[pos]
         del pos
         scores = torch.zeros(Q * d, dtype=torch.float32, device=dev)
-        scores.index_add_(0, flat, w)
-        top_s, top_i = stable_topk(scores.view(Q, d), k)
+        o = 0
+        for m in per_slot:                  # one round per term slot
+            if m:
+                scores.index_add_(0, flat[o:o + m], w[o:o + m])
+                o += m
+        return scores.view(Q, d)
+
+    def more_like_this(
+        self,
+        query_terms,                # (Q, T) padded term ids (-1 = pad)
+        query_tf,                   # (Q, T)
+        max_query_terms: int = 25,
+        k: int = 10,
+        max_postings: int = 4096,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """-> (ids (Q, k) int32, mlt scores (Q, k) f32), on the index's
+        device: the stable top-``k`` of :meth:`scores`."""
+        top_s, top_i = stable_topk(
+            self.scores(query_terms, query_tf, max_query_terms, max_postings),
+            k)
         return top_i.to(torch.int32), top_s

@@ -8,15 +8,23 @@ document frequency, which the idf weights of every engine read.
 
 Scoring (the ``postings`` engine) walks the posting list of every
 surviving query token and scatter-adds the token's weight into a dense
-``(d,)`` accumulator -- the hash-map accumulator of the paper.  The
+``(Q, d)`` accumulator -- the hash-map accumulator of the paper.  The
 reference reads a fixed window of ``max_postings`` entries per column from
 ``lo``, masked past ``hi``; that is the range ``[lo, min(hi, lo +
-max_postings))``, and only those ranges are gathered here, one query at a
-time, so no ``(C, max_postings)`` window exists.  ``max_postings >= n_docs``
-is exact; smaller values truncate each list as a real engine's early
-termination does.  ``index_add_`` is atomic on the card, so the order of a
-doc's sum changes from run to run: scores agree with the reference to
-float tolerance, not bits.
+max_postings))``, and only those ranges are gathered here, so no
+``(C, max_postings)`` window exists.  ``max_postings >= n_docs`` is exact;
+smaller values truncate each list as a real engine's early termination
+does.
+
+The sums run in a fixed order, the reference's: a doc sits in exactly one
+posting list per code column, so one ``index_add_`` per column (a
+"round"), over every query's kept range of that column into the flat
+``q * d + doc`` accumulator, adds at most once to any address, and the
+rounds run in increasing column order.  So every (query, doc) score is
+summed from +0.0 in column order, as the reference's ``segment_sum`` over
+its (C, max_postings) window sums it: the scores are the same bits from
+run to run on the card, and on the CPU equal the JAX package's for the
+same weights.
 """
 
 from __future__ import annotations
@@ -31,6 +39,9 @@ __all__ = ["Postings", "build_postings", "lookup", "df_lookup", "code_df",
 # columns sorted per step: torch.sort returns int64 indices, so sorting a
 # 4M-row table whole would hold 8 bytes per code at once
 _SORT_COLUMNS = 32
+# posting entries gathered per step of score_postings_batch (about 36
+# bytes each while a step's rounds run)
+_STEP_ENTRIES = 1 << 25
 
 
 class Postings(NamedTuple):
@@ -104,34 +115,10 @@ def score_postings(
     weighting: str = "idf",     # "idf" | "count"
     col_weights: Optional[torch.Tensor] = None,  # (C,) extra weight
 ) -> torch.Tensor:
-    """Dense scores (d,) by posting-list traversal + scatter-add."""
-    C, d = postings.post_codes.shape
-    lo, hi = lookup(postings, qcodes)
-    if weighting == "idf":
-        w = idf_weights(hi - lo, postings.n_docs)
-    elif weighting == "count":
-        w = torch.ones((C,), dtype=torch.float32, device=lo.device)
-    else:
-        raise ValueError(f"unknown weighting {weighting!r}")
-    if col_weights is not None:
-        w = w * col_weights
-    if max_postings is not None:
-        hi = torch.minimum(hi, lo + max_postings)
-    keep = col_mask & (w != 0) & (hi > lo)
-    lo, hi, w = lo[keep], hi[keep], w[keep]
-    starts = torch.nonzero(keep).flatten() * d + lo
-    lengths = hi - lo
-    # every kept posting position, flat over (C, d): starts repeated per
-    # entry plus the entry's offset inside its range
-    first = torch.repeat_interleave(torch.cumsum(lengths, 0) - lengths,
-                                    lengths)
-    pos = torch.repeat_interleave(starts, lengths)
-    pos += torch.arange(pos.shape[0], device=pos.device) - first
-    del first
-    docs = postings.post_docs.reshape(-1)[pos]
-    del pos
-    scores = torch.zeros((d,), dtype=torch.float32, device=lo.device)
-    return scores.index_add_(0, docs, torch.repeat_interleave(w, lengths))
+    """Dense scores (d,): :func:`score_postings_batch` of one query."""
+    return score_postings_batch(
+        postings, qcodes[None], col_mask[None], max_postings, weighting,
+        None if col_weights is None else col_weights[None])[0]
 
 
 def score_postings_batch(
@@ -142,11 +129,62 @@ def score_postings_batch(
     weighting: str = "idf",
     col_weights: Optional[torch.Tensor] = None,  # (Q, C) or None
 ) -> torch.Tensor:
-    """Batched scoring, a query at a time: (Q, d)."""
-    out = torch.empty((qcodes.shape[0], postings.n_docs),
-                      dtype=torch.float32, device=qcodes.device)
-    for i in range(qcodes.shape[0]):
-        out[i] = score_postings(
-            postings, qcodes[i], col_mask[i], max_postings, weighting,
-            None if col_weights is None else col_weights[i])
-    return out
+    """Dense scores (Q, d) by posting-list traversal and one scatter-add
+    round per column, in column order (see the module doc).  The kept
+    ranges are gathered a run of columns at a time, near
+    ``_STEP_ENTRIES`` entries a run; one host sync reads the entry counts
+    per column."""
+    C, d = postings.post_codes.shape
+    Q = qcodes.shape[0]
+    dev = qcodes.device
+    lo, hi = lookup(postings, qcodes)                       # (Q, C)
+    if weighting == "idf":
+        w = idf_weights(hi - lo, postings.n_docs)
+    elif weighting == "count":
+        w = torch.ones((Q, C), dtype=torch.float32, device=dev)
+    else:
+        raise ValueError(f"unknown weighting {weighting!r}")
+    if col_weights is not None:
+        w = w * col_weights
+    if max_postings is not None:
+        hi = torch.minimum(hi, lo + max_postings)
+    # the kept tokens in column-major order: column, then query
+    kc, kq = (col_mask & (w != 0) & (hi > lo)).T.nonzero(as_tuple=True)
+    lengths = (hi - lo)[kq, kc]
+    starts = kc * d + lo[kq, kc]
+    w = w[kq, kc]
+    per_col = torch.zeros((2, C), dtype=torch.int64, device=dev)
+    per_col[0].index_add_(0, kc, lengths)                   # entries
+    per_col[1].index_add_(0, kc, torch.ones_like(kc))       # tokens
+    entries, tokens = per_col.tolist()
+    scores = torch.zeros((Q * d,), dtype=torch.float32, device=dev)
+    post_docs = postings.post_docs.reshape(-1)
+    c = t0 = 0
+    while c < C:
+        c1, n = c + 1, entries[c]                   # a run of columns
+        while c1 < C and n + entries[c1] <= _STEP_ENTRIES:
+            n += entries[c1]
+            c1 += 1
+        t1 = t0 + sum(tokens[c:c1])
+        if n:
+            ln = lengths[t0:t1]
+            # every kept posting position of the run, flat over (C, d):
+            # starts repeated per entry plus the entry's offset in its range
+            first = torch.repeat_interleave(torch.cumsum(ln, 0) - ln, ln,
+                                            output_size=n)
+            pos = torch.repeat_interleave(starts[t0:t1], ln, output_size=n)
+            pos += torch.arange(n, device=dev) - first
+            del first
+            target = torch.repeat_interleave(kq[t0:t1] * d, ln,
+                                             output_size=n)
+            target += post_docs[pos]
+            del pos
+            vals = torch.repeat_interleave(w[t0:t1], ln, output_size=n)
+            o = 0
+            for m in entries[c:c1]:         # one round per column
+                if m:
+                    scores.index_add_(0, target[o:o + m], vals[o:o + m])
+                    o += m
+            del target, vals
+        c, t0 = c1, t1
+    return scores.view(Q, d)

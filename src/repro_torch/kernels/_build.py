@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 THREADS = 512              # kThreads of every kernel: cells scored at once
-MAX_COLUMNS = 4096         # depth of the code-match tree stack
+MAX_COLUMNS = 4096         # C the code-match tree takes (kMaxLogC 12)
 STAGE_BYTES = 1 << 16      # most shared memory for staged doc rows
 _BLOCK_Q = (8, 4, 2, 1)    # query-tile sizes, largest that fits wins
 _SMEM_OPTIN = 232448       # shared memory a block may opt into on sm_90

@@ -12,16 +12,17 @@
 // neighbouring docs of one query, so the stores coalesce.
 //
 // The cell sums through match_tree.cuh's cell_score, the reference's
-// match_scores tree: the scores are bit-equal to match_scores, and within
-// float tolerance of code_match_ref's plain sum over C.
+// match_scores tree kept in registers, four int8 codes per load and
+// compare: the scores are bit-equal to match_scores, and within float
+// tolerance of code_match_ref's plain sum over C.
 //
 // What bounds it on the H100: Q*d*C compare-select-adds on the CUDA cores
 // (equality has no tensor-core form); the d*C code bytes and the Q*d*4
 // output bytes move in a fraction of that time.
 //
-// What this simple design leaves for later: the tree stack lives in local
-// memory; padded columns (C up to next_pow2(C)) are walked too; loads do
-// not overlap compute.
+// What this simple design leaves for later: one cell per thread, so the
+// query words and weights are loaded again for every doc; loads do not
+// overlap compute.
 
 #include <stdint.h>
 
@@ -43,8 +44,9 @@ __host__ __device__ inline Layout layout(int esize, int block_q, int C,
                                          int sub, int stride) {
   Layout L;
   size_t o = 0;
-  L.w = o;    o = align16(o + (size_t)block_q * C * 4);
-  L.qc = o;   o = align16(o + (size_t)block_q * C * esize);
+  const size_t cp = match_tree::padded_cols(C);
+  L.w = o;    o = align16(o + (size_t)block_q * cp * 4);
+  L.qc = o;   o = align16(o + (size_t)block_q * cp * esize);
   L.rows = o; o = align16(o + (size_t)sub * stride * esize);
   L.total = o;
   return L;
@@ -65,12 +67,9 @@ code_match_kernel(const T* __restrict__ doc_codes,
 
   const int q0 = blockIdx.x * block_q;
   const int nq = min(block_q, Q - q0);
-  for (int e = threadIdx.x; e < block_q * C; e += blockDim.x) {
-    const int q = e / C;
-    const bool ok = q < nq;
-    s_qc[e] = ok ? qcodes[(size_t)(q0 + q) * C + (e % C)] : T(0);
-    s_w[e] = ok ? col_weights[(size_t)(q0 + q) * C + (e % C)] : 0.0f;
-  }
+  const int cp = match_tree::padded_cols(C);
+  match_tree::load_queries(s_qc, s_w, qcodes, col_weights, q0, nq, block_q,
+                           C);
 
   const int d_lo = blockIdx.y * chunk;
   const int d_hi = min(d_lo + chunk, d);
@@ -84,7 +83,7 @@ code_match_kernel(const T* __restrict__ doc_codes,
       const int q = e >> lsub, j = e & (sub - 1);
       if (j < rows)
         out[(size_t)(q0 + q) * d + r0 + j] = match_tree::cell_score<T>(
-            s_rows + j * stride, s_qc + q * C, s_w + q * C, C, log_pc);
+            s_rows + j * stride, s_qc + q * cp, s_w + q * cp, C, log_pc);
     }
   }
 }

@@ -11,13 +11,16 @@
 // tile, and does Q*d*C compare-select-adds on the CUDA cores -- equality
 // has no tensor-core form -- so it is bound by operations, not bytes.
 //
-// What this simple design leaves for later: the code rows are staged in
-// shared memory by plain synchronous loads (no cp.async or TMA pipeline);
-// the tree stack lives in local memory; every cell of a tile is scored
-// before any is compared with the accumulator; tiles are scored with no
-// overlap of loads and compute.
+// The scorer (match_tree.cuh's cell_score) keeps the tree in registers
+// and takes four int8 codes per load and compare.  What this design
+// leaves for later: one cell per thread, so the query words and weights
+// are loaded again for every doc (no register blocking over docs); the
+// code rows are staged in shared memory by plain synchronous loads (no
+// cp.async or TMA pipeline); every cell of a tile is scored before any is
+// compared with the accumulator; tiles are scored with no overlap of
+// loads and compute.
 //
-// Limits: C <= 4096 (stack depth), and the queries and staged rows must
+// Limits: C <= 4096 (the tree's depth), and the queries and staged rows must
 // fit the card's shared memory; any page runs (topk_fold.cuh's workspace
 // route past P2 = 8192).
 
@@ -28,8 +31,9 @@ namespace {
 using match_tree::kMaxLogC;
 using match_tree::log2_ceil;
 
-// Queries in shared memory: the weights (qa, block_q x C f32), then the
-// query codes (qb, block_q x C of T).
+// Queries in shared memory: the weights (qa, block_q rows of
+// padded_cols(C) f32), then the query codes (qb, block_q rows of
+// padded_cols(C) T), zero past C (match_tree::load_queries).
 template <typename T>
 struct MatchScorer {
   using Row = T;
@@ -39,25 +43,22 @@ struct MatchScorer {
   int log_pc;
 
   __host__ __device__ size_t qa_bytes(int block_q) const {
-    return (size_t)block_q * C * 4;
+    return (size_t)block_q * match_tree::padded_cols(C) * 4;
   }
   __host__ __device__ size_t qb_bytes(int block_q) const {
-    return (size_t)block_q * C * sizeof(T);
+    return (size_t)block_q * match_tree::padded_cols(C) * sizeof(T);
   }
   __device__ void load(float* qa, unsigned char* qb, int q0, int nq,
                        int block_q) const {
-    T* qc = reinterpret_cast<T*>(qb);
-    for (int e = threadIdx.x; e < block_q * C; e += blockDim.x) {
-      const int q = e / C;
-      const bool ok = q < nq;
-      qc[e] = ok ? qcodes[(size_t)(q0 + q) * C + (e % C)] : T(0);
-      qa[e] = ok ? col_weights[(size_t)(q0 + q) * C + (e % C)] : 0.0f;
-    }
+    match_tree::load_queries(reinterpret_cast<T*>(qb), qa, qcodes,
+                             col_weights, q0, nq, block_q, C);
   }
   __device__ float cell(const float* qa, const unsigned char* qb, int q,
                         const T* row, int /*doc*/) const {
+    const int cp = match_tree::padded_cols(C);
     return match_tree::cell_score<T>(
-        row, reinterpret_cast<const T*>(qb) + q * C, qa + q * C, C, log_pc);
+        row, reinterpret_cast<const T*>(qb) + q * cp, qa + q * cp, C,
+        log_pc);
   }
 };
 

@@ -15,7 +15,10 @@ tree, zero-padded to a power of two (``x[..., :h] + x[..., h:]`` until one
 column is left).  The order of the adds is a pure function of C, so the
 bits of a (query, doc) score cannot depend on how the doc or query axis is
 tiled, and they equal the JAX reference's ``match_scores`` exactly.  The
-CUDA kernel adds the same leaves in the same order (see its source note).
+CUDA kernels add the same leaves in the same order, evaluated another way
+(``kernels/csrc/match_tree.cuh``): :func:`match_scores_words` is that
+evaluation order in torch, which the tests hold bit-equal to the
+reference's.
 """
 
 from __future__ import annotations
@@ -28,8 +31,9 @@ import torch.nn.functional as F
 from repro_torch.core.quantize import quantized_scores
 from repro_torch.core.rerank import stable_topk
 
-__all__ = ["match_scores", "fused_phase1_ref", "fused_phase1_stream",
-           "fused_phase1_quant_ref", "fused_phase1_quant_stream"]
+__all__ = ["match_scores", "match_scores_words", "fused_phase1_ref",
+           "fused_phase1_stream", "fused_phase1_quant_ref",
+           "fused_phase1_quant_stream"]
 
 
 def match_scores(doc_codes: torch.Tensor,    # (d, C) int
@@ -48,6 +52,63 @@ def match_scores(doc_codes: torch.Tensor,    # (d, C) int
         h = x.shape[-1] // 2
         x = x[..., :h] + x[..., h:]
     return x[..., 0]
+
+
+_BLOCK_LOG = 4      # match_tree.cuh's kBlockLog
+
+
+def _bitrev(x: int, bits: int) -> int:
+    return int(f"{x:0{bits}b}"[::-1], 2) if bits else 0
+
+
+def _carry_fold(values):
+    """Adjacent-pair tree over ``values`` (a power-of-two count) in walk
+    order, by a carry stack: step t merges trailing_ones(t) times."""
+    stack = []
+    for t, v in enumerate(values):
+        while t & 1:
+            v = stack.pop() + v
+            t >>= 1
+        stack.append(v)
+    return stack[-1]
+
+
+def match_scores_words(doc_codes: torch.Tensor,    # (d, C) int
+                       qcodes: torch.Tensor,       # (Q, C) int
+                       col_weights: torch.Tensor,  # (Q, C) f32
+                       ) -> torch.Tensor:
+    """:func:`match_scores` (Q, d) in the CUDA kernels' evaluation order,
+    for tests: the query rows padded with zero weights to whole 4-column
+    groups; a 32-bit word of g = 4 / itemsize codes giving one leaf to each
+    of g interleaved subtrees; the words walked in bit-reversed order,
+    blocks of 2^min(L, 4) steps at a time, words past C as +0.0; the
+    subtrees combined as (a0 + a2) + (a1 + a3), a0 + a1 or a0."""
+    C = doc_codes.shape[1]
+    g = 4 // doc_codes.element_size()
+    x = torch.where(qcodes[:, None, :] == doc_codes[None, :, :],
+                    col_weights[:, None, :], 0.0)
+    x = F.pad(x, (0, -C % 4))
+    pc = 1 << max(C - 1, 0).bit_length()
+    if pc < g:                      # one word holds the whole tree
+        return x[..., 0] if pc == 1 else x[..., 0] + x[..., 1]
+    L = (pc // g).bit_length() - 1
+    u = min(L, _BLOCK_LOG)
+    lnb = L - u
+    cw = -(-C // g)
+    zero = torch.zeros(x.shape[:2] + (g,), dtype=x.dtype)
+
+    def leaves(m):
+        return x[..., m * g:(m + 1) * g] if m < cw else zero
+
+    def block(blk):
+        base = _bitrev(blk, lnb)
+        return _carry_fold([leaves(base + (_bitrev(j, u) << lnb))
+                            for j in range(1 << u)])
+
+    a = _carry_fold([block(b) for b in range(1 << lnb)])
+    if g == 4:
+        return (a[..., 0] + a[..., 2]) + (a[..., 1] + a[..., 3])
+    return a[..., 0] + a[..., 1] if g == 2 else a[..., 0]
 
 
 def _mask_topk(scores: torch.Tensor, live: Optional[torch.Tensor],

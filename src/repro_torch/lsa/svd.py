@@ -6,14 +6,18 @@ densifying ``A``:
 
 * ``A @ Y``  -> embedding-bag: gather ``Y[terms]``, weight, sum over the
   pad axis -- ``O(nnz * r)``;
-* ``A.T @ X`` -> scatter: ``index_add_`` of ``w * X[doc]`` over term ids.
+* ``A.T @ X`` -> scatter: a fixed-order segment sum of ``w * X[doc]`` over
+  term ids.
 
 Both walk the doc axis a block of rows at a time, so the gathered
 (rows, T, r) tensor stays near ``_BLOCK_ELEMENTS`` elements (the whole one
 is 42 GB at 262,144 docs x 96 terms x 416 columns).  A row's sum over T is
-one reduction over the block's middle axis.  ``index_add_`` on the card is
-atomic, so ``A.T @ X`` sums in another order from run to run: float
-tolerance, not bits.
+one reduction over the block's middle axis.  ``A.T @ X`` sums in a fixed
+order, so its bits do not change from run to run on the card: a term gets
+many contributions within a block, so the block's term ids are
+stable-sorted and ``segment_reduce`` sums each term's run in block order;
+the block sums, one per distinct term, go into the output by
+``index_add_`` with no index twice, the blocks in order.
 
 Halko-Martinsson-Tropp randomized range finder with power iterations and
 QR re-orthogonalisation.  The Gaussian test matrix comes from an explicit
@@ -67,8 +71,9 @@ def matvec_bags(terms: torch.Tensor, weights: torch.Tensor, Y: torch.Tensor,
 def rmatvec_bags(terms: torch.Tensor, weights: torch.Tensor, X: torch.Tensor,
                  vocab_size: int, block: Optional[int] = None
                  ) -> torch.Tensor:
-    """A.T @ X: (d, T) x (d, r) -> (vocab, r) by ``index_add_``, ``block``
-    docs at a time; pads go to a dropped extra row."""
+    """A.T @ X: (d, T) x (d, r) -> (vocab, r) by fixed-order segment sums,
+    ``block`` docs at a time (see the module doc); pads go to a dropped
+    extra row."""
     d, T = terms.shape
     r = X.shape[1]
     out = torch.zeros((vocab_size + 1, r), dtype=torch.float32,
@@ -76,9 +81,13 @@ def rmatvec_bags(terms: torch.Tensor, weights: torch.Tensor, X: torch.Tensor,
     step = _rows(T, r, block)
     for lo in range(0, d, step):
         t = terms[lo:lo + step]
-        tid = torch.where(t >= 0, t, vocab_size).reshape(-1).long()
+        tid = torch.where(t >= 0, t, vocab_size).reshape(-1)
+        tid, order = torch.sort(tid, stable=True)
+        uniq, counts = torch.unique_consecutive(tid, return_counts=True)
         contrib = weights[lo:lo + step, :, None] * X[lo:lo + step, None, :]
-        out.index_add_(0, tid, contrib.reshape(-1, r))
+        seg = torch.segment_reduce(contrib.reshape(-1, r)[order], "sum",
+                                   lengths=counts)
+        out.index_add_(0, uniq.long(), seg)
     return out[:vocab_size]
 
 

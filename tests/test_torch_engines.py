@@ -120,6 +120,46 @@ def test_score_postings_single_query_and_idf(pair):
                              torch.from_numpy(mask[0]), weighting="bm25")
 
 
+@pytest.mark.parametrize("max_postings", [None, 32])
+@pytest.mark.parametrize("step_entries", [None, 100])
+def test_score_postings_batch_bit_equal_to_jax(pair, max_postings,
+                                                step_entries, monkeypatch):
+    """With weighting "count" the weights enter both packages the same
+    way, so only the order of the adds could differ: one round per column,
+    in column order, sums every (query, doc) as the reference's
+    segment_sum does, bit for bit, however the columns are cut into
+    steps.  The weights span six decades, so that another order shows."""
+    from repro.core import postings as jpost
+
+    if step_entries is not None:
+        monkeypatch.setattr(tpost, "_STEP_ENTRIES", step_entries)
+    jidx, tidx, Q = pair
+    qc, _ = _query_tokens(jidx, Q, "count", trim=None)
+    rng = np.random.default_rng(7)
+    cw = (rng.random(qc.shape) * 10 ** rng.uniform(-3, 3, qc.shape)).astype(
+        np.float32)
+    mask = rng.random(qc.shape) < 0.8
+    want = np.asarray(jpost.score_postings_batch(
+        jidx.postings, jnp.asarray(qc), jnp.asarray(mask),
+        max_postings=max_postings or N_DOCS, weighting="count",
+        col_weights=jnp.asarray(cw)))
+    got = tpost.score_postings_batch(
+        tidx.postings, torch.from_numpy(qc), torch.from_numpy(mask),
+        max_postings=max_postings, weighting="count",
+        col_weights=torch.from_numpy(cw))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert np.array_equal(got.numpy(), want)
+    if max_postings is None:   # the same sums in reverse column order differ
+        codes = np.asarray(jidx.codes)
+        rev = np.zeros_like(want)
+        for c in reversed(range(qc.shape[1])):
+            rev += np.where(mask[:, None, c] & (codes[None, :, c]
+                                                == qc[:, None, c]),
+                            cw[:, None, c], np.float32(0))
+        assert np.allclose(rev, want, rtol=1e-5, atol=0)
+        assert not np.array_equal(rev, want)
+
+
 def test_code_df_equals_df_lookup(pair):
     jidx, tidx, Q = pair
     from repro.core import postings as jpost

@@ -5,10 +5,10 @@ score is finite, every id in range.  The int8 contract
 (``fused_phase1_quant``) is the reference suite's ``_assert_quant_parity``:
 scores within rtol 1e-5 and atol 1e-4, ids equal wherever the reference
 separates neighbours by more than 1e-4, every id in range.  On the CPU the public wrapper runs the
-plain version; the CUDA kernel's algorithm (bit-reversed tree per cell,
-bitonic tile sort and merge, doc splits) is pinned here by a numpy
-emulation, and the kernel itself by ``tests/test_torch_cuda.py`` on the
-card.
+plain version; the CUDA kernel's algorithm (the tree per cell in its
+evaluation order, ``ref.match_scores_words``; bitonic tile sort and
+merge; doc splits) is pinned here by an emulation, and the kernel itself
+by ``tests/test_torch_cuda.py`` on the card.
 """
 
 import jax.numpy as jnp
@@ -61,6 +61,25 @@ def test_match_scores_bit_equal(shape, dtype):
     D, Q, W = _inputs(d, q, c, dtype)
     want = np.asarray(jref.match_scores(*map(jnp.asarray, (D, Q, W))))
     got = tref.match_scores(*_t(D, Q, W)).numpy()
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int32])
+@pytest.mark.parametrize("C", [1, 2, 3, 12, 23, 37, 96, 400, 401, 800])
+def test_match_scores_words_bit_equal(C, dtype):
+    """The CUDA scorer's evaluation order (interleaved subtrees per 32-bit
+    word, blocks of bit-reversed words, zero-weight padding to whole
+    4-column groups) is bit-equal to JAX's match_scores, with weights
+    spread over six decades so that another order of adds shows."""
+    rng = np.random.default_rng(C)
+    d, q = 48, 3
+    D = rng.integers(-2, 2, size=(d, C)).astype(dtype)
+    Q = rng.integers(-2, 2, size=(q, C)).astype(dtype)
+    W = (rng.random((q, C)) * 10 ** rng.uniform(-3, 3, (q, C))).astype(
+        np.float32)
+    want = np.asarray(jref.match_scores(*map(jnp.asarray, (D, Q, W))))
+    got = tref.match_scores_words(*_t(D, Q, W)).numpy()
+    assert got.dtype == np.float32 and got.shape == (q, d)
     assert np.array_equal(got, want)
 
 
@@ -214,27 +233,9 @@ def test_quant_stream_block_invariance(block):
 
 
 # ---------------------------------------------------- kernel emulation
-def _bitrev(t, bits):
-    return int(format(t, f"0{bits}b")[::-1], 2) if bits else 0
-
-
 def _emu_cells(D, Q, W):
-    """csrc cell_score for every cell: leaves in bit-reversed order,
-    partial sums merged on a stack like a binary counter."""
-    d, C = D.shape
-    log = max(C - 1, 0).bit_length()
-    stk = [None] * (log + 1)
-    for t in range(1 << log):
-        c = _bitrev(t, log)
-        v = (np.where(Q[:, None, c] == D[None, :, c], W[:, None, c],
-                      np.float32(0)) if c < C
-             else np.zeros((Q.shape[0], d), np.float32))
-        lvl = 0
-        while (t >> lvl) & 1:
-            v = stk[lvl] + v
-            lvl += 1
-        stk[lvl] = v
-    return stk[log]
+    """csrc cell_score for every cell, in its evaluation order."""
+    return tref.match_scores_words(*_t(D, Q, W)).numpy()
 
 
 def _before(sa, ia, sb, ib):

@@ -94,6 +94,34 @@ def test_bag_products_blocked_and_unblocked(block):
         rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("block", [None, 7, 64])
+def test_rmatvec_bags_fixed_order(block):
+    """A.T @ X is summed in one fixed order: within a doc block each
+    term's contributions in (doc, slot) order, then the block sums in
+    block order -- bit-equal to that sequential sum in numpy, with weights
+    over six decades so that another order shows."""
+    rng = np.random.default_rng(1)
+    d, T, r, V = 300, 12, 5, 40
+    terms = rng.integers(-1, V, size=(d, T)).astype(np.int32)
+    weights = (rng.random((d, T)) * 10 ** rng.uniform(-3, 3, (d, T))
+               ).astype(np.float32)
+    X = rng.normal(size=(d, r)).astype(np.float32)
+    got = tsvd.rmatvec_bags(torch.from_numpy(terms), torch.from_numpy(weights),
+                            torch.from_numpy(X), V, block=block).numpy()
+    step = block or d
+    want = np.zeros((V + 1, r), np.float32)
+    for lo in range(0, d, step):
+        part = {}
+        for i in range(lo, min(lo + step, d)):
+            for j in range(T):
+                t = terms[i, j] if terms[i, j] >= 0 else V
+                c = weights[i, j] * X[i]
+                part[t] = part[t] + c if t in part else c
+        for t, v in part.items():
+            want[t] = want[t] + v
+    assert np.array_equal(got, want[:V])
+
+
 def _jax_omega(seed, vocab, r):
     """The test matrix JAX's randomized_svd draws (``svd.py``)."""
     return np.array(jax.random.normal(jax.random.PRNGKey(seed), (vocab, r),

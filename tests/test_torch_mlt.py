@@ -93,3 +93,45 @@ def test_self_retrieval(built):
     ids, _ = tm.more_like_this(corpus.doc_terms[:8], corpus.doc_tf[:8],
                                max_query_terms=25, k=5)
     assert (ids[:, 0].numpy() == np.arange(8)).all()
+
+
+@pytest.mark.parametrize("mqt,max_postings", [(25, 4096), (50, 7)])
+def test_scores_bit_equal_to_sequential_scatter(built, mqt, max_postings):
+    """The rounds sum every (query, doc) as a sequential scatter in
+    (query, selected term) order does, bit for bit.  They may: within a
+    term's posting list each doc appears once, checked here first.  The
+    per-entry weights are torch's own (the order of the adds is what is
+    under test, not log1p)."""
+    import torch
+
+    from repro_torch.core.rerank import stable_topk
+
+    corpus, _, tm = built
+    p = tm.postings
+    terms, docs = p.sorted_terms.numpy(), p.sorted_docs.numpy()
+    real = terms < corpus.vocab_size
+    pairs = terms[real].astype(np.int64) * p.n_docs + docs[real]
+    assert np.unique(pairs).size == pairs.size
+
+    qt, qtf = corpus.doc_terms[:16], corpus.doc_tf[:16]
+    got = tm.scores(qt, qtf, max_query_terms=mqt, max_postings=max_postings)
+    tq = torch.from_numpy(qt).long()
+    tf = torch.from_numpy(qtf).float()
+    tid = tq.clamp(min=0)
+    tfidf = torch.where(tq >= 0, (1.0 + torch.log1p(tf)) * p.idf[tid],
+                        float("-inf"))
+    sel_w, sel_pos = stable_topk(tfidf, min(mqt, qt.shape[1]))
+    sel, sel_w = torch.gather(tid, 1, sel_pos).numpy(), sel_w.numpy()
+    entry_w = (1.0 + torch.log1p(p.sorted_tf)).numpy()
+    idf = p.idf.numpy()
+    want = np.zeros((qt.shape[0], p.n_docs), np.float32)
+    for q in range(qt.shape[0]):
+        for j in range(sel.shape[1]):
+            if not np.isfinite(sel_w[q, j]):
+                continue
+            lo, hi = np.searchsorted(terms, sel[q, j], side="left"), \
+                np.searchsorted(terms, sel[q, j], side="right")
+            for e in range(lo, min(hi, lo + max_postings)):
+                want[q, docs[e]] += idf[sel[q, j]] * entry_w[e]
+    assert got.dtype == torch.float32
+    assert np.array_equal(got.numpy(), want)

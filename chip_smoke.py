@@ -15,7 +15,9 @@ Phases, each printing one JSON line (D one per engine, then a summary):
   A  each kernel against its plain version: fused_phase1 (scores
      bit-equal, ids equal where finite), code_match (rtol/atol 1e-5, and
      bit-equal to the match_scores tree) and fused_phase1_quant (scores
-     within rtol 1e-5 / atol 1e-4, ids equal away from near-ties), ids in
+     within rtol 1e-5 / atol 1e-4, ids equal away from near-ties, and
+     scores and finite ids bit-equal to ref.quant_split_scores' stable
+     top-page, the tensor-core arithmetic in torch), ids in
      range, at four shapes or more each, page = d = 5000 and page 16,384
      (the fold in device memory) included; rerank_topk (rtol 1e-4 / atol
      5e-5) at five shapes, page 8192 and ragged n included; bucketize
@@ -32,7 +34,9 @@ Phases, each printing one JSON line (D one per engine, then a summary):
      rows each), ``index.search`` with no engine named (``postings``, 32
      rows, served twice: both answers, and two runs of its phase-1
      scores, bit-equal), and ``onehot`` on the first 65,536 rows (32
-     rows); the same checks, the kernels' launch counts, and each
+     rows); one ``fused_int8`` batch under torch.profiler (host time,
+     device busy time and idle share); the same checks, the kernels'
+     launch counts, and each
      kernel's time, plain time and bound at Q 32; then
      ``bucketize.ops.encode`` of the raw 4,181,504 x 400 rows held to
      ``index.codes`` (the encode_4m cell of
@@ -61,6 +65,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -70,6 +75,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 CUDA_CORE_OPS_PER_S = 33.5e12      # 67 TFLOP/s fp32 non-tensor / 2 per FMA
+INT8_TC_OPS_PER_S = 1979e12        # dense int8 tensor cores (data sheet)
 OPS_PER_ELEMENT = 3                # compare, select, add per (q, doc, col)
 
 N_DOCS = 4_181_504                 # English Wikipedia 4,181,352, padded x512
@@ -158,12 +164,14 @@ def code_match_bound_ms(d: int, Q: int, C: int, code_bytes: int) -> tuple:
 
 
 def quant_bound_ms(d: int, Q: int, n: int, page: int, live: bool) -> tuple:
-    """Least time for fused_phase1_quant: the int8 rows, scale, zero and
-    queries read once, the page written once; Q*d*n fp32 multiply-adds on
-    the CUDA cores (the f32 queries keep it off the tensor cores)."""
+    """Least time for fused_phase1_quant on the int8 tensor cores: the int8
+    rows, scale, zero and queries read once, the page written once, over
+    the HBM rate; 2*Q*d*K*3 int8 operations (the queries as three int8
+    pieces, K = n padded to whole 32-code steps) over the int8 tensor-core
+    rate."""
     nbytes = d * n + 8 * d + (d if live else 0) + Q * n * 4 + Q * page * 8
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = Q * d * n / CUDA_CORE_OPS_PER_S * 1e3
+    t_ops = 2 * Q * d * (-(-n // 32) * 32) * 3 / INT8_TC_OPS_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -241,6 +249,22 @@ def stack_frames(log_lines) -> dict:
         elif "bytes stack frame" in ln and fn is not None:
             if "kernel" in fn:
                 out[fn] = int(ln.split()[0])
+            fn = None
+    return out
+
+
+def spill_bytes(log_lines) -> dict:
+    """{mangled kernel name: bytes of spill stores + loads} from a
+    library's ``nvcc -Xptxas -v`` log."""
+    out, fn = {}, None
+    for ln in log_lines:
+        if "Function properties for" in ln:
+            fn = ln.rsplit(" ", 1)[-1]
+        elif "bytes spill stores" in ln and fn is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if "kernel" in fn and m:
+                out[fn] = int(m.group(1)) + int(m.group(2))
             fn = None
     return out
 
@@ -413,13 +437,21 @@ def phase_a_quant(gen) -> dict:
         want = fp_ref.fused_phase1_quant_ref(codes, scale, zero, q,
                                              min(page + 1, d), live)
         err = assert_quant_parity(got, want, d, (d, n, Q, page))
+        split = fp_ref.fused_phase1_quant_split_ref(codes, scale, zero, q,
+                                                    page, live)
+        fin = torch.isfinite(split[0])
+        check(torch.equal(got[0], split[0])
+              and torch.equal(got[1][fin], split[1][fin]),
+              f"{(d, n, Q, page)}: not bit-equal to quant_split_scores")
+        del split, fin
         if live is not None and int(live.sum()) < page:
             check(bool((torch.isfinite(got[0]).sum(1)
                         == int(live.sum())).all()),
                   "live case: finite count != live docs")
         worst = max(worst, err)
         rows.append({"d": d, "n": n, "Q": Q, "page": page,
-                     "live": live is not None, "max_abs_err": err})
+                     "live": live is not None, "max_abs_err": err,
+                     "split_bit_equal": True})
         if page > 8192:        # the fold in device memory: timed
             rows[-1]["ms"] = cuda_ms(
                 lambda: fp_kernel.fused_phase1_quant_cuda(codes, scale, zero,
@@ -580,6 +612,40 @@ def serve_engine(index, queries, ctx, **engine_kw):
     finally:
         engine.close()
     return results, batch_s, torch.cuda.max_memory_allocated()
+
+
+def trace_batch(fn) -> dict:
+    """One call of ``fn`` under torch.profiler, after one warm call: its
+    host-clock time, the device's busy time (the union of its kernels and
+    copies), the idle share of the call, and its three largest kernels'
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, lo, hi, by_name = 0.0, None, None, {}
+    for s, e, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (e - s)
+        if hi is None or s > hi:
+            busy += 0.0 if hi is None else hi - lo
+            lo, hi = s, e
+        else:
+            hi = max(hi, e)
+    busy += 0.0 if hi is None else hi - lo
+    check(busy > 0, "the trace holds no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return {"host_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / wall_us,
+            "top_kernels_ms": {name[:60]: us / 1e3 for name, us in top}}
 
 
 def median_after_first(xs):
@@ -783,9 +849,15 @@ def phase_d(gen, index, queries, src, raw_state) -> tuple:
         engines[name] = row
         emit({"phase": "D", **row})
 
+    # one fused_int8 batch traced: device time against host time
+    qs = torch.from_numpy(queries[:BATCH])
+    engines["fused_int8"]["trace"] = trace_batch(lambda: index.search(
+        qs, k=K, page=PAGE, trim=TrimFilter(0.05), engine="fused_int8"))
+    emit({"phase": "D", "engine": "fused_int8",
+          "trace": engines["fused_int8"]["trace"]})
+
     # index.search with no engine named: postings, exact; served twice,
     # and its phase-1 scores taken twice: each pair bit-equal
-    qs = torch.from_numpy(queries[:BATCH])
     lat, answers = [], []
     torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
@@ -934,7 +1006,9 @@ def phase_d(gen, index, queries, src, raw_state) -> tuple:
         "fused_phase1_quant": {"launches": launches["fused_phase1_quant"],
                                "max_abs_err": qn_err, "ms": qn_ms,
                                "plain_ms": qn_plain_ms, "bound_ms": qn_bound,
-                               "bound_by": qn_by}}
+                               "bound_by": qn_by,
+                               "batch_latency_s_median": engines[
+                                   "fused_int8"]["batch_latency_s_median"]}}
     summary = {"phase": "D", "n_docs": index.n_docs,
                "batch_latency_s_median": {
                    k: v["batch_latency_s_median"] for k, v in engines.items()},
@@ -1133,20 +1207,27 @@ def main(argv=None) -> int:
     build_s = time.monotonic() - t
     ptxas = {}
     frames = {}
+    spills = {}
     for name in builds:
         log = _build.build_dir() / f"{name}.log"
         lines = log.read_text().splitlines() if log.exists() else []
         ptxas[name] = [ln for ln in lines
                        if "registers" in ln or "spill" in ln]
         frames[name] = stack_frames(lines)
+        spills[name] = spill_bytes(lines)
     emit({"device": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
-          "stack_frames": frames})
-    for name, kernel in (("fused_phase1", "score_fold_kernel"),
-                         ("code_match", "code_match_kernel")):
-        scorers = {fn: b for fn, b in frames[name].items() if kernel in fn}
-        check(len(scorers) == 3 and not any(scorers.values()),
-              f"{name}: scorer kernels' stack frames {scorers}, want 0")
+          "stack_frames": frames, "spill_bytes": spills})
+    for name, kernel, count in (("fused_phase1", "score_fold_kernel", 3),
+                                ("code_match", "code_match_kernel", 3),
+                                ("fused_phase1_quant", "score_fold_kernel",
+                                 1)):
+        scorers = {fn: (b, spills[name].get(fn))
+                   for fn, b in frames[name].items() if kernel in fn}
+        check(len(scorers) == count
+              and all(v == (0, 0) for v in scorers.values()),
+              f"{name}: scorer kernels' (stack frame, spill) bytes "
+              f"{scorers}, want 0")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     a = c = None

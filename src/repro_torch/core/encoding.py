@@ -14,9 +14,10 @@ unit-normalised inputs (int8 for the paper's default settings).
 
 Two arithmetic details keep the codes integer-exact against the reference:
 rounding is half-away-from-zero (``sign(s) * floor(|s| + 0.5)``, not
-``torch.round``'s half-to-even), and the interval division divides by a
-float32 tensor on the input's device -- PyTorch's CUDA ``div`` by a Python
-scalar computes ``a * (1 / b)``, which moves codes at bucket edges.
+``torch.round``'s half-to-even), and the interval division (and
+``decode_center``'s) divides by a float32 tensor on the input's device --
+PyTorch's CUDA ``div`` by a Python scalar computes ``a * (1 / b)``, which
+moves codes at bucket edges.
 """
 
 from __future__ import annotations
@@ -34,6 +35,12 @@ __all__ = [
     "Encoder",
     "smallest_int_dtype",
 ]
+
+
+def _f32(value: float, device) -> torch.Tensor:
+    """``value`` as a float32 tensor on ``device``: the divisor (or factor)
+    of an elementwise op, never a Python scalar (see module doc)."""
+    return torch.tensor(value, dtype=torch.float32, device=device)
 
 
 def smallest_int_dtype(max_abs: int) -> torch.dtype:
@@ -76,6 +83,14 @@ class RoundingEncoder:
         b = torch.sign(scaled) * torch.floor(torch.abs(scaled) + 0.5)
         return b.to(self.code_dtype)
 
+    def column_feature(self, n_features: int) -> torch.Tensor:
+        """Original feature index of every code column."""
+        return torch.arange(n_features)
+
+    def decode_center(self, codes: torch.Tensor) -> torch.Tensor:
+        """Representative value of a bucket (for reconstruction tests)."""
+        return codes.to(torch.float32) / _f32(self.scale, codes.device)
+
 
 @dataclasses.dataclass(frozen=True)
 class IntervalEncoder:
@@ -101,8 +116,13 @@ class IntervalEncoder:
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         # a float32 tensor divisor, never a Python scalar: see module doc
-        width = torch.tensor(self.width, dtype=torch.float32, device=x.device)
-        return torch.floor(x / width).to(self.code_dtype)
+        return torch.floor(x / _f32(self.width, x.device)).to(self.code_dtype)
+
+    def column_feature(self, n_features: int) -> torch.Tensor:
+        return torch.arange(n_features)
+
+    def decode_center(self, codes: torch.Tensor) -> torch.Tensor:
+        return (codes.to(torch.float32) + 0.5) * _f32(self.width, codes.device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +152,13 @@ class CombinedEncoder:
         r = self.rounding.encode(x).to(dt)
         i = self.interval.encode(x).to(dt)
         return torch.cat([r, i], dim=-1)
+
+    def column_feature(self, n_features: int) -> torch.Tensor:
+        f = torch.arange(n_features)
+        return torch.cat([f, f])
+
+    def decode_center(self, codes: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError("combined codes have no single center")
 
 
 Encoder = Union[RoundingEncoder, IntervalEncoder, CombinedEncoder]

@@ -22,20 +22,21 @@ import os
 import pathlib
 import subprocess
 import threading
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 __all__ = ["NVCC_FLAGS", "build_dir", "load_library", "row_stride",
-           "launch_sizes", "smem_optin", "check_code_inputs", "THREADS",
-           "STAGE_BYTES", "MAX_COLUMNS"]
+           "mma_row_stride", "launch_sizes", "smem_optin",
+           "check_code_inputs", "THREADS", "STAGE_BYTES", "MAX_COLUMNS"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 THREADS = 512              # kThreads of every kernel: cells scored at once
 MAX_COLUMNS = 4096         # C the code-match tree takes (kMaxLogC 12)
-STAGE_BYTES = 1 << 16      # most shared memory for staged doc rows
+STAGE_BYTES = 1 << 16      # most shared memory for one buffer of staged
+                           # doc rows
 _BLOCK_Q = (8, 4, 2, 1)    # query-tile sizes, largest that fits wins
 _SMEM_OPTIN = 232448       # shared memory a block may opt into on sm_90
 
@@ -143,23 +144,45 @@ def row_stride(width: int, itemsize: int) -> int:
     return (words + 1 - words % 2) * per_word
 
 
+def mma_row_stride(width: int) -> int:
+    """Bytes per staged int8 doc row for the tensor-core scorer: at least
+    ``width``, a whole and odd number of 16-byte chunks, so the eight rows
+    one ``ldmatrix`` phase reads fall in eight different 16-byte bank
+    groups."""
+    chunks = -(-width // 16)
+    return (chunks + 1 - chunks % 2) * 16
+
+
 def launch_sizes(smem_bytes: Callable[[int, int, int], int], Q: int,
                  width: int, itemsize: int, max_sub: int,
-                 smem_max: int) -> Tuple[int, int, int]:
+                 smem_max: int, stride: Optional[int] = None,
+                 sub_start: Optional[int] = None, min_sub: int = 1
+                 ) -> Tuple[int, int, int]:
     """-> (block_q, sub, stride): the largest query tile (at most Q, from
     8 down to 1) whose shared memory ``smem_bytes(block_q, sub, stride)``
-    fits ``smem_max``, with ``sub`` staged rows (a power of two, about one
-    cell per thread, at most ``max_sub``, within the staging budget).
-    Raises ValueError when even a query tile of one does not fit."""
-    stride = row_stride(width, itemsize)
+    fits ``smem_max``, with ``sub`` staged rows: a power of two from
+    ``sub_start`` (default about one cell per thread) down, at most
+    ``max_sub``, at least ``min_sub``, one staging buffer within the
+    staging budget where that allows.  With ``sub_start`` given, smaller
+    sub-blocks are tried before a smaller query tile (the tensor-core
+    scorer fills its 8-query tiles).  ``stride`` defaults to
+    :func:`row_stride`.  Raises ValueError when even a query tile of one
+    does not fit."""
+    if stride is None:
+        stride = row_stride(width, itemsize)
     need = None
     for block_q in _BLOCK_Q:
         block_q = min(block_q, Q)
-        sub = min(1 << ((THREADS // block_q).bit_length() - 1), max_sub)
-        while sub > 1 and sub * stride * itemsize > STAGE_BYTES:
+        first = (THREADS // block_q if sub_start is None else sub_start)
+        sub = max(min(1 << (first.bit_length() - 1), max_sub), min_sub)
+        while sub > min_sub and sub * stride * itemsize > STAGE_BYTES:
             sub //= 2
-        need = smem_bytes(block_q, sub, stride)
-        if 0 < need <= smem_max:
-            return block_q, sub, stride
+        while True:
+            need = smem_bytes(block_q, sub, stride)
+            if 0 < need <= smem_max:
+                return block_q, sub, stride
+            if sub_start is None or sub <= min_sub:
+                break
+            sub //= 2
     raise ValueError(f"{need} B of shared memory needed, more than the "
                      f"card's {smem_max}")

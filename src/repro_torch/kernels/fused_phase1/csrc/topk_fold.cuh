@@ -10,8 +10,8 @@
 //     scorer) and one contiguous doc split, which it walks tile by tile
 //     INSIDE the block.  The doc rows of a tile are staged `sub` rows at a
 //     time in shared memory (match_tree::stage_rows); each thread scores
-//     (query, doc)
-//     cells of the staged rows with the scorer (-inf for dead docs).  Of
+//     (query, doc) cells of the staged rows with the scorer (-inf for dead
+//     docs), or a tile scorer stages and scores them (see below).  Of
 //     each query's tile only the entries that rank ahead of the
 //     accumulator's last entry can enter it: those are compacted to the
 //     front, bitonic-sorted and merged into the block's running top-P2
@@ -34,6 +34,26 @@
 //       -- all threads together stage the block's queries (device)
 //   float cell(const float* qa, const unsigned char* qb, int q,
 //              const Row* row, int doc)   -- one cell (device)
+// and the fold stages the doc rows (match_tree::stage_rows) and scores
+// one cell per thread.  A tile scorer (static constexpr bool kTileScorer
+// = true; fused_phase1_quant.cu) instead scores a whole staged sub-block
+// together and stages its own rows, asynchronously:
+//   size_t rows_bytes(int sub, int stride)   -- one staging buffer (host,
+//       device); the fold keeps two
+//   void stage(Row* buf, const Row* rows_g, int r0, int rows, int sub,
+//              int stride)
+//       -- all threads issue cp.async copies of rows r0 .. r0 + rows (and
+//          of whatever per-doc data the scorer keeps beside them)
+//   void score(const float* qa, const unsigned char* qb, const Row* buf,
+//              const Row* rows_g, int r0, int rows, int stride, int nq,
+//              int block_q, const uint8_t* live, float* til_s,
+//              int* til_i, int tile, int col0, int sub)
+//       -- all threads write the sub-block's block_q x sub cells (-inf
+//          for dead docs, rows past `rows` and queries past nq) at
+//          columns col0 .. col0 + sub of the tile
+// Then sub-block i + 1's copies are in flight while sub-block i is scored
+// (cp.async commit / wait_group, then __syncthreads), across tile
+// boundaries too, so the next tile's first rows load during the fold.
 //
 // Where the buffers live: the accumulator and the tile take 16 bytes per
 // slot of P2 and query, so past P2 = 8192 they do not fit a block's shared
@@ -52,6 +72,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "../../csrc/match_tree.cuh"
 
 namespace topk_fold {
@@ -61,6 +83,35 @@ using match_tree::log2_ceil;
 using match_tree::log2_pow2;
 
 constexpr int kThreads = 512;
+
+// S::kTileScorer where the scorer declares it, else false.
+template <typename S, typename = void>
+struct is_tile_scorer : std::false_type {};
+template <typename S>
+struct is_tile_scorer<S, std::void_t<decltype(S::kTileScorer)>>
+    : std::bool_constant<S::kTileScorer> {};
+
+// Asynchronous staging (sm_80 and later): a 16-byte copy, a 4-byte copy
+// of which only the first `valid` bytes are read (the rest zero-filled),
+// and the group fences.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(valid));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
 __device__ __forceinline__ float neg_inf() {
   return __int_as_float(0xff800000);
@@ -209,9 +260,13 @@ __host__ __device__ inline FoldLayout scorer_layout(const S& sc, int block_q,
                                                     int pp, int tile,
                                                     int sub, int stride,
                                                     bool spill) {
+  size_t rows_bytes;
+  if constexpr (is_tile_scorer<S>::value)
+    rows_bytes = 2 * sc.rows_bytes(sub, stride);     // double-buffered
+  else
+    rows_bytes = (size_t)sub * stride * sizeof(typename S::Row);
   return fold_layout(block_q, pp, tile, sc.qa_bytes(block_q),
-                     sc.qb_bytes(block_q),
-                     (size_t)sub * stride * sizeof(typename S::Row), spill);
+                     sc.qb_bytes(block_q), rows_bytes, spill);
 }
 
 // Pass 1 (see the file note).
@@ -258,20 +313,41 @@ score_fold_kernel(const S sc, const typename S::Row* __restrict__ rows_g,
   const int d_lo = split * chunk;
   const int d_hi = min(d_lo + chunk, d);
   const int lsub = log2_pow2(sub);
+  int staged = 0;          // sub-blocks scored so far: the buffer parity
+  if constexpr (is_tile_scorer<S>::value) {
+    if (d_lo < d_hi) sc.stage(s_rows, rows_g, d_lo, min(sub, d_hi - d_lo),
+                              sub, stride);
+    cp_async_commit();
+  }
   for (int base = d_lo; base < d_hi; base += tile) {
     for (int s0 = 0; s0 < tile; s0 += sub) {
       const int r0 = base + s0;
       const int rows = max(0, min(sub, d_hi - r0));
-      match_tree::stage_rows(s_rows, rows_g, r0, rows, width, stride);
-      __syncthreads();
-      for (int e = threadIdx.x; e < block_q * sub; e += blockDim.x) {
-        const int q = e >> lsub, j = e & (sub - 1);
-        const int doc = r0 + j;
-        float s = neg_inf();
-        if (q < nq && j < rows && (live == nullptr || live[doc]))
-          s = sc.cell(s_qa, s_qb, q, s_rows + j * stride, doc);
-        til_s[q * tile + s0 + j] = s;
-        til_i[q * tile + s0 + j] = doc;
+      if constexpr (is_tile_scorer<S>::value) {
+        const size_t half = sc.rows_bytes(sub, stride) / sizeof(Row);
+        Row* cur = s_rows + (staged & 1) * half;
+        Row* nxt = s_rows + ((staged + 1) & 1) * half;
+        if (r0 + sub < d_hi)
+          sc.stage(nxt, rows_g, r0 + sub, min(sub, d_hi - r0 - sub), sub,
+                   stride);
+        cp_async_commit();     // an empty group past the split's end
+        cp_async_wait<1>();    // this sub-block's copies have landed
+        __syncthreads();
+        sc.score(s_qa, s_qb, cur, rows_g, r0, rows, stride, nq, block_q,
+                 live, til_s, til_i, tile, s0, sub);
+        ++staged;
+      } else {
+        match_tree::stage_rows(s_rows, rows_g, r0, rows, width, stride);
+        __syncthreads();
+        for (int e = threadIdx.x; e < block_q * sub; e += blockDim.x) {
+          const int q = e >> lsub, j = e & (sub - 1);
+          const int doc = r0 + j;
+          float s = neg_inf();
+          if (q < nq && j < rows && (live == nullptr || live[doc]))
+            s = sc.cell(s_qa, s_qb, q, s_rows + j * stride, doc);
+          til_s[q * tile + s0 + j] = s;
+          til_i[q * tile + s0 + j] = doc;
+        }
       }
       __syncthreads();
     }
@@ -294,6 +370,7 @@ score_fold_kernel(const S sc, const typename S::Row* __restrict__ rows_g,
     sort_segments(til_s, til_i, block_q, m, tile);
     merge_into(acc_s, acc_i, til_s, til_i, block_q, pp, tile);
   }
+  if constexpr (is_tile_scorer<S>::value) cp_async_wait<0>();
 
   for (int e = threadIdx.x; e < nq * pp; e += blockDim.x) {
     const int q = e / pp, i = e % pp;

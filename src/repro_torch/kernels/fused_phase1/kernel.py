@@ -5,7 +5,10 @@
 * ``fused_phase1_quant_cuda`` (``csrc/fused_phase1_quant.cu``), replacing
   ``src/repro/kernels/fused_phase1/kernel.py::fused_phase1_quant_pallas``.
 
-Both share the running top-``page`` fold of ``csrc/topk_fold.cuh``.  The
+Both share the running top-``page`` fold of ``csrc/topk_fold.cuh``; the
+int8 kernel scores on the int8 tensor cores (``mma.sync`` of ``sm_90a``,
+numerics in ``csrc/quant_mma.cuh``) with its rows staged by ``cp.async``
+into two buffers (:func:`_quant_plan`).  The
 kernels allocate nothing: this module checks the inputs, sizes the launch
 (query tile, doc tile, doc splits) against the card, allocates the partial
 and final outputs with ``torch.empty`` on the input's device, and launches
@@ -36,12 +39,14 @@ _MIN_TILE = 512            # docs sorted per tile (at least next_pow2(page))
 _BLOCKS_PER_SM = 2         # doc splits aim at this many blocks per SM
 WORKSPACE_BYTES = 1 << 28  # the fold's device workspace, when it spills,
                            # is cut to about this by fewer doc splits
+_MMA_ROWS = 16             # doc rows of one int8 tensor-core tile
 
 _CSRC = pathlib.Path(__file__).parent / "csrc"
 _SHARED = (_CSRC / "topk_fold.cuh",
            pathlib.Path(__file__).parents[1] / "csrc" / "match_tree.cuh")
 _SOURCES = (_CSRC / "fused_phase1.cu", *_SHARED)
-_QUANT_SOURCES = (_CSRC / "fused_phase1_quant.cu", *_SHARED)
+_QUANT_SOURCES = (_CSRC / "fused_phase1_quant.cu", _CSRC / "quant_mma.cuh",
+                  *_SHARED)
 _ENTRY = {torch.int8: "fused_phase1_int8", torch.int16: "fused_phase1_int16",
           torch.int32: "fused_phase1_int32"}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
@@ -91,13 +96,14 @@ class FoldPlan(NamedTuple):
 
 
 def _fold_plan(smem: Callable, d: int, Q: int, width: int, itemsize: int,
-               page: int, props) -> FoldPlan:
+               page: int, props, **staging) -> FoldPlan:
     """Size one fold; ``smem(block_q, page, tile, sub, stride, spill)`` is
-    pass 1's shared memory in bytes.  The accumulator and tile go to shared
-    memory where some query tile fits, else to the workspace, with the doc
-    splits cut so that it stays near ``WORKSPACE_BYTES`` (one split at
-    least).  Raises ValueError only when the queries and staged rows alone
-    do not fit shared memory."""
+    pass 1's shared memory in bytes, and ``staging`` (``stride``,
+    ``sub_start``, ``min_sub``) goes to :func:`_build.launch_sizes`.  The
+    accumulator and tile go to shared memory where some query tile fits,
+    else to the workspace, with the doc splits cut so that it stays near
+    ``WORKSPACE_BYTES`` (one split at least).  Raises ValueError only when
+    the queries and staged rows alone do not fit shared memory."""
     smem_max = _build.smem_optin(props)
     pp = _next_pow2(page)
     tile = max(pp, _MIN_TILE)
@@ -105,12 +111,12 @@ def _fold_plan(smem: Callable, d: int, Q: int, width: int, itemsize: int,
     try:
         block_q, sub, stride = _build.launch_sizes(
             lambda bq, sb, st: smem(bq, page, tile, sb, st, 0),
-            Q, width, itemsize, tile, smem_max)
+            Q, width, itemsize, tile, smem_max, **staging)
     except ValueError:
         spill = True
         block_q, sub, stride = _build.launch_sizes(
             lambda bq, sb, st: smem(bq, page, tile, sb, st, 1),
-            Q, width, itemsize, tile, smem_max)
+            Q, width, itemsize, tile, smem_max, **staging)
     n_qt = -(-Q // block_q)
     n_tiles = -(-d // tile)
     splits = max(1, min(n_tiles, 65535,
@@ -123,6 +129,17 @@ def _fold_plan(smem: Callable, d: int, Q: int, width: int, itemsize: int,
     splits = -(-d // chunk)
     return FoldPlan(block_q, sub, stride, tile, chunk, splits, spill,
                     8 * pp > smem_max)
+
+
+def _quant_plan(smem: Callable, d: int, Q: int, n: int, page: int,
+                props) -> FoldPlan:
+    """The int8 kernel's fold plan: rows at :func:`_build.mma_row_stride`,
+    and sub-blocks of whole 16-row tensor-core tiles, one a warp at most
+    (the two staging buffers are in ``smem``)."""
+    return _fold_plan(smem, d, Q, n, 1, page, props,
+                      stride=_build.mma_row_stride(n),
+                      sub_start=_MMA_ROWS * _build.THREADS // 32,
+                      min_sub=_MMA_ROWS)
 
 
 def _fold_ws_bytes(block_q: int, pp: int, tile: int) -> int:
@@ -272,10 +289,10 @@ def fused_phase1_quant_cuda(
     Q = queries.shape[0]
     qsum = queries.sum(dim=-1).contiguous()
     lib = quant_library()
-    plan = _fold_plan(
+    plan = _quant_plan(
         lambda bq, p, t, sb, st, sp: lib.fused_phase1_quant_smem_bytes(
             bq, p, t, n, sb, st, sp),
-        d, Q, n, 1, page, torch.cuda.get_device_properties(dev))
+        d, Q, n, page, torch.cuda.get_device_properties(dev))
     part_s, part_i, out_s, out_i, fold_ws, merge_ws = _outputs(dev, Q, page,
                                                                plan)
     stream = torch.cuda.current_stream(dev).cuda_stream

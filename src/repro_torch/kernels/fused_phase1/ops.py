@@ -9,7 +9,9 @@ kernel (:mod:`.kernel`) or raises; a CPU tensor goes to the plain version
 folding the doc axis in tiles of 512).  ``fused_phase1`` is bit-equal to
 the composed reference in scores, and equal in ids wherever the score is
 finite; ``fused_phase1_quant`` agrees with its composed reference to float
-tolerance (the order of the dot differs).
+tolerance: on the card its queries go into the int8 tensor cores as three
+int8 pieces, and its scores equal :func:`.ref.quant_split_scores` bit for
+bit.
 
 Contract for -inf slots: when fewer than ``page`` docs are live, the
 trailing -inf slots carry an unspecified but in-range doc id.

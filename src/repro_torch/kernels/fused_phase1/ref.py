@@ -19,6 +19,12 @@ CUDA kernels add the same leaves in the same order, evaluated another way
 (``kernels/csrc/match_tree.cuh``): :func:`match_scores_words` is that
 evaluation order in torch, which the tests hold bit-equal to the
 reference's.
+
+:func:`quant_split_scores` is the int8 kernel's arithmetic in torch: the
+queries split into three int8 pieces (:func:`quant_split`), exact integer
+sums against the codes, and the fixed f32 combine of
+``csrc/quant_mma.cuh``, step for step, so the card's scores equal it bit
+for bit.
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ from repro_torch.core.rerank import stable_topk
 
 __all__ = ["match_scores", "match_scores_words", "fused_phase1_ref",
            "fused_phase1_stream", "fused_phase1_quant_ref",
-           "fused_phase1_quant_stream"]
+           "fused_phase1_quant_stream", "quant_split", "quant_split_scores",
+           "fused_phase1_quant_split_ref"]
 
 
 def match_scores(doc_codes: torch.Tensor,    # (d, C) int
@@ -143,6 +150,60 @@ def fused_phase1_quant_ref(
     top-``page``."""
     qsum = queries.sum(dim=-1, keepdim=True)
     return _mask_topk(quantized_scores(codes8, scale, zero, queries, qsum),
+                      live, page)
+
+
+def quant_split(queries: torch.Tensor    # (Q, n) f32
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (pieces (3, Q, n) int8, scale (Q,) f32): per row s = max|q| / 127
+    (0 for an all-zero row, whose pieces are all 0), x = q / s, then
+    p1 = rn(x), p2 = rn(128 (x - p1)), p3 = rn(128 (128 (x - p1) - p2)),
+    rn half to even; |q - s (p1 + p2 2^-7 + p3 2^-14)| <= s (2^-15 +
+    2^-18).  Both divisions divide by f32 tensors."""
+    q = queries.to(torch.float32)
+    s = q.abs().amax(dim=-1) / torch.tensor(127.0, dtype=torch.float32,
+                                            device=q.device)
+    pos = s > 0
+    x = torch.where(pos[:, None], q / torch.where(pos, s, 1.0)[:, None], 0.0)
+    p1 = torch.round(x)
+    y = (x - p1) * 128.0
+    p2 = torch.round(y)
+    p3 = torch.round((y - p2) * 128.0)
+    return torch.stack([p1, p2, p3]).to(torch.int8), s
+
+
+def quant_split_scores(
+    codes8: torch.Tensor,     # (d, n) int8 quantized rows
+    scale: torch.Tensor,      # (d,) f32
+    zero: torch.Tensor,       # (d,) f32
+    queries: torch.Tensor,    # (Q, n) f32
+    qsum: torch.Tensor,       # (Q,) or (Q, 1) f32
+) -> torch.Tensor:
+    """(Q, d) scores as the int8 kernel computes them: the pieces' sums
+    A_i = p_i . codes8[doc] exactly (float64 products of small integers),
+    then raw = s ((A1 + A2 2^-7) + A3 2^-14) and raw * scale + qsum * zero,
+    one rounded f32 step at a time in that order."""
+    pieces, s = quant_split(queries)
+    c = codes8.to(torch.float64)
+    a1, a2, a3 = ((p.to(torch.float64) @ c.T).to(torch.float32)
+                  for p in pieces)
+    raw = s[:, None] * ((a1 + a2 * 2.0 ** -7) + a3 * 2.0 ** -14)
+    return raw * scale[None, :] + qsum.reshape(-1, 1) * zero[None, :]
+
+
+def fused_phase1_quant_split_ref(
+    codes8: torch.Tensor,     # (d, n) int8 quantized rows
+    scale: torch.Tensor,      # (d,) f32
+    zero: torch.Tensor,       # (d,) f32
+    queries: torch.Tensor,    # (Q, n) f32
+    page: int,
+    live: Optional[torch.Tensor] = None,   # (d,) bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`quant_split_scores` -> mask -> stable top-``page``: what the
+    int8 kernel returns bit for bit (ids where the score is finite), with
+    the query sums taken as its wrapper takes them."""
+    qsum = queries.sum(dim=-1)
+    return _mask_topk(quant_split_scores(codes8, scale, zero, queries, qsum),
                       live, page)
 
 

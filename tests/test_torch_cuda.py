@@ -133,6 +133,46 @@ def test_fused_phase1_quant_kernel_vs_plain(gen, shape):
         _assert_quant_parity(got, want, d)
 
 
+@pytest.mark.parametrize("d,n,q,page,live_frac", [
+    (131072, 400, 8, 320, None), (5001, 23, 9, 33, None),
+    (90, 12, 3, 48, 0.3), (5000, 400, 4, 5000, None),
+    (3000, 401, 40, 1024, 0.9), (65536, 400, 8, 16384, None)])
+def test_fused_phase1_quant_kernel_bit_equal_to_split(gen, d, n, q, page,
+                                                      live_frac):
+    """At chip_smoke phase A's shapes, the tensor-core kernel's scores equal
+    ref.quant_split_scores' stable top-page bit for bit, and so do its ids
+    where the score is finite; both stay within the _assert_quant_parity
+    contract of the plain version."""
+    codes, scale, zero, Q = _quant_inputs(gen, d, n, q)
+    live = (None if live_frac is None
+            else torch.rand(d, generator=gen, device="cuda") < live_frac)
+    got = tops.fused_phase1_quant(codes, scale, zero, Q, page, live=live)
+    want = tref.fused_phase1_quant_split_ref(codes, scale, zero, Q, page,
+                                             live)
+    assert torch.equal(got[0], want[0])
+    fin = torch.isfinite(want[0])
+    assert torch.equal(got[1][fin], want[1][fin])
+    _assert_quant_parity(got, tref.fused_phase1_quant_ref(
+        codes, scale, zero, Q, min(page + 1, d), live=live), d)
+
+
+@pytest.mark.parametrize("n", [400, 64, 23])
+def test_fused_phase1_quant_kernel_unaligned_table(gen, n):
+    """A table that starts at an odd address takes the 4-byte copy route
+    (no 16-byte row alignment), and gives the same bits."""
+    d, q, page = 3001, 5, 64
+    codes, scale, zero, Q = _quant_inputs(gen, d, n, q)
+    raw = torch.empty(d * n + 1, dtype=torch.int8, device="cuda")
+    odd = raw[1:].view(d, n)
+    odd.copy_(codes)
+    assert odd.data_ptr() % 2 == 1
+    got = tops.fused_phase1_quant(odd, scale, zero, Q, page)
+    want = tops.fused_phase1_quant(codes, scale, zero, Q, page)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    split = tref.fused_phase1_quant_split_ref(codes, scale, zero, Q, page)
+    assert torch.equal(got[0], split[0])
+
+
 def test_fused_phase1_quant_kernel_live_below_page(gen):
     d, n, q, page = 90, 12, 3, 48
     codes, scale, zero, Q = _quant_inputs(gen, d, n, q)

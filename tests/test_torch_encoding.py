@@ -86,6 +86,46 @@ def test_paper_examples():
     assert comb.tolist() == [120, -130, 65, 0, -1, 0]
 
 
+def test_combined_concat_layout():
+    """The reference suite's layout test (tests/test_encoding.py): the
+    rounding codes, then the interval codes, and the feature of every
+    column."""
+    enc = tenc.CombinedEncoder(tenc.RoundingEncoder(2),
+                               tenc.IntervalEncoder(0.1))
+    codes = enc.encode(torch.tensor([0.12, -0.13, 0.065]))
+    assert codes.shape == (6,)
+    assert codes[:3].tolist() == [12, -13, 7]
+    assert codes[3:].tolist() == [1, -2, 0]
+    assert enc.column_feature(3).tolist() == [0, 1, 2, 0, 1, 2]
+
+
+@pytest.mark.parametrize("pair", ENCODER_PAIRS, ids=lambda p: p[0].scheme_id)
+def test_column_feature_matches(pair):
+    je, te = pair
+    for n in (1, 7, 400):
+        assert te.column_feature(n).tolist() == je.column_feature(n).tolist()
+
+
+@pytest.mark.parametrize("pair", ENCODER_PAIRS, ids=lambda p: p[0].scheme_id)
+def test_decode_center_bit_equal(pair):
+    """Bucket centres of the same codes, bit-equal to the reference's
+    (every code of the bucket range and the codes of encoded vectors);
+    combined codes have no single centre in either package."""
+    je, te = pair
+    if isinstance(te, tenc.CombinedEncoder):
+        with pytest.raises(NotImplementedError):
+            te.decode_center(torch.zeros(3, dtype=te.code_dtype))
+        return
+    m = te.max_abs_bucket
+    for codes in (np.arange(-m, m + 1),
+                  te.encode(torch.from_numpy(_vectors(3))).numpy()):
+        codes = codes.astype(je.code_dtype)
+        want = np.asarray(je.decode_center(jnp.asarray(codes)))
+        got = te.decode_center(torch.from_numpy(codes)).numpy()
+        assert got.dtype == want.dtype == np.float32
+        assert np.array_equal(got, want)
+
+
 @pytest.mark.parametrize("threshold", [0.05, 0.1, 0.2])
 def test_trim_mask_exact(threshold):
     x = np.concatenate([_vectors(1), np.float32([[threshold] * 48])])

@@ -374,6 +374,26 @@ def _fold_smem(C, itemsize, qb_per_query):
     return smem
 
 
+def _quant_smem(n):
+    """fused_phase1_quant.cu's bytes (topk_fold.cuh's fold_layout with the
+    tile scorer): accumulator and tile (none when spilled), counts, the
+    three query pieces of 8 rows at padded_k(n) + 16 bytes, 8 scales and
+    8 sums, and two staging buffers of sub x stride bytes plus 64, plus
+    the sub-block's scales and zeros."""
+    def a16(x):
+        return -(-x // 16) * 16
+
+    kp = -(-n // 32) * 32
+
+    def smem(bq, page, tile, sub, stride, spill):
+        pp = 1 << max(page - 1, 0).bit_length()
+        acc, til = (0, 0) if spill else (bq * pp * 4, bq * tile * 4)
+        return (2 * a16(acc) + 2 * a16(til) + a16(bq * 4)
+                + a16(3 * 8 * (kp + 16)) + a16(64)
+                + a16(2 * (a16(sub * stride) + 64 + 8 * sub)))
+    return smem
+
+
 @pytest.mark.parametrize("scorer", ["fused_phase1", "fused_phase1_quant"])
 @pytest.mark.parametrize("d,Q,page", [
     (4_181_504, 32, 320), (65_536, 8, 8192), (65_536, 8, 16_384),
@@ -384,9 +404,12 @@ def test_fold_plan_answers_any_page(scorer, d, Q, page):
     workspace past it, with the doc splits cut so that the workspace stays
     under WORKSPACE_BYTES (one split at least); the splits cover d."""
     C = 400
-    smem = (_fold_smem(C, 1, C) if scorer == "fused_phase1"
-            else _fold_smem(C, 1, 4))
-    plan = tkernel._fold_plan(smem, d, Q, C, 1, page, _H100())
+    if scorer == "fused_phase1":
+        smem = _fold_smem(C, 1, C)
+        plan = tkernel._fold_plan(smem, d, Q, C, 1, page, _H100())
+    else:
+        smem = _quant_smem(C)
+        plan = tkernel._quant_plan(smem, d, Q, C, page, _H100())
     pp = 1 << (page - 1).bit_length()
     assert plan.spill == (pp > 8192)
     assert plan.merge_spill == (8 * pp > _H100.shared_memory_per_block_optin)

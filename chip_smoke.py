@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py                 # every phase, full size
     python3 chip_smoke.py --phases A      # kernel build + parity only
+    python3 chip_smoke.py --phases CF     # the segment lifecycle only
 
 It builds the hand-written kernels from the sources in this checkout (one
 nvcc per library, all started together), holds each against its plain
 PyTorch version on the card, drives the port's search paths at the
 paper's scale -- a 4,181,504 x 400 Wikipedia-shaped index
-(RoundingEncoder(2), int8 codes), trim 0.05, page 320, k 10 -- and runs
-the paper's quality pipeline on the card.
+(RoundingEncoder(2), int8 codes), trim 0.05, page 320, k 10 -- runs the
+paper's quality pipeline on the card, and takes that index through the
+segment lifecycle (ingest, seal, delete, merge, compact).
 
 Phases, each printing one JSON line (D one per engine, then a summary):
   A  each kernel against its plain version: fused_phase1 (scores
@@ -51,8 +53,28 @@ Phases, each printing one JSON line (D one per engine, then a summary):
      nDCG and avg.diff of ``codes``, ``fused`` and More-Like-This against
      brute force, the claims C1-C5 of tests/test_quality_claims.py, and
      rerank_topk on the ``fused`` candidates; the LSA is built twice and
-     the MLT scores taken twice, each pair bit-equal.
-Then the ``kernels`` line (with each library's largest ptxas stack frame
+     the MLT scores taken twice, each pair bit-equal;
+  F  the segment lifecycle on phase C's index (run before E):
+     ShardedVectorIndex.from_index (no copy) served through
+     BatchedSearchEngine(donate_ingest=True), 65,536 seeded unit rows
+     added in 16 batches of 4,096 between served batches (each seals: 16
+     generations) and 200 more left in the active buffer, 4,096 ids
+     deleted (2,048 base, 1,848 sealed, the 200 active),
+     merge_segments(0, 16), compact(); after every stage 128 queries
+     (noisy base, sealed and active rows) through ``fused``,
+     ``fused_int8``, ``codes_pallas`` and ``postings`` (``codes`` once,
+     after the deletes): no deleted id, every live appended source at
+     rank 1, scores within 1e-5 of a fresh cosine, each kernel launched as
+     the generations predict, and the answers bit-identical to those of a
+     flat index (seal_threshold=None) given the same history, run first
+     and freed; after the deletes, in both histories, the kernels called
+     on the tombstoned tables with their live masks and held to their
+     plain versions as in A (fused_phase1 and fused_phase1_quant on the
+     base, fused_phase1_quant and code_match on the first sealed segment
+     and the active or flat buffer); add, delete, merge and compact
+     seconds, batch latency per stage and peak memory.
+Then the ``kernels`` line (launches summed over the phases' main paths,
+and by phase; each library's largest ptxas stack frame
 of a kernel: 0 bytes for the code-match scorers, checked), the card's
 name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the exit
@@ -86,6 +108,13 @@ PAGE = 320
 K = 10
 NOISE = 0.01
 ONEHOT_DOCS = 65_536               # onehot's (d, C*201) table, cut to size
+F_NEW = 65_536                     # phase F: docs appended in batches that
+F_BATCH = 4_096                    # each seal (16 generations), then a
+F_TAIL = 200                       # tail left in the active buffer
+F_SEAL = 256                       # the reference's seal_threshold
+F_DELETE_BASE = 2_048              # deletes: base rows, sealed rows, and
+F_DELETE_SEALED = 1_848            # every tail row
+F_ENGINES = ("fused", "fused_int8", "codes_pallas", "postings")
 E_DOCS = 262_144                   # phase E corpus, cut from 4,181,352
 E_VOCAB = 100_000                  # gensim make_wiki: keep_n=100000
 E_TOPICS = 400
@@ -590,13 +619,14 @@ def serve_check(index, queries, src, results, ctx) -> dict:
     return {"rank1_share": rank1, "score_max_abs_err": score_err}
 
 
-def serve_engine(index, queries, ctx, **engine_kw):
+def serve_engine(index, queries, ctx, reset_peak=True, **engine_kw):
     """Serve ``queries`` through BatchedSearchEngine in batches of BATCH
     -> (results, per-batch seconds, peak device bytes)."""
     from repro_torch.core import TrimFilter
     from repro_torch.serve import BatchedSearchEngine
 
-    torch.cuda.reset_peak_memory_stats()
+    if reset_peak:
+        torch.cuda.reset_peak_memory_stats()
     engine = BatchedSearchEngine(index, batch_size=BATCH, max_wait_s=0.005,
                                  k=K, page=PAGE, trim=TrimFilter(0.05),
                                  **engine_kw)
@@ -1018,6 +1048,391 @@ def phase_d(gen, index, queries, src, raw_state) -> tuple:
     return summary, kernels
 
 
+def f_workload(index):
+    """Phase F's seeded data: the appended unit rows on the card, the 128
+    queries (64 noisy base rows, 60 noisy sealed rows, 4 noisy tail rows)
+    with their source ids, and the 4,096 ids to delete (8 base and 8 sealed
+    query sources among them, and every tail row)."""
+    from repro_torch.core.rerank import normalize
+
+    rng = np.random.default_rng(0)
+    n = index.n_docs
+    g = torch.Generator(device="cuda").manual_seed(6)
+    new = normalize(torch.randn((F_NEW + F_TAIL, N_FEATURES), generator=g,
+                                device="cuda"))
+    src_base = rng.choice(n, 64, replace=False)
+    src_sealed = rng.choice(F_NEW, 60, replace=False)
+    src_tail = F_NEW + rng.choice(F_TAIL, 4, replace=False)
+    rows = torch.cat([index.vectors[torch.from_numpy(src_base).cuda()],
+                      new[torch.from_numpy(np.concatenate(
+                          [src_sealed, src_tail])).cuda()]])
+    queries = (rows + torch.randn(rows.shape, generator=g, device="cuda")
+               * NOISE).cpu().numpy()
+    src = np.concatenate([src_base, n + src_sealed, n + src_tail])
+    del_base = np.concatenate([src_base[:8], rng.choice(
+        np.setdiff1d(np.arange(n), src_base), F_DELETE_BASE - 8,
+        replace=False)])
+    del_sealed = n + np.concatenate([src_sealed[:8], rng.choice(
+        np.setdiff1d(np.arange(F_NEW), src_sealed), F_DELETE_SEALED - 8,
+        replace=False)])
+    victims = np.concatenate([del_base, del_sealed,
+                              n + F_NEW + np.arange(F_TAIL)])
+    return new, queries, src, victims
+
+
+def f_stage(idx, base, new, queries, src, dead, stage, launches,
+            engines=F_ENGINES) -> tuple:
+    """Serve ``queries`` through every engine of ``engines`` on ``idx``
+    and check each answer: no deleted id, every live appended source at
+    rank 1 and >= 0.95 of the live base sources, scores within 1e-5 of a
+    fresh fp32 cosine, and the kernels launched as the generations
+    predict; -> ({engine: (ids, scores)}, {engine: row of numbers})."""
+    from repro_torch.core.rerank import normalize
+    from repro_torch.kernels.code_match import kernel as cm_kernel
+    from repro_torch.kernels.fused_phase1 import kernel as fp_kernel
+
+    n_base = base.n_docs
+    gens = idx.n_segments + (1 if idx.seg_capacity else 0)
+    n_batches = len(queries) // BATCH
+    per = fp_kernel.KERNELS_PER_CALL
+    want = {"fused": {"fused_phase1": per,
+                      "code_match": gens * cm_kernel.KERNELS_PER_CALL},
+            "fused_int8": {"fused_phase1_quant": per * (1 + gens)},
+            "codes_pallas": {"code_match": (1 + gens)
+                             * cm_kernel.KERNELS_PER_CALL},
+            "postings": {"code_match": gens * cm_kernel.KERNELS_PER_CALL},
+            "codes": {"code_match": gens * cm_kernel.KERNELS_PER_CALL}}
+    answers, rows = {}, {}
+    qn = normalize(torch.from_numpy(queries).cuda())
+    appended = idx.n_ids > n_base
+    dead_t = torch.from_numpy(np.asarray(sorted(dead), np.int64))
+    for name in engines:
+        reset_launches()
+        results, batch_s, _ = serve_engine(idx, queries, f"F {stage} {name}",
+                                           reset_peak=False, engine=name)
+        got = read_launches()
+        for kname, n in got.items():
+            launches[kname] = launches.get(kname, 0) + n
+            check(n == want[name].get(kname, 0) * n_batches,
+                  f"F {stage} {name}: {kname} launched {n} CUDA kernels, "
+                  f"want {want[name].get(kname, 0) * n_batches} at {gens} "
+                  "generations")
+        ids = torch.from_numpy(np.stack([r[0] for r in results])).long()
+        scores = torch.from_numpy(np.stack([r[1] for r in results]))
+        check(bool(((ids >= 0) & (ids < idx.n_ids)).all()),
+              f"F {stage} {name}: id out of range")
+        check(bool(torch.isfinite(scores).all()),
+              f"F {stage} {name}: non-finite score")
+        check(not bool(torch.isin(ids, dead_t).any()),
+              f"F {stage} {name}: a deleted id surfaced")
+        live_src = ~torch.isin(torch.from_numpy(src), dead_t)
+        hit = ids[:, 0] == torch.from_numpy(src)
+        base_q = torch.arange(len(src)) < 64
+        base_share = float(hit[base_q & live_src].float().mean())
+        check(base_share >= 0.95, f"F {stage} {name}: base sources at rank "
+              f"1 for only {base_share:.3f}")
+        if appended:
+            check(bool(hit[~base_q & live_src].all()),
+                  f"F {stage} {name}: a live appended source missed rank 1")
+        ig = ids.cuda()
+        vecs = torch.where(
+            (ig < n_base)[..., None], base.vectors[ig.clamp(max=n_base - 1)],
+            new[(ig - n_base).clamp(0, new.shape[0] - 1)])
+        exact = torch.einsum("qkn,qn->qk", vecs, qn).cpu()
+        err = float((exact - scores).abs().max())
+        check(err <= 1e-5, f"F {stage} {name}: scores off the exact cosine "
+              f"by {err}")
+        answers[name] = (ids.numpy(), scores.numpy())
+        rows[name] = {"batch_latency_s_median": median_after_first(batch_s),
+                      "batch_latency_s": batch_s, "launches": got,
+                      "base_rank1_share": base_share,
+                      "score_max_abs_err": err}
+    return answers, {"generations": gens, "n_ids": idx.n_ids,
+                     "engines": rows}
+
+
+def match_scores_blocked(D, Qc, W, block=16384):
+    """``ref.match_scores`` at any size, a doc block at a time: a row's
+    tree depends on C only, so the bits are those of one call."""
+    from repro_torch.kernels.fused_phase1 import ref as fp_ref
+
+    out = torch.empty((Qc.shape[0], D.shape[0]), device=D.device)
+    for lo in range(0, D.shape[0], block):
+        out[:, lo:lo + block] = fp_ref.match_scores(D[lo:lo + block], Qc, W)
+    return out
+
+
+def quant_split_blocked(codes, scale, zero, q, page, live, block=65536):
+    """``ref.fused_phase1_quant_split_ref`` at any size: the split scores
+    a doc block at a time (each cell exact float64 sums, so the bits are
+    those of one call), then the mask and the stable top-page."""
+    from repro_torch.core.rerank import stable_topk
+    from repro_torch.kernels.fused_phase1 import ref as fp_ref
+
+    qsum = q.sum(dim=-1)
+    s = torch.empty((q.shape[0], codes.shape[0]), device=q.device)
+    for lo in range(0, codes.shape[0], block):
+        hi = lo + block
+        s[:, lo:hi] = fp_ref.quant_split_scores(codes[lo:hi], scale[lo:hi],
+                                                zero[lo:hi], q, qsum)
+    top_s, top_i = stable_topk(s.masked_fill(~live[None, :], float("-inf")),
+                               page)
+    return top_s, top_i.to(torch.int32)
+
+
+def hold_live(ids, scores, live, ctx) -> None:
+    """No tombstoned row among a kernel's finite ids, and every query's
+    finite count the live rows the page can hold."""
+    fin = torch.isfinite(scores)
+    check(not bool((~live[ids.long().clamp(0, live.shape[0] - 1)]
+                    & fin).any()), f"{ctx}: a tombstoned row surfaced")
+    want = min(int(live.sum()), scores.shape[1])
+    check(bool((fin.sum(1) == want).all()),
+          f"{ctx}: finite count != {want} live rows the page holds")
+
+
+def f_holds(idx, queries, ctx) -> dict:
+    """Each kernel of the lifecycle held to its plain version on the
+    tombstoned tables and live masks the served path hands it, at Q 32:
+    ``fused_phase1`` and ``fused_phase1_quant`` on the base (when
+    ``idx`` has tombstones in it), ``fused_phase1_quant`` and
+    ``code_match`` on the first sealed segment and the active buffer.
+    ``fused_phase1`` bit-equal to ``ref.fused_phase1_stream`` (the tile
+    fold of ``fused_phase1_ref``, whose (Q, d, C) temporary the full base
+    cannot hold), ``fused_phase1_quant`` bit-equal to the split reference and
+    within ``assert_quant_parity`` of ``fused_phase1_quant_ref``,
+    ``code_match`` bit-equal to ``ref.match_scores`` and within rtol /
+    atol 1e-5 of ``code_match_plain``; -> {kernel: max |error|}."""
+    from repro_torch.core import TrimFilter
+    from repro_torch.core.filtering import expand_mask, feature_mask
+    from repro_torch.core.postings import idf_weights
+    from repro_torch.core.rerank import normalize
+    from repro_torch.kernels.code_match import kernel as cm_kernel
+    from repro_torch.kernels.fused_phase1 import kernel as fp_kernel
+    from repro_torch.kernels.fused_phase1 import ref as fp_ref
+
+    q = normalize(torch.from_numpy(queries[:BATCH]).cuda())
+    qcodes = idx.encoder.encode(q)
+    mask = expand_mask(feature_mask(q, trim=TrimFilter(0.05)),
+                       qcodes.shape[-1])
+    w = torch.where(mask, idf_weights(idx.token_df(q), idx.n_ids), 0.0)
+    errs = {"fused_phase1": 0.0, "fused_phase1_quant": 0.0,
+            "code_match": 0.0}
+    tables = []
+    if not bool(idx.live.all()):
+        tables.append(("base", idx.codes[0], idx.live[0], idx._quant_base()))
+    tables += [(f"generation 0 of {idx.n_segments}", s.codes[0], s.live[0],
+                s.quantized()) for s in idx.segments[:1]]
+    if idx.seg_capacity:
+        tables.append(("active buffer", idx.seg_codes[0], idx.seg_live[0],
+                       idx._quant_active()))
+    for name, codes, live, (c8, sc, zp) in tables:
+        where = (f"F {ctx} {name} ({codes.shape[0]} rows, "
+                 f"{int((~live).sum())} dead)")
+        d = codes.shape[0]
+        page = min(d, PAGE)
+        if name == "base":
+            got = fp_kernel.fused_phase1_cuda(codes, qcodes, w, page, live)
+            want = fp_ref.fused_phase1_stream(codes, qcodes, w, page, live,
+                                              block=16384)
+            errs["fused_phase1"] = max(errs["fused_phase1"],
+                                       assert_fused_parity(
+                                           got, want, d, where))
+            hold_live(got[1], got[0], live, where)
+            del got, want
+        else:
+            got = cm_kernel.code_match_cuda(codes, qcodes, w)
+            errs["code_match"] = max(errs["code_match"],
+                                     assert_code_match_close(
+                                         got, code_match_plain(
+                                             codes, qcodes, w), where))
+            check(torch.equal(got, match_scores_blocked(codes, qcodes, w)),
+                  f"{where}: code_match not bit-equal to match_scores")
+            del got
+        got = fp_kernel.fused_phase1_quant_cuda(c8[0], sc[0], zp[0], q, page,
+                                                live)
+        want = fp_ref.fused_phase1_quant_ref(c8[0], sc[0], zp[0], q,
+                                             min(page + 1, d), live)
+        errs["fused_phase1_quant"] = max(errs["fused_phase1_quant"],
+                                         assert_quant_parity(
+                                             got, want, d, where))
+        del want
+        split = quant_split_blocked(c8[0], sc[0], zp[0], q, page, live)
+        fin = torch.isfinite(split[0])
+        check(torch.equal(got[0], split[0])
+              and torch.equal(got[1][fin], split[1][fin]),
+              f"{where}: fused_phase1_quant not bit-equal to the split "
+              "reference")
+        hold_live(got[1], got[0], live, where)
+        del got, split, fin
+    check(len(tables) >= 2, f"F {ctx}: {len(tables)} tables held")
+    return {"tables": [t[0] for t in tables], "max_abs_err": errs}
+
+
+def f_history(index, seal_threshold, new, queries, src, victims,
+              launches) -> tuple:
+    """The lifecycle on a ShardedVectorIndex over phase C's index, served
+    through one BatchedSearchEngine: 16 ingest batches between served
+    batches, the tail, delete, merge (segmented only), compact, with
+    ``f_stage`` after each stage; -> ({stage: answers}, the history's
+    numbers)."""
+    from repro_torch.core import TrimFilter
+    from repro_torch.dist import ShardedVectorIndex
+    from repro_torch.serve import BatchedSearchEngine
+
+    sidx = ShardedVectorIndex.from_index(index, seal_threshold=seal_threshold)
+    check(sidx.vectors.data_ptr() == index.vectors.data_ptr()
+          and sidx.post_docs.data_ptr()
+          == index.postings.post_docs.data_ptr(),
+          "from_index copied the base")
+    kind = "flat" if seal_threshold is None else "segmented"
+    answers, stages = {}, {}
+    answers["built"], stages["built"] = f_stage(
+        sidx, index, new, queries, src, (), f"{kind} built", launches)
+    eng = BatchedSearchEngine(sidx, batch_size=BATCH, max_wait_s=0.005, k=K,
+                              page=PAGE, trim=TrimFilter(0.05),
+                              engine="fused", donate_ingest=True)
+    add_s = []
+    try:
+        reset_launches()
+        for b in range(F_NEW // F_BATCH + 1):
+            lo = (b % (len(queries) // BATCH)) * BATCH
+            futs = [eng.submit(q) for q in queries[lo:lo + BATCH]]
+            for f in futs:
+                f.result(timeout=600)
+            rows = (new[b * F_BATCH:(b + 1) * F_BATCH] if b < F_NEW // F_BATCH
+                    else new[F_NEW:])
+            t = time.monotonic()
+            first = eng.add_documents(rows)
+            torch.cuda.synchronize()
+            add_s.append(time.monotonic() - t)
+            check(first == index.n_docs + b * F_BATCH,
+                  f"ingest batch {b}: first id {first}")
+        for kname, n in read_launches().items():
+            launches[kname] = launches.get(kname, 0) + n
+        idx = eng.index
+        check(idx.n_segments == (16 if seal_threshold else 0)
+              and idx.n_active == (F_TAIL if seal_threshold
+                                   else F_NEW + F_TAIL),
+              f"{kind}: {idx.n_segments} segments, {idx.n_active} active")
+        progress(f"F {kind}: ingested, median add "
+                 f"{median_after_first(add_s):.4f} s")
+        answers["ingested"], stages["ingested"] = f_stage(
+            idx, index, new, queries, src, (), f"{kind} ingested", launches)
+        if seal_threshold is not None:
+            # one batch of each fused engine traced at 17 generations
+            qs = torch.from_numpy(queries[:BATCH])
+            stages["ingested"]["trace"] = {
+                name: trace_batch(lambda: idx.search(
+                    qs, k=K, page=PAGE, trim=TrimFilter(0.05), engine=name))
+                for name in ("fused", "fused_int8")}
+        t = time.monotonic()
+        eng.delete(victims)
+        torch.cuda.synchronize()
+        delete_s = time.monotonic() - t
+        idx = eng.index
+        check(idx.n_tombstones == len(victims),
+              f"{kind}: {idx.n_tombstones} tombstones")
+        progress(f"F {kind}: deleted {len(victims)} ids in {delete_s:.3f} s")
+        dead = set(victims.tolist())
+        answers["deleted"], stages["deleted"] = f_stage(
+            idx, index, new, queries, src, dead, f"{kind} deleted", launches,
+            engines=F_ENGINES + ("codes",))
+        stages["deleted"]["holds"] = f_holds(idx, queries, f"{kind} deleted")
+        merge_s = merged = None
+        if seal_threshold is not None:
+            t = time.monotonic()
+            merged = idx.merge_segments(0, 16)
+            torch.cuda.synchronize()
+            merge_s = time.monotonic() - t
+            check(eng.swap_index(merged, expected=idx), "merge swap lost")
+            check(merged.n_segments == 1
+                  and merged.n_reclaimed == F_DELETE_SEALED
+                  and merged.n_tombstones == len(victims) - F_DELETE_SEALED,
+                  "merge_segments(0, 16) reclaimed the wrong rows")
+            idx = merged
+            progress(f"F {kind}: merged 16 segments in {merge_s:.3f} s")
+            answers["merged"], stages["merged"] = f_stage(
+                idx, index, new, queries, src, dead, f"{kind} merged",
+                launches)
+        t = time.monotonic()
+        packed = idx.compact()
+        torch.cuda.synchronize()
+        compact_s = time.monotonic() - t
+        check(eng.swap_index(packed, expected=idx), "compact swap lost")
+        check(packed.n_docs == index.n_docs + F_NEW + F_TAIL
+              and packed.n_segments == 0 and packed.n_tombstones == 0,
+              f"{kind}: compacted to {packed.n_docs} docs")
+        progress(f"F {kind}: compacted in {compact_s:.3f} s")
+        idx = merged = None        # only the compacted index stays alive
+        answers["compacted"], stages["compacted"] = f_stage(
+            packed, index, new, queries, src, dead, f"{kind} compacted",
+            launches)
+    finally:
+        eng.close()
+    return answers, {"add_s": add_s,
+                     "add_s_median": median_after_first(add_s),
+                     "delete_s": delete_s, "merge_s": merge_s,
+                     "compact_s": compact_s, "stages": stages}
+
+
+def phase_f(index) -> tuple:
+    """The segment lifecycle at full width on phase C's index; -> (the
+    phase line, the kernels' launches in its main-path runs)."""
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.monotonic()
+    index.quantized                # shared by both histories' fused_int8
+    new, queries, src, victims = f_workload(index)
+    launches = {}
+    flat, flat_info = f_history(index, None, new, queries, src, victims,
+                                launches)
+    torch.cuda.empty_cache()
+    seg, seg_info = f_history(index, F_SEAL, new, queries, src, victims,
+                              launches)
+    same = {}
+    for stage, other in (("built", "built"), ("ingested", "ingested"),
+                         ("deleted", "deleted"), ("merged", "deleted"),
+                         ("compacted", "compacted")):
+        for name, (ids, scores) in seg[stage].items():
+            f_ids, f_scores = flat[other][name]
+            ok = np.array_equal(ids, f_ids) and np.array_equal(scores,
+                                                               f_scores)
+            check(ok, f"F {stage} {name}: segmented and flat answers differ")
+            same[f"{stage}/{name}"] = ok
+    gens = {st: seg_info["stages"][st]["generations"]
+            for st in ("built", "ingested", "merged", "compacted")}
+    check(list(gens.values()) == [0, 17, 2, 0],
+          f"F: generations by stage {gens}")
+    holds = {kind: info["stages"]["deleted"]["holds"]
+             for kind, info in (("flat", flat_info), ("segmented", seg_info))}
+    hold_err = {name: max(h["max_abs_err"][name] for h in holds.values())
+                for name in holds["flat"]["max_abs_err"]}
+    latency = {st: {name: row["batch_latency_s_median"] for name, row
+                    in seg_info["stages"][st]["engines"].items()}
+               for st in seg_info["stages"]}
+    line = {"phase": "F", "n_base": index.n_docs, "n_appended": F_NEW + F_TAIL,
+            "batches": f"{F_NEW // F_BATCH} x {F_BATCH} + {F_TAIL}",
+            "seal_threshold": F_SEAL, "deleted": {
+                "base": F_DELETE_BASE, "sealed": F_DELETE_SEALED,
+                "active": F_TAIL},
+            "generations_by_stage": gens,
+            "bit_identical_segmented_vs_flat": same,
+            "kernels_vs_plain_after_delete": holds,
+            "kernels_max_abs_err": hold_err,
+            "add_s_median": seg_info["add_s_median"],
+            "add_s": seg_info["add_s"], "delete_s": seg_info["delete_s"],
+            "merge_s": seg_info["merge_s"],
+            "compact_s": seg_info["compact_s"],
+            "batch_latency_s_median": latency,
+            "flat": {k: flat_info[k] for k in ("add_s_median", "delete_s",
+                                               "compact_s")},
+            "launches": launches,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "phase_s": time.monotonic() - t_phase,
+            "stages": seg_info["stages"]}
+    return line, launches
+
+
 def quality(ids, sims, gold_ids, gold_sims) -> dict:
     from repro_torch.core import avg_diff, ndcg_k, precision_at_k
 
@@ -1167,7 +1582,7 @@ def phase_e() -> tuple:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="ABCDE")
+    ap.add_argument("--phases", default="ABCDEF")
     args = ap.parse_args(argv)
 
     src = pathlib.Path(__file__).resolve().parent / "src"
@@ -1233,7 +1648,7 @@ def main(argv=None) -> int:
     a = c = None
     a_err = {}
     kd = {}
-    e_launches = {}
+    by_phase = {}
     if "A" in args.phases:
         a = phase_a(gen)
         emit(a)
@@ -1246,13 +1661,20 @@ def main(argv=None) -> int:
     if "C" in args.phases:
         c, index, queries, src, raw_state = phase_c(gen)
         emit(c)
+        by_phase["C"] = {"fused_phase1": c["launches"]}
         if "D" in args.phases:
             summary, kd = phase_d(gen, index, queries, src, raw_state)
             emit(summary)
+            by_phase["D"] = {name: k["launches"] for name, k in kd.items()}
+        if "F" in args.phases:
+            line, by_phase["F"] = phase_f(index)
+            emit(line)
+            for name, err in line["kernels_max_abs_err"].items():
+                a_err[name] = max(a_err.get(name, 0.0), err)
         del index
         torch.cuda.empty_cache()
     if "E" in args.phases:
-        line, e_launches = phase_e()
+        line, by_phase["E"] = phase_e()
         emit(line)
         for name in ("bucketize", "rerank_topk"):
             a_err[name] = max(a_err.get(name, 0.0),
@@ -1262,9 +1684,12 @@ def main(argv=None) -> int:
         "name": "fused_phase1", "route": "cuda",
         "source": "src/repro_torch/kernels/fused_phase1/csrc/fused_phase1.cu",
         "replaces": "src/repro/kernels/fused_phase1/kernel.py:133",
-        "launches": c["launches"] if c else 0,
+        "launches": sum(p.get("fused_phase1", 0) for p in by_phase.values()),
+        "launches_by_phase": {ph: p.get("fused_phase1", 0)
+                              for ph, p in by_phase.items()},
         "max_abs_err": max(a["max_abs_err"] if a else 0.0,
-                           ck.get("max_abs_err", 0.0)),
+                           ck.get("max_abs_err", 0.0),
+                           a_err.get("fused_phase1", 0.0)),
         "ms": ck.get("ms", ck.get("kernel_ms")),
         "plain_ms": ck.get("plain_ms"), "bound_ms": ck.get("bound_ms"),
         "bound_by": ck.get("bound_by"), "library_ms": None}]
@@ -1288,7 +1713,9 @@ def main(argv=None) -> int:
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": k.get("launches", 0) + e_launches.get(name, 0),
+            "launches": sum(p.get(name, 0) for p in by_phase.values()),
+            "launches_by_phase": {ph: p.get(name, 0)
+                                  for ph, p in by_phase.items()},
             "max_abs_err": max(a_err.get(name, 0.0),
                                k.get("max_abs_err", 0.0)),
             "ms": k.get("ms"), "plain_ms": k.get("plain_ms"),

@@ -14,7 +14,7 @@ from typing import Tuple
 import torch
 
 __all__ = ["normalize", "exact_scores", "rerank_topk", "brute_force_topk",
-           "stable_topk", "check_fp32_matmul"]
+           "stable_topk", "check_fp32_matmul", "tree_dot"]
 
 
 def stable_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor,
@@ -23,6 +23,23 @@ def stable_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor,
     keep ascending position order."""
     s, pos = torch.sort(scores, dim=-1, descending=True, stable=True)
     return s[..., :k], pos[..., :k]
+
+
+def tree_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dots over the last axis of broadcast ``a`` and ``b``: elementwise
+    products summed by a fixed pairwise tree, zero-padded to a power of
+    two.  The order of the adds depends only on the axis' length, so a
+    dot's bits do not depend on the other axes' sizes, the device or a
+    library's choice of kernel, as a matrix product's or ``sum``'s may."""
+    x = a * b
+    n = x.shape[-1]
+    p2 = 1 << max(n - 1, 0).bit_length()
+    if p2 != n:
+        x = torch.nn.functional.pad(x, (0, p2 - n))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
 
 
 def check_fp32_matmul(t: torch.Tensor) -> None:

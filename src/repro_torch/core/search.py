@@ -49,7 +49,7 @@ from .quantize import QuantizedTable, quantize_table
 from .rerank import brute_force_topk, normalize, rerank_topk, stable_topk
 
 __all__ = ["VectorIndex", "SearchParams", "phase1_engine_scores",
-           "FUSED_ENGINES"]
+           "encode_table", "FUSED_ENGINES"]
 
 # engines that fuse phase-1 scoring with candidate selection: they return
 # the candidate page directly instead of a (Q, d) score matrix, so they
@@ -65,6 +65,20 @@ _SENTINEL = {  # never-matching code per dtype (outside any bucket range)
 # rows encoded per step at build: the elementwise temporaries of encode
 # then stay a few hundred MB at paper scale
 _ENCODE_ROWS = 1 << 18
+
+
+def encode_table(vectors: torch.Tensor, encoder: Encoder,
+                 index_best: Optional[int]) -> torch.Tensor:
+    """Codes (d, C) of unit rows (d, n), with the index-side best filter's
+    sentinel columns, ``_ENCODE_ROWS`` rows a step."""
+    parts = []
+    for r in range(0, vectors.shape[0], _ENCODE_ROWS):
+        rows = vectors[r:r + _ENCODE_ROWS]
+        c = encoder.encode(rows)
+        if index_best is not None:
+            c = index_best_codes(rows, c, index_best, _SENTINEL[c.dtype])
+        parts.append(c)
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
 
 
 def phase1_engine_scores(
@@ -133,15 +147,7 @@ class VectorIndex:
         tables, all on ``device``.  The input may be numpy or a tensor."""
         vectors = normalize(torch.as_tensor(vectors, dtype=torch.float32,
                                             device=device))
-        parts = []
-        for r in range(0, vectors.shape[0], _ENCODE_ROWS):
-            rows = vectors[r:r + _ENCODE_ROWS]
-            c = encoder.encode(rows)
-            if index_best is not None:
-                c = index_best_codes(rows, c, index_best, _SENTINEL[c.dtype])
-            parts.append(c)
-        codes = torch.cat(parts) if len(parts) > 1 else parts[0]
-        del parts
+        codes = encode_table(vectors, encoder, index_best)
         return cls(vectors, codes, build_postings(codes), encoder, index_best)
 
     @property
@@ -242,6 +248,15 @@ class VectorIndex:
             _, cand = stable_topk(scores1, page)
             del scores1
         return rerank_topk(self.vectors, cand, q, k)
+
+    def shard(self, **kwargs):
+        """This index as a one-shard
+        :class:`repro_torch.dist.shard_index.ShardedVectorIndex` sharing
+        every tensor: the same ``search`` contract, plus ingest, delete,
+        segment merges and compaction (``kwargs``: ``seal_threshold``)."""
+        from repro_torch.dist.shard_index import ShardedVectorIndex
+
+        return ShardedVectorIndex.from_index(self, **kwargs)
 
     def gold_topk(self, queries, k: int = 10):
         """Paper's gold standard: brute-force cosine scan over all vectors.

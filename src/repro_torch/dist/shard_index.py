@@ -1,0 +1,850 @@
+"""Two-phase search over a base plus Lucene-style segments, at one shard.
+
+:class:`ShardedVectorIndex` is the reference's doc-sharded index held on
+one device: its tensors keep the leading shard axis, at size 1
+(``vectors (1, dp, n)``, ``codes (1, dp, C)``, ``post_docs`` /
+``post_codes (1, C, dp)``, ``seg_* (1, G, ...)``), so round-robin routing,
+seal widths and the repacking of :meth:`merge_segments` are the
+reference's formulas verbatim.  Where the reference holds a mesh, it holds
+a device: every build method takes ``device`` (``"cuda"`` unless the caller
+asks for the CPU) and every tensor lives there.
+
+**The segment story.**
+
+* :meth:`add_documents` appends to an *active buffer*: ids continue from
+  :attr:`n_ids`, capacity grows geometrically (``max(need, 2G, 8)``).
+  Once the buffer holds ``seal_threshold`` rows it *seals* into an
+  immutable :class:`Segment`, truncated to its exact width and given its
+  own posting table for df lookups.
+* :meth:`delete` tombstones ids in the base, the sealed segments and the
+  active buffer: ``live`` goes False, the codes become the sentinel, and
+  every touched posting table is rebuilt, so document frequencies count
+  live docs only.  ``live`` alone decides whether a row may be a result.
+* :meth:`merge_segments` folds a contiguous run of sealed segments into
+  one, dropping its tombstones; :meth:`compact` rebuilds the base over
+  the live table with stable ids.
+* Every mutation returns a new index sharing unchanged tensors.  With
+  ``add_documents(..., donate=True)`` a batch that fits the active buffer
+  is written into its tensors in place: the old index shares them and
+  must not be used again (the serving engine donates only when no batch
+  in flight holds the index).
+
+**Search** scores the base, then each generation (sealed segments oldest
+first, then the active buffer), keeps the top ``page`` of the joined
+positions ``[base | generations... | active]`` by a stable selection (the
+order of append, so ties go to the lower id), re-ranks the page by exact
+cosine and keeps ``k``.  Sealing must be invisible: a row has to score the
+same bits in a 4,096-row segment as in a 65,536-row flat buffer.  So every
+generation is scored by a function whose per-row bits do not depend on
+the table's width:
+
+* the code-matching engines (``postings``, ``codes``, ``onehot``,
+  ``codes_pallas``, ``fused``) score generations with ``code_match``,
+  whose sums run in an order fixed by C alone (on the card the kernel; on
+  the CPU its plain version, one ``sum`` per row);
+* ``fused_int8`` scores each generation with ``fused_phase1_quant``
+  (exact integer sums and a fixed combine on the card);
+* the page is re-ranked with :func:`repro_torch.core.rerank.tree_dot`, and
+  the final ``(Q, k, n)`` rescore is the einsum of
+  :func:`repro_torch.core.rerank.exact_scores`.
+
+A segmented index and a flat one (``seal_threshold=None``) given the same
+history return the same ids and scores bit for bit.  Result slots that no
+live doc can fill report ``(id=-1, score=-inf)``.  idf weighting uses
+``N = n_ids`` (every id ever assigned, Elasticsearch's ``maxDoc``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.encoding import Encoder, RoundingEncoder
+from repro_torch.core.filtering import (BestFilter, TrimFilter, expand_mask,
+                                        feature_mask, index_best_codes)
+from repro_torch.core.postings import (Postings, build_postings, code_df,
+                                       df_lookup, idf_weights)
+from repro_torch.core.quantize import quantize_table
+from repro_torch.core.rerank import (check_fp32_matmul, normalize,
+                                     stable_topk, tree_dot)
+from repro_torch.core.search import (_SENTINEL, FUSED_ENGINES, VectorIndex,
+                                     encode_table, phase1_engine_scores)
+
+__all__ = ["ShardedVectorIndex", "Segment", "DEFAULT_SEAL_THRESHOLD"]
+
+# The active buffer seals into a Segment once it holds this many rows.
+# None disables sealing: the flat append path the parity tests pin against.
+DEFAULT_SEAL_THRESHOLD = 256
+
+# posting columns scanned per step by max_df: a (32, d) bool temporary
+_DF_COLUMNS = 32
+
+_NEG_INF = float("-inf")
+
+Quant = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _quantize(vectors: torch.Tensor) -> Quant:
+    """(codes (1, W, n) int8, scale (1, W), zero (1, W)) of (1, W, n) rows."""
+    t = quantize_table(vectors[0])
+    return t.codes[None], t.scale[None], t.zero[None]
+
+
+def _postings(codes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (1, C, W) posting tables of (1, W, C) codes."""
+    p = build_postings(codes[0])
+    return p.post_docs[None], p.post_codes[None]
+
+
+@dataclasses.dataclass
+class Segment:
+    """One immutable sealed generation of appended docs.
+
+    Rows are the exact round-robin width; the mini posting table answers
+    df lookups.  The only changes are tombstones (through
+    :meth:`ShardedVectorIndex.delete`, which returns a new Segment with
+    rebuilt postings) and replacement by a merge.  ``n_rows`` and
+    ``tombstones`` are host ints."""
+
+    vectors: torch.Tensor     # (1, G, n) f32 unit rows; zero rows pad
+    codes: torch.Tensor       # (1, G, C) int; sentinel = dead or padding
+    gids: torch.Tensor        # (1, G) int32 global ids; -1 = padding
+    live: torch.Tensor        # (1, G) bool
+    post_docs: torch.Tensor   # (1, C, G) int32
+    post_codes: torch.Tensor  # (1, C, G)
+    n_rows: int               # rows holding a doc, live or tombstoned
+    tombstones: int           # dead rows among n_rows
+
+    @property
+    def width(self) -> int:
+        return self.vectors.shape[1]
+
+    @property
+    def deleted_ratio(self) -> float:
+        return self.tombstones / max(self.n_rows, 1)
+
+    def quantized(self) -> Quant:
+        """The int8 per-row table of this segment's vectors for
+        ``fused_int8``, derived at first use and cached (tombstones keep
+        the vectors, so :meth:`ShardedVectorIndex.delete` carries it)."""
+        cached = self.__dict__.get("_quant_cache")
+        if cached is None:
+            cached = _quantize(self.vectors)
+            self.__dict__["_quant_cache"] = cached
+        return cached
+
+
+@dataclasses.dataclass
+class ShardedVectorIndex:
+    """:class:`VectorIndex` plus segments and tombstones, at one shard."""
+
+    vectors: torch.Tensor      # (1, dp, n) f32 unit rows; zero rows pad
+    codes: torch.Tensor        # (1, dp, C) int; sentinel = tombstone
+    post_docs: torch.Tensor    # (1, C, dp) int32
+    post_codes: torch.Tensor   # (1, C, dp)
+    offsets: torch.Tensor      # (1,) int32 global id of the shard's doc 0
+    live: torch.Tensor         # (1, dp) bool; False = tombstone
+    seg_vectors: torch.Tensor  # (1, G, n) f32 active buffer
+    seg_codes: torch.Tensor    # (1, G, C) int; sentinel = empty or dead
+    seg_gids: torch.Tensor     # (1, G) int32; -1 = never used
+    seg_live: torch.Tensor     # (1, G) bool
+    segments: Tuple[Segment, ...]   # sealed generations, oldest first
+    encoder: Encoder
+    n_docs: int                # base id-space size
+    index_best: Optional[int]
+    n_appended: int = 0        # docs appended since the last compact
+    shard_tombstones: Tuple[int, ...] = ()   # deletes not yet reclaimed
+    seal_threshold: Optional[int] = DEFAULT_SEAL_THRESHOLD
+    seg_base: int = 0          # append count at the active buffer's start
+    active_tombstones: int = 0  # dead rows in the active buffer
+
+    # ------------------------------------------------------------ properties
+    @property
+    def device(self) -> torch.device:
+        return self.vectors.device
+
+    @property
+    def n_shards(self) -> int:
+        return self.vectors.shape[0]
+
+    @property
+    def docs_per_shard(self) -> int:
+        return self.vectors.shape[1]
+
+    @property
+    def n_features(self) -> int:
+        return self.vectors.shape[2]
+
+    @property
+    def seg_capacity(self) -> int:
+        """Active-buffer slots per shard (0: no open buffer)."""
+        return self.seg_vectors.shape[1]
+
+    @property
+    def n_ids(self) -> int:
+        """Global id-space size: base docs + docs ever appended."""
+        return self.n_docs + self.n_appended
+
+    @property
+    def n_tombstones(self) -> int:
+        return sum(self.shard_tombstones)
+
+    @property
+    def n_segments(self) -> int:
+        return len(self.segments)
+
+    @property
+    def n_active(self) -> int:
+        """Docs in the active (unsealed) buffer."""
+        return self.n_appended - self.seg_base
+
+    @property
+    def segment_rows(self) -> int:
+        """Rows held by sealed segments, tombstoned rows included."""
+        return sum(s.n_rows for s in self.segments)
+
+    @property
+    def n_reclaimed(self) -> int:
+        """Appended rows dropped by segment merges since the last compact."""
+        return self.n_appended - self.n_active - self.segment_rows
+
+    @staticmethod
+    def _seg_slots_used(n_appended: int, ns: int) -> np.ndarray:
+        """(S,) append slots used per shard: the round-robin occupancy that
+        routing and tombstone accounting share."""
+        used = np.full(ns, n_appended // ns, np.int64)
+        used[: n_appended % ns] += 1
+        return used
+
+    @property
+    def shard_populations(self) -> np.ndarray:
+        """(S,) docs ever assigned to each shard (base + appended)."""
+        ns, dp = self.n_shards, self.docs_per_shard
+        base = np.clip(self.n_docs - np.arange(ns) * dp, 0, dp)
+        app = self._seg_slots_used(self.n_active, ns)
+        for s in self.segments:
+            app = app + self._seg_slots_used(s.n_rows, ns)
+        return base + app
+
+    @property
+    def tombstone_ratio(self) -> float:
+        """Worst per-shard dead fraction (deleted / docs ever assigned)."""
+        if not any(self.shard_tombstones):
+            return 0.0
+        dead = np.asarray(self.shard_tombstones, np.float64)
+        return float(np.max(dead / np.maximum(self.shard_populations, 1)))
+
+    @property
+    def max_df(self) -> int:
+        """Longest live posting list over every column: the exact
+        ``max_postings`` window.  Cached per instance (mutations return new
+        instances)."""
+        cached = self.__dict__.get("_max_df_cache")
+        if cached is None:
+            cached = _max_df(self.post_codes[0],
+                             _SENTINEL[self.codes.dtype])
+            self.__dict__["_max_df_cache"] = cached
+        return cached
+
+    # ------------------------------------------------------ quantized tables
+    # int8 per-row copies of the vectors for fused_int8, derived at first
+    # use and cached per instance.  Tombstones change no vector, so the
+    # mutation paths carry them wherever the vectors are shared.
+    def _quant_base(self) -> Quant:
+        cached = self.__dict__.get("_quant_base_cache")
+        if cached is None:
+            cached = _quantize(self.vectors)
+            self.__dict__["_quant_base_cache"] = cached
+        return cached
+
+    def _quant_active(self) -> Quant:
+        cached = self.__dict__.get("_quant_active_cache")
+        if cached is None:
+            cached = _quantize(self.seg_vectors)
+            self.__dict__["_quant_active_cache"] = cached
+        return cached
+
+    def _carry_quant(self, out: "ShardedVectorIndex", base: bool = False,
+                     active: bool = False) -> "ShardedVectorIndex":
+        """Give ``out`` this index's quant tables of the vectors it shares
+        (``dataclasses.replace`` drops them)."""
+        for flag, key in ((base, "_quant_base_cache"),
+                          (active, "_quant_active_cache")):
+            if flag and key in self.__dict__:
+                out.__dict__[key] = self.__dict__[key]
+        return out
+
+    # --------------------------------------------------------- introspection
+    def token_df(self, queries) -> torch.Tensor:
+        """Per-token document frequencies (Q, C) int32, exactly what the
+        idf weighting of :meth:`search` sees: live docs only."""
+        q = normalize(torch.atleast_2d(torch.as_tensor(
+            queries, dtype=torch.float32, device=self.device)))
+        return self._df(self.encoder.encode(q))
+
+    def _df(self, qcodes: torch.Tensor) -> torch.Tensor:
+        df = df_lookup(Postings(self.post_docs[0], self.post_codes[0],
+                                self.docs_per_shard), qcodes)
+        for s in self.segments:
+            # sealed generations answer off their mini posting tables
+            df = df + df_lookup(Postings(s.post_docs[0], s.post_codes[0],
+                                         s.width), qcodes)
+        if self.seg_capacity:
+            df = df + code_df(self.seg_codes[0], qcodes)
+        return df
+
+    # ----------------------------------------------------------------- build
+    @classmethod
+    def _empty_active(cls, n_feat: int, n_cols: int, code_dtype,
+                      device) -> dict:
+        """The ``seg_*`` tensors of an empty active buffer."""
+        return {
+            "seg_vectors": torch.zeros((1, 0, n_feat), device=device),
+            "seg_codes": torch.full((1, 0, n_cols), _SENTINEL[code_dtype],
+                                    dtype=code_dtype, device=device),
+            "seg_gids": torch.full((1, 0), -1, dtype=torch.int32,
+                                   device=device),
+            "seg_live": torch.zeros((1, 0), dtype=torch.bool, device=device)}
+
+    @classmethod
+    def build_sharded(
+        cls,
+        vectors,
+        encoder: Encoder = RoundingEncoder(2),
+        index_best: Optional[int] = None,
+        *,
+        live=None,
+        seal_threshold: Optional[int] = DEFAULT_SEAL_THRESHOLD,
+        device="cuda",
+    ) -> "ShardedVectorIndex":
+        """Normalize -> encode -> ``index_best`` masking -> posting tables,
+        on ``device``.  ``live=False`` rows (how :meth:`compact` carries
+        tombstones) become zero vectors with sentinel codes."""
+        v = torch.as_tensor(vectors, dtype=torch.float32, device=device)
+        if v.ndim != 2:
+            raise ValueError(
+                f"vectors must be 2-D, got shape {tuple(v.shape)}")
+        n, n_feat = v.shape
+        if n < 1:
+            raise ValueError(f"more shards (1) than documents ({n})")
+        lv = (torch.ones((n,), dtype=torch.bool, device=device) if live is None
+              else torch.as_tensor(live, dtype=torch.bool, device=device))
+        v = normalize(v)
+        v.masked_fill_(~lv[:, None], 0.0)
+        codes = encode_table(v, encoder, index_best)
+        codes.masked_fill_(~lv[:, None], _SENTINEL[codes.dtype])
+        pdocs, pcodes = _postings(codes[None])
+        return cls(vectors=v[None], codes=codes[None], post_docs=pdocs,
+                   post_codes=pcodes,
+                   offsets=torch.zeros((1,), dtype=torch.int32,
+                                       device=device),
+                   live=lv[None], encoder=encoder, n_docs=n,
+                   index_best=index_best, seal_threshold=seal_threshold,
+                   segments=(), **cls._empty_active(
+                       n_feat, codes.shape[1], codes.dtype, device))
+
+    @classmethod
+    def from_index(cls, index: VectorIndex, *,
+                   seal_threshold: Optional[int] = DEFAULT_SEAL_THRESHOLD,
+                   ) -> "ShardedVectorIndex":
+        """One shard over ``index``, sharing its tensors (views, no copy;
+        at one shard the shard's posting tables are the index's), and its
+        int8 table when it has one."""
+        n, dev = index.n_docs, index.device
+        out = cls(vectors=index.vectors[None], codes=index.codes[None],
+                  post_docs=index.postings.post_docs[None],
+                  post_codes=index.postings.post_codes[None],
+                  offsets=torch.zeros((1,), dtype=torch.int32, device=dev),
+                  live=torch.ones((1, n), dtype=torch.bool, device=dev),
+                  encoder=index.encoder, n_docs=n,
+                  index_best=index.index_best, seal_threshold=seal_threshold,
+                  segments=(), **cls._empty_active(
+                      index.n_features, index.codes.shape[1],
+                      index.codes.dtype, dev))
+        qt = index.__dict__.get("_quant_cache")
+        if qt is not None:
+            out.__dict__["_quant_base_cache"] = (qt.codes[None],
+                                                 qt.scale[None],
+                                                 qt.zero[None])
+        return out
+
+    @classmethod
+    def build(cls, vectors, encoder=None, index_best=None, device="cuda"):
+        """:meth:`build_sharded` with the default encoder unless one is
+        given."""
+        kwargs = {} if encoder is None else {"encoder": encoder}
+        return cls.build_sharded(vectors, index_best=index_best,
+                                 device=device, **kwargs)
+
+    # ---------------------------------------------------------------- ingest
+    def add_documents(self, vectors, *,
+                      donate: bool = False) -> "ShardedVectorIndex":
+        """Append documents -> a new index sharing every unchanged tensor.
+
+        Rows are normalized, encoded and ``index_best``-masked, routed
+        round-robin into the active buffer with ids from :attr:`n_ids`.
+        The buffer grows to ``max(need, 2G, 8)`` slots when full, and seals
+        at ``seal_threshold`` rows.  ``donate=True`` writes a batch that
+        fits into the buffer's own tensors, allocating nothing: ``self``
+        then shares the written tensors and must not be used again.  A
+        batch that grows the buffer writes into new tensors either way."""
+        v = torch.atleast_2d(torch.as_tensor(vectors, dtype=torch.float32,
+                                             device=self.device))
+        m = int(v.shape[0])
+        if m == 0:
+            return self
+        if v.shape[1] != self.n_features:
+            raise ValueError(f"expected {self.n_features}-feature vectors, "
+                             f"got {tuple(v.shape)}")
+        v = normalize(v)
+        codes = self.encoder.encode(v)
+        sentinel = _SENTINEL[self.codes.dtype]
+        if self.index_best is not None:
+            codes = index_best_codes(v, codes, self.index_best, sentinel)
+
+        ns, G = self.n_shards, self.seg_capacity
+        # round-robin on the active buffer's own counter: slot use is a
+        # pure function of the append history (tombstones keep their slot)
+        n_act = self.n_active
+        used = self._seg_slots_used(n_act, ns)
+        shard_of = (n_act + np.arange(m)) % ns
+        slot_of = used[shard_of] + np.arange(m) // ns
+        need = int(slot_of.max()) + 1
+        gids = torch.arange(self.n_ids, self.n_ids + m, dtype=torch.int32,
+                            device=self.device)
+
+        svec, scod = self.seg_vectors, self.seg_codes
+        sgid, sliv = self.seg_gids, self.seg_live
+        if need > G:
+            # geometric growth bounds the copies of an ingest stream to
+            # O(log(appended)); spare slots are sentinel-coded and dead
+            grow = max(need, 2 * G, 8) - G
+            dev, C = self.device, scod.shape[-1]
+            svec = torch.cat([svec, torch.zeros((ns, grow, self.n_features),
+                                                device=dev)], dim=1)
+            scod = torch.cat([scod, torch.full((ns, grow, C), sentinel,
+                                               dtype=scod.dtype,
+                                               device=dev)], dim=1)
+            sgid = torch.cat([sgid, torch.full((ns, grow), -1,
+                                               dtype=torch.int32,
+                                               device=dev)], dim=1)
+            sliv = torch.cat([sliv, torch.zeros((ns, grow), dtype=torch.bool,
+                                                device=dev)], dim=1)
+        elif not donate:
+            svec, scod, sgid, sliv = (t.clone()
+                                      for t in (svec, scod, sgid, sliv))
+        sh = torch.as_tensor(shard_of, device=self.device)
+        sl = torch.as_tensor(slot_of, device=self.device)
+        svec[sh, sl] = v
+        scod[sh, sl] = codes.to(scod.dtype)
+        sgid[sh, sl] = gids
+        sliv[sh, sl] = True
+        out = dataclasses.replace(
+            self, seg_vectors=svec, seg_codes=scod, seg_gids=sgid,
+            seg_live=sliv, n_appended=self.n_appended + m)
+        out = self._carry_quant(out, base=True)
+        if (out.seal_threshold is not None
+                and out.n_active >= out.seal_threshold):
+            out = out._seal_active()
+        return out
+
+    def _seal_active(self) -> "ShardedVectorIndex":
+        """Seal the active buffer into a :class:`Segment` of its exact
+        width with its own posting table; a fresh buffer opens."""
+        n_act = self.n_active
+        if n_act == 0:
+            return self
+        w = int(self._seg_slots_used(n_act, self.n_shards).max())
+        svec, scod, sgid, sliv = (t[:, :w].clone() for t in (
+            self.seg_vectors, self.seg_codes, self.seg_gids, self.seg_live))
+        pdocs, pcodes = _postings(scod)
+        seg = Segment(svec, scod, sgid, sliv, pdocs, pcodes, n_rows=n_act,
+                      tombstones=self.active_tombstones)
+        out = dataclasses.replace(
+            self, segments=self.segments + (seg,), seg_base=self.n_appended,
+            active_tombstones=0, **self._empty_active(
+                self.n_features, self.codes.shape[-1], self.codes.dtype,
+                self.device))
+        return self._carry_quant(out, base=True)
+
+    def delete(self, ids) -> "ShardedVectorIndex":
+        """Tombstone documents by global id -> a new index.
+
+        ``live`` goes False and the codes become the sentinel; the base's
+        and each touched segment's posting tables are rebuilt, so df
+        counts live docs only.  An id already dead is a no-op for that id
+        and is not counted again."""
+        ids = np.unique(np.atleast_1d(np.asarray(ids, np.int64)))
+        if ids.size == 0:
+            return self
+        if (ids < 0).any() or (ids >= self.n_ids).any():
+            raise ValueError(f"ids must be in [0, {self.n_ids}), got "
+                             f"{ids.min()}..{ids.max()}")
+        sentinel = _SENTINEL[self.codes.dtype]
+        dev = self.device
+        dead = np.zeros(self.n_shards, np.int64)
+        new = {}
+
+        def tombstone(codes, live, s, r):
+            """-> (codes, live, was_live): copies with rows (s, r) dead."""
+            s, r = torch.as_tensor(s, device=dev), torch.as_tensor(r,
+                                                                   device=dev)
+            was_live = live[s, r].cpu().numpy()
+            codes, live = codes.clone(), live.clone()
+            codes[s, r] = sentinel
+            live[s, r] = False
+            return codes, live, was_live
+
+        base = ids[ids < self.n_docs]
+        if base.size:
+            s, r = np.divmod(base, self.docs_per_shard)
+            codes, live, was_live = tombstone(self.codes, self.live, s, r)
+            np.add.at(dead, s[was_live], 1)
+            new["codes"], new["live"] = codes, live
+            new["post_docs"], new["post_codes"] = _postings(codes)
+        app = ids[ids >= self.n_docs]
+        if app.size:
+            segs, changed = list(self.segments), False
+            for i, seg in enumerate(segs):
+                s, g = np.nonzero(np.isin(seg.gids.cpu().numpy(), app))
+                if s.size == 0:
+                    continue
+                codes, live, was_live = tombstone(seg.codes, seg.live, s, g)
+                np.add.at(dead, s[was_live], 1)
+                segs[i] = Segment(seg.vectors, codes, seg.gids, live,
+                                  *_postings(codes), seg.n_rows,
+                                  seg.tombstones + int(was_live.sum()))
+                if "_quant_cache" in seg.__dict__:
+                    segs[i].__dict__["_quant_cache"] = \
+                        seg.__dict__["_quant_cache"]
+                changed = True
+            if changed:
+                new["segments"] = tuple(segs)
+            s, g = np.nonzero(np.isin(self.seg_gids.cpu().numpy(), app))
+            if s.size:
+                codes, live, was_live = tombstone(self.seg_codes,
+                                                  self.seg_live, s, g)
+                np.add.at(dead, s[was_live], 1)
+                new["seg_codes"], new["seg_live"] = codes, live
+                new["active_tombstones"] = (self.active_tombstones
+                                            + int(was_live.sum()))
+        old = (np.asarray(self.shard_tombstones, np.int64)
+               if self.shard_tombstones else np.zeros(self.n_shards, np.int64))
+        new["shard_tombstones"] = tuple(int(x) for x in old + dead)
+        # no vector changed: every quant table stays valid
+        return self._carry_quant(dataclasses.replace(self, **new),
+                                 base=True, active=True)
+
+    def compact(self) -> "ShardedVectorIndex":
+        """Fold segments and tombstones into a clean base by rebuilding
+        over the live table.  Ids are stable: the new base spans ``[0,
+        n_ids)`` in id order, dead ids as sentinel-coded padding."""
+        ns, dp, n_feat = self.n_shards, self.docs_per_shard, self.n_features
+        flat_v = self.vectors.reshape(ns * dp, n_feat)[: self.n_docs]
+        flat_l = self.live.reshape(ns * dp)[: self.n_docs]
+        if self.n_appended:
+            table_v = torch.zeros((self.n_ids, n_feat), device=self.device)
+            table_l = torch.zeros((self.n_ids,), dtype=torch.bool,
+                                  device=self.device)
+            table_v[: self.n_docs] = flat_v
+            table_l[: self.n_docs] = flat_l
+            parts = [(s.gids, s.vectors, s.live) for s in self.segments]
+            if self.seg_capacity:
+                parts.append((self.seg_gids, self.seg_vectors, self.seg_live))
+            # gids are unique across generations; rows merged away stay
+            # unset (dead): their ids were already retired
+            for sgid, svec, sliv in parts:
+                sg = sgid.reshape(-1)
+                used = sg >= 0
+                idx = sg[used].long()
+                table_v[idx] = svec.reshape(-1, n_feat)[used]
+                table_l[idx] = sliv.reshape(-1)[used]
+        else:
+            table_v, table_l = flat_v, flat_l
+        return type(self).build_sharded(
+            table_v, encoder=self.encoder, index_best=self.index_best,
+            live=table_l, seal_threshold=self.seal_threshold,
+            device=self.device)
+
+    def merge_segments(self, start: int = 0,
+                       count: Optional[int] = None) -> "ShardedVectorIndex":
+        """Merge a contiguous run of sealed segments into one, dropping its
+        tombstoned rows (Lucene's background merge).
+
+        Surviving rows keep their vectors, codes and ids, re-packed
+        round-robin in id order, with a fresh posting table; the run's
+        tombstones leave ``shard_tombstones``.  Assembled on the host and
+        put on the device once per tensor, as the reference assembles it."""
+        nseg = len(self.segments)
+        if count is None:
+            count = nseg - start
+        if nseg == 0:
+            raise ValueError("no sealed segments to merge")
+        if not (0 <= start < nseg and count >= 1 and start + count <= nseg):
+            raise ValueError(f"invalid merge range [{start}, {start + count}) "
+                             f"of {nseg} segments")
+        run = self.segments[start:start + count]
+        ns, n_feat = self.n_shards, self.n_features
+        C = self.codes.shape[-1]
+        sentinel = _SENTINEL[self.codes.dtype]
+
+        keep_v, keep_c, keep_g = [], [], []
+        dead_per_shard = np.zeros(ns, np.int64)
+        for seg in run:
+            sg = seg.gids.cpu().numpy()
+            sl = seg.live.cpu().numpy()
+            used = sg >= 0
+            dead_per_shard += (used & ~sl).sum(axis=1)
+            ks, kg = np.nonzero(used & sl)
+            keep_g.append(sg[ks, kg])
+            keep_v.append(seg.vectors.cpu().numpy()[ks, kg])
+            keep_c.append(seg.codes.cpu().numpy()[ks, kg])
+        gids = np.concatenate(keep_g)
+        order = np.argsort(gids, kind="stable")     # id order = append order
+        gids = gids[order]
+        vecs = np.concatenate(keep_v)[order]
+        codes = np.concatenate(keep_c)[order]
+        n_live = int(gids.size)
+
+        old = (np.asarray(self.shard_tombstones, np.int64)
+               if self.shard_tombstones else np.zeros(ns, np.int64))
+        stones = old - dead_per_shard
+        stones_t = tuple(int(x) for x in stones) if stones.any() else ()
+
+        before, after = self.segments[:start], self.segments[start + count:]
+        if n_live == 0:
+            # every row of the run was dead: the generations just vanish
+            return dataclasses.replace(self, segments=before + after,
+                                       shard_tombstones=stones_t)
+
+        w = -(-n_live // ns)
+        mv = np.zeros((ns, w, n_feat), np.float32)
+        mc = np.full((ns, w, C), sentinel, dtype=codes.dtype)
+        mg = np.full((ns, w), -1, np.int32)
+        ml = np.zeros((ns, w), bool)
+        r = np.arange(n_live)
+        sh, sl_ = r % ns, r // ns
+        mv[sh, sl_] = vecs
+        mc[sh, sl_] = codes
+        mg[sh, sl_] = gids
+        ml[sh, sl_] = True
+        dev = self.device
+        dcod = torch.from_numpy(mc).to(dev)
+        merged = Segment(torch.from_numpy(mv).to(dev), dcod,
+                         torch.from_numpy(mg).to(dev),
+                         torch.from_numpy(ml).to(dev), *_postings(dcod),
+                         n_rows=n_live, tombstones=0)
+        return dataclasses.replace(
+            self, segments=before + (merged,) + after,
+            shard_tombstones=stones_t)
+
+    # ---------------------------------------------------------------- search
+    def search(
+        self,
+        queries,
+        k: int = 10,
+        page: int = 320,
+        trim: Optional[TrimFilter] = None,
+        best: Optional[BestFilter] = None,
+        engine: str = "postings",
+        weighting: str = "idf",
+        max_postings: "Optional[int | str]" = None,
+        merge: str = "gather",
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Two-phase search over base + generations -> (ids (Q, k) int32,
+        exact cosine scores (Q, k) f32), on the index's device.
+
+        Same contract as :meth:`VectorIndex.search`, with ids global.
+        ``max_postings="auto"`` sizes the postings window from
+        :attr:`max_df`, exact like ``None``.  ``merge`` is the reference's
+        transport (``"gather"`` or ``"stream"``); at one shard the stream's
+        running top-``k`` is the top-``k`` of the shard's page, so both
+        return the same bits."""
+        if merge not in ("gather", "stream"):
+            raise ValueError(f"unknown merge transport {merge!r}")
+        q = torch.atleast_2d(torch.as_tensor(queries, dtype=torch.float32,
+                                             device=self.device))
+        page = min(page, self.n_ids)
+        k = min(k, page)
+        page_loc = min(page, self.docs_per_shard + self.seg_capacity
+                       + sum(s.width for s in self.segments))
+        q = normalize(q)
+        qcodes = self.encoder.encode(q)
+        mask = expand_mask(feature_mask(q, trim=trim, best=best),
+                           qcodes.shape[-1])
+        if max_postings == "auto":
+            max_postings = max(1, self.max_df)
+        L = (self.docs_per_shard if max_postings is None
+             else min(max_postings, self.docs_per_shard))
+        gid, s2, cvec = self._query_phase(q, qcodes, mask, engine, weighting,
+                                          L, page_loc)
+        if merge == "stream":
+            _, pos = stable_topk(s2, k)
+            gid, s2, cvec = _take(pos, gid, s2, cvec)
+        return _merge_phase(gid, s2, cvec, q, k)
+
+    def _generations(self) -> List[Tuple[torch.Tensor, ...]]:
+        """(vectors, codes, gids, live) of each generation, (W, .) each:
+        the sealed segments oldest first, then the active buffer."""
+        gens = [(s.vectors[0], s.codes[0], s.gids[0], s.live[0])
+                for s in self.segments]
+        if self.seg_capacity:
+            gens.append((self.seg_vectors[0], self.seg_codes[0],
+                         self.seg_gids[0], self.seg_live[0]))
+        return gens
+
+    def _query_phase(self, q, qcodes, mask, engine, weighting, max_postings,
+                     page_loc):
+        """Phase 1 over base + generations and the page's exact cosines
+        -> (gids (Q, P) int32, scores (Q, P), vectors (Q, P, n)); slots
+        that hold no live doc score -inf."""
+        dp = self.docs_per_shard
+        codes, lv = self.codes[0], self.live[0]
+        gens = self._generations()
+        quant = engine == "fused_int8"
+        if quant:
+            w = None    # reads no tokens: no df, no idf
+        elif weighting == "idf":
+            w = idf_weights(self._df(qcodes), self.n_ids)
+        elif weighting == "count":
+            w = torch.ones(qcodes.shape, dtype=torch.float32,
+                           device=self.device)
+        else:
+            raise ValueError(f"unknown weighting {weighting!r}")
+        if w is not None:
+            w = torch.where(mask, w, 0.0)
+
+        if engine in FUSED_ENGINES:
+            from repro_torch.kernels.fused_phase1 import ops as fp_ops
+
+            # the fused kernel's top min(page_loc, dp) of the base holds
+            # every base doc the joined selection can take
+            p_base = min(page_loc, dp)
+            if quant:
+                b8, bsc, bzp = self._quant_base()
+                parts = [fp_ops.fused_phase1_quant(b8[0], bsc[0], bzp[0], q,
+                                                   page=p_base, live=lv)]
+                tables = [s.quantized() for s in self.segments]
+                if self.seg_capacity:
+                    tables.append(self._quant_active())
+                # each generation's own top page, sorted by score with ties
+                # to the lower slot: joined in generation order, its stable
+                # selection is that of the generation's scores in slot
+                # order, and no doc outside a generation's top page_loc can
+                # reach the joined top page_loc
+                for (g8, gsc, gzp), (_, _, _, gl) in zip(tables, gens):
+                    parts.append(fp_ops.fused_phase1_quant(
+                        g8[0], gsc[0], gzp[0], q,
+                        page=min(gl.shape[0], page_loc), live=gl))
+            else:
+                parts = [fp_ops.fused_phase1(codes, qcodes, w, page=p_base,
+                                             live=lv)]
+                for _, gc, _, gl in gens:
+                    s = _generation_scores(gc, gl, qcodes, w)
+                    parts.append((s, torch.arange(
+                        s.shape[1], device=s.device).expand_as(s)))
+            if len(parts) == 1:
+                cand_s, cand = parts[0]
+                cand = cand.long()
+            else:
+                offs = [0, dp]
+                for g in gens[:-1]:
+                    offs.append(offs[-1] + g[0].shape[0])
+                cat_s = torch.cat([s for s, _ in parts], dim=1)
+                cat_i = torch.cat([i.long() + o for (_, i), o
+                                   in zip(parts, offs)], dim=1)
+                cand_s, pos = stable_topk(cat_s, page_loc)
+                cand = torch.gather(cat_i, 1, pos)
+        else:
+            postings = Postings(self.post_docs[0], self.post_codes[0], dp)
+            s1 = phase1_engine_scores(codes, postings, qcodes, w, engine,
+                                      max_postings,
+                                      self.encoder.max_abs_bucket)
+            parts = [s1.masked_fill(~lv[None, :], _NEG_INF)]
+            parts += [_generation_scores(gc, gl, qcodes, w)
+                      for _, gc, _, gl in gens]
+            s1 = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+            del parts
+            cand_s, cand = stable_topk(s1, page_loc)
+
+        cvec, live_c, gid = self._gather(cand, gens)
+        s2 = tree_dot(cvec, q[:, None, :])
+        # the fused kernels' -inf slots carry unspecified ids: -inf by the
+        # phase-1 score, not only by the row's live flag
+        s2 = s2.masked_fill(~live_c | torch.isneginf(cand_s), _NEG_INF)
+        return gid, s2, cvec
+
+    def _gather(self, cand, gens):
+        """Rows of the joined positions ``cand`` (Q, P) -> (vectors
+        (Q, P, n), live (Q, P), gids (Q, P) int32): one gather from the
+        base and one from the generations, joined into one table for this
+        call (a few MB per 4,096 rows, against a (Q, P, n) gather per
+        generation)."""
+        dp = self.docs_per_shard
+        base = cand.clamp(max=dp - 1)
+        cvec, live_c = self.vectors[0][base], self.live[0][base]
+        gid = (base + self.offsets[0]).to(torch.int32)
+        if not gens:
+            return cvec, live_c, gid
+        gv, gg, gl = (torch.cat(t) for t in zip(*((v, g, l)
+                                                  for v, _, g, l in gens)))
+        inside = cand >= dp
+        loc = (cand - dp).clamp(0, gv.shape[0] - 1)
+        cvec = torch.where(inside[..., None], gv[loc], cvec)
+        live_c = torch.where(inside, gl[loc], live_c)
+        gid = torch.where(inside, gg[loc], gid)
+        return cvec, live_c, gid
+
+
+def _generation_scores(codes, live, qcodes, w) -> torch.Tensor:
+    """(Q, W) code-match scores of one generation, -inf where not live:
+    the ``code_match`` kernel on the card, its plain version on the CPU;
+    both sum a row in an order that does not depend on W."""
+    from repro_torch.kernels.code_match import ops as cm_ops
+
+    return cm_ops.code_match(codes, qcodes, w).masked_fill(~live[None, :],
+                                                           _NEG_INF)
+
+
+def _take(pos, gid, s2, cvec):
+    """Columns ``pos`` (Q, K) of the page's gids, scores and vectors."""
+    n = cvec.shape[-1]
+    return (torch.gather(gid, 1, pos), torch.gather(s2, 1, pos),
+            torch.gather(cvec, 1, pos[..., None].expand(-1, -1, n)))
+
+
+def _merge_phase(gid, s2, cvec, q, k):
+    """Stable top-``k`` over the page's exact cosines, then the reported
+    scores from the (Q, k, n) einsum of ``exact_scores``; slots whose
+    score is -inf report (id=-1, score=-inf)."""
+    top_s, pos = stable_topk(s2, k)
+    top_ids, _, hits = _take(pos, gid, s2, cvec)
+    top_ids = top_ids.masked_fill(torch.isneginf(top_s), -1)
+    check_fp32_matmul(hits)
+    scores = torch.einsum("qkn,qn->qk", hits, q)
+    scores = scores.masked_fill(top_ids < 0, _NEG_INF)
+    short = k - top_ids.shape[1]
+    if short > 0:          # fewer slots than k once merges reclaimed rows
+        top_ids = torch.nn.functional.pad(top_ids, (0, short), value=-1)
+        scores = torch.nn.functional.pad(scores, (0, short),
+                                         value=_NEG_INF)
+    return top_ids, scores
+
+
+def _max_df(post_codes: torch.Tensor, sentinel: int) -> int:
+    """Longest run of one non-sentinel code in any row of (C, d) sorted
+    posting codes, ``_DF_COLUMNS`` rows a step."""
+    best = 0
+    for j in range(0, post_codes.shape[0], _DF_COLUMNS):
+        x = post_codes[j:j + _DF_COLUMNS]
+        start = torch.ones(x.shape, dtype=torch.bool, device=x.device)
+        start[:, 1:] = x[:, 1:] != x[:, :-1]
+        pos = start.reshape(-1).nonzero().squeeze(1)
+        length = torch.diff(pos, append=pos.new_full((1,), x.numel()))
+        length = length[x.reshape(-1)[pos] != sentinel]
+        if length.numel():
+            best = max(best, int(length.max()))
+    return best

@@ -8,14 +8,16 @@ run one model or search one index:
   the port's encoder of the same scheme and ``index_best``);
 * ``lsa_from_numpy``: an ``LsaPipeline`` (idf, V, singular values, doc
   vectors), so ``embed`` and ``fold_in`` run on the same model;
-* ``mlt_from_numpy``: an ``MLTIndex`` (its term postings and the corpus).
+* ``mlt_from_numpy``: an ``MLTIndex`` (its term postings and the corpus);
+* ``sharded_from_numpy``: a one-shard ``ShardedVectorIndex`` (its base,
+  active buffer and sealed segments, and the host counters).
 
 This module imports no JAX: the caller does the ``np.asarray``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -24,9 +26,12 @@ from repro_torch.core.encoding import Encoder
 from repro_torch.core.mlt import MLTIndex, TermPostings
 from repro_torch.core.postings import Postings
 from repro_torch.core.search import VectorIndex
+from repro_torch.dist.shard_index import (DEFAULT_SEAL_THRESHOLD, Segment,
+                                          ShardedVectorIndex)
 from repro_torch.lsa import LsaModel, LsaPipeline, TfIdf
 
-__all__ = ["index_from_numpy", "lsa_from_numpy", "mlt_from_numpy"]
+__all__ = ["index_from_numpy", "lsa_from_numpy", "mlt_from_numpy",
+           "sharded_from_numpy"]
 
 
 def _put(a, device, dtype=None):
@@ -90,3 +95,65 @@ def mlt_from_numpy(
                             _put(idf, device, f32), int(doc_terms.shape[0]))
     return MLTIndex(postings, _put(doc_terms, device, i32),
                     _put(doc_tf, device, f32))
+
+
+def sharded_from_numpy(
+    vectors: np.ndarray,       # (1, dp, n) f32
+    codes: np.ndarray,         # (1, dp, C) int
+    post_docs: np.ndarray,     # (1, C, dp) int32
+    post_codes: np.ndarray,    # (1, C, dp) int
+    offsets: np.ndarray,       # (1,) int32
+    live: np.ndarray,          # (1, dp) bool
+    encoder: Encoder,
+    n_docs: int,
+    index_best: Optional[int] = None,
+    *,
+    seg_vectors: Optional[np.ndarray] = None,   # (1, G, n); None: empty
+    seg_codes: Optional[np.ndarray] = None,     # (1, G, C)
+    seg_gids: Optional[np.ndarray] = None,      # (1, G) int32
+    seg_live: Optional[np.ndarray] = None,      # (1, G) bool
+    segments: Sequence = (),   # (vectors, codes, gids, live, post_docs,
+                               #  post_codes, n_rows, tombstones) each
+    n_appended: int = 0,
+    shard_tombstones: Sequence[int] = (),
+    seal_threshold: Optional[int] = DEFAULT_SEAL_THRESHOLD,
+    seg_base: int = 0,
+    active_tombstones: int = 0,
+    device="cuda",
+) -> ShardedVectorIndex:
+    """Port a one-shard :class:`ShardedVectorIndex` on ``device`` from the
+    numpy leaves of a JAX ``ShardedVectorIndex`` and its host counters;
+    its segments come along when given.  Raises ``ValueError`` for more
+    than one shard."""
+    if vectors.shape[0] != 1:
+        raise ValueError(f"one shard only, got {vectors.shape[0]}")
+    codes_t = _put(codes, device)
+    if codes_t.dtype != encoder.code_dtype:
+        raise TypeError(f"codes are {codes_t.dtype}, encoder "
+                        f"{encoder} makes {encoder.code_dtype}")
+    f32, i32 = torch.float32, torch.int32
+    if seg_vectors is None:
+        active = ShardedVectorIndex._empty_active(
+            vectors.shape[2], codes.shape[2], codes_t.dtype, device)
+    else:
+        active = {"seg_vectors": _put(seg_vectors, device, f32),
+                  "seg_codes": _put(seg_codes, device, codes_t.dtype),
+                  "seg_gids": _put(seg_gids, device, i32),
+                  "seg_live": _put(seg_live, device, torch.bool)}
+    segs = tuple(
+        Segment(_put(sv, device, f32), _put(sc, device, codes_t.dtype),
+                _put(sg, device, i32), _put(sl, device, torch.bool),
+                _put(spd, device, i32), _put(spc, device, codes_t.dtype),
+                int(n_rows), int(tombs))
+        for sv, sc, sg, sl, spd, spc, n_rows, tombs in segments)
+    return ShardedVectorIndex(
+        vectors=_put(vectors, device, f32), codes=codes_t,
+        post_docs=_put(post_docs, device, i32),
+        post_codes=_put(post_codes, device, codes_t.dtype),
+        offsets=_put(offsets, device, i32),
+        live=_put(live, device, torch.bool), segments=segs, encoder=encoder,
+        n_docs=int(n_docs), index_best=index_best,
+        n_appended=int(n_appended),
+        shard_tombstones=tuple(int(x) for x in shard_tombstones),
+        seal_threshold=seal_threshold, seg_base=int(seg_base),
+        active_tombstones=int(active_tombstones), **active)

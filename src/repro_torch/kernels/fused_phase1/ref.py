@@ -254,9 +254,19 @@ def fused_phase1_quant_stream(
     block: int = 512,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Tile-by-tile fold of :func:`fused_phase1_quant_ref`: the same
-    scores per cell up to the matrix product's reduction order."""
+    scores per cell up to the product's reduction order.  Each cell's
+    product is one row sum over n (:func:`_quant_tile_scores`), so a doc
+    scores the same bits whatever the tile's width or the table that holds
+    it, as the kernel's cells do; a matrix product of the tile may not."""
     qsum = queries.sum(dim=-1, keepdim=True)
     return _stream(
-        lambda lo, hi: quantized_scores(codes8[lo:hi], scale[lo:hi],
-                                        zero[lo:hi], queries, qsum),
+        lambda lo, hi: _quant_tile_scores(codes8[lo:hi], scale[lo:hi],
+                                          zero[lo:hi], queries, qsum),
         codes8.shape[0], queries.shape[0], page, live, block, codes8.device)
+
+
+def _quant_tile_scores(codes8, scale, zero, queries, qsum) -> torch.Tensor:
+    """:func:`quantized_scores` of a tile with ``codes . query`` taken as
+    one ``sum`` over n per (query, doc): (Q, tile, n) products."""
+    raw = (queries[:, None, :] * codes8.to(torch.float32)[None]).sum(dim=-1)
+    return raw * scale[None, :] + qsum * zero[None, :]

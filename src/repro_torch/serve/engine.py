@@ -7,7 +7,18 @@ to the fixed batch shape, handed to ONE ``index.search`` as a CPU tensor
 the lowest latency; batch N trades latency for N-fold throughput.
 
 The engine is index-polymorphic: anything with the ``VectorIndex.search``
-contract serves.
+contract serves, in particular
+:class:`repro_torch.dist.shard_index.ShardedVectorIndex`, which also takes
+``merge=`` and ``max_postings="auto"`` (passed on only when set).
+
+**Hot ingest**: ``add_documents`` and ``delete`` go through the index's own
+methods and swap the new index in under the engine lock: the batch in
+flight finishes on its snapshot, every later batch sees the change.  With
+``donate_ingest=True`` an ingest batch may be written into the active
+buffer in place (``add_documents(..., donate=True)``), but only while no
+batch is in flight (``_serving`` is None): the snapshot it searches may
+be the current index, or share its buffers (a delete or a merge keeps
+the active buffer), and may still be reading them.
 
 Lifecycle: ``submit`` after ``close`` raises ``RuntimeError``; a search
 that raises inside the worker fails only that batch's futures and the
@@ -19,6 +30,7 @@ index (a batch in flight finishes on its snapshot), and ``pending``
 
 from __future__ import annotations
 
+import inspect
 import threading
 import time
 from concurrent.futures import Future
@@ -42,14 +54,19 @@ class BatchedSearchEngine:
         page: int = 320,
         trim: Optional[TrimFilter] = TrimFilter(0.05),
         engine: str = "codes",
-        max_postings: Optional[int] = None,
+        merge: Optional[str] = None,
+        max_postings: "Optional[int | str]" = None,
+        donate_ingest: bool = False,
     ):
         self.index = index
         self.batch_size = batch_size
         self.max_wait_s = max_wait_s
         self.k, self.page, self.trim, self.engine = k, page, trim, engine
         # None omits the argument, so an index without it keeps serving
+        self.merge = merge
         self.max_postings = max_postings
+        self.donate_ingest = donate_ingest
+        self._serving = None               # the in-flight batch's snapshot
         self._lock = threading.Condition()
         self._queue: List[tuple] = []      # (query, future, enqueue time)
         self._stop = False
@@ -79,8 +96,10 @@ class BatchedSearchEngine:
             return len(self._queue) + self._inflight
 
     def add_documents(self, vectors) -> int:
-        """Hot-add documents through the index's ``add_documents``; raises
-        ``TypeError`` for an index without incremental ingest."""
+        """Hot-add documents through the index's ``add_documents`` -> the
+        first global id assigned; raises ``TypeError`` for an index without
+        incremental ingest.  With ``donate_ingest`` the batch is donated
+        when no batch is in flight."""
         with self._lock:
             if self._stop:
                 raise RuntimeError("engine closed")
@@ -88,9 +107,12 @@ class BatchedSearchEngine:
             if add is None:
                 raise TypeError(
                     f"{type(self.index).__name__} does not support "
-                    "incremental ingest")
+                    "incremental ingest; serve a ShardedVectorIndex")
             first_id = self.index.n_ids
-            self.index = add(vectors)
+            donate = (self.donate_ingest and self._serving is None
+                      and "donate" in inspect.signature(add).parameters)
+            self.index = (add(vectors, donate=True) if donate
+                          else add(vectors))
         return first_id
 
     def delete(self, ids) -> None:
@@ -102,7 +124,8 @@ class BatchedSearchEngine:
             delete = getattr(self.index, "delete", None)
             if delete is None:
                 raise TypeError(
-                    f"{type(self.index).__name__} does not support deletes")
+                    f"{type(self.index).__name__} does not support deletes; "
+                    "serve a ShardedVectorIndex")
             self.index = delete(ids)
 
     def swap_index(self, new_index, expected=None) -> bool:
@@ -141,8 +164,10 @@ class BatchedSearchEngine:
                 return None
             batch = self._queue[: self.batch_size]
             del self._queue[: len(batch)]
-            # a hot swap after this point applies to the NEXT batch
+            # a hot swap after this point applies to the NEXT batch; a
+            # donating ingest must not write into the snapshot's buffers
             self._inflight = len(batch)
+            self._serving = self.index if batch else None
             return batch, self.index
 
     def _search(self, index, batch):
@@ -150,7 +175,7 @@ class BatchedSearchEngine:
         pad = self.batch_size - qs.shape[0]
         if pad:
             qs = np.concatenate([qs, np.zeros((pad, qs.shape[1]), qs.dtype)])
-        kwargs = {}
+        kwargs = {"merge": self.merge} if self.merge else {}
         if self.max_postings is not None:
             kwargs["max_postings"] = self.max_postings
         # the index puts the batch on its own device
@@ -183,3 +208,4 @@ class BatchedSearchEngine:
             finally:
                 with self._lock:
                     self._inflight = 0
+                    self._serving = None

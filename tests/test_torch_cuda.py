@@ -544,3 +544,149 @@ def test_rmatvec_bags_fixed_order_on_card(gen):
         runs[0].cpu(), tsvd.rmatvec_bags(terms.cpu(), weights.cpu(),
                                          X.cpu(), V, block=4096),
         rtol=1e-5, atol=1e-4)
+
+
+# ---------------------------------------- ShardedVectorIndex on the card
+SHARD_ENGINES = ("postings", "codes", "onehot", "codes_pallas", "fused",
+                 "fused_int8")
+
+
+def _sharded_pair(gen, n_docs=3000, n=48):
+    from repro_torch.dist.shard_index import ShardedVectorIndex
+
+    V = torch.randn((n_docs, n), generator=gen, device="cuda")
+    return (ShardedVectorIndex.build_sharded(V, seal_threshold=64,
+                                             device="cuda"),
+            ShardedVectorIndex.build_sharded(V, seal_threshold=None,
+                                             device="cuda"), V)
+
+
+def _same_results(a, b, Q, ctx, engine, pages=(33, 320, None)):
+    assert a.n_ids == b.n_ids, ctx
+    for k in (1, 10):
+        for page in pages:
+            p = 2 * a.n_ids if page is None else page
+            i1, s1 = a.search(Q, k=k, page=p, engine=engine)
+            i2, s2 = b.search(Q, k=k, page=p, engine=engine)
+            assert torch.equal(i1, i2), (ctx, engine, k, p)
+            assert torch.equal(s1, s2), (ctx, engine, k, p)
+
+
+@pytest.mark.parametrize("engine", SHARD_ENGINES)
+def test_sharded_lifecycle_segmented_vs_flat_on_card(gen, engine):
+    """The same history on a segmented index (generations of 64 rows) and
+    a flat one (one buffer grown to 2,048 slots, 32x wider) gives
+    bit-identical ids and scores on the card after every stage: every
+    generation is scored by a kernel whose per-row bits do not depend on
+    the table's width."""
+    seg, flat, V = _sharded_pair(gen)
+    Q = torch.cat([V[:8], torch.randn((8, V.shape[1]), generator=gen,
+                                      device="cuda")])
+    _same_results(seg, flat, Q, "built", engine)
+    for step in range(20):
+        W = torch.randn((64, V.shape[1]), generator=gen, device="cuda")
+        seg, flat = seg.add_documents(W), flat.add_documents(W)
+        if step in (0, 19):
+            _same_results(seg, flat, Q, ("ingest", step), engine)
+    W = torch.randn((40, V.shape[1]), generator=gen, device="cuda")
+    seg, flat = seg.add_documents(W), flat.add_documents(W)
+    assert seg.n_segments == 20 and seg.n_active == 40
+    assert flat.seg_capacity == 2048 and flat.n_segments == 0
+    Q = torch.cat([Q, W[:4], seg.segments[3].vectors[0, :4]])
+    _same_results(seg, flat, Q, "ingested", engine)
+    victims = list(range(0, 3000, 97)) + list(range(3000, 4280, 31)) \
+        + [4281, 4300, 4319]
+    seg, flat = seg.delete(victims), flat.delete(victims)
+    _same_results(seg, flat, Q, "deleted", engine)
+    merged = seg.merge_segments(2, 15)
+    _same_results(merged, flat, Q, "merged", engine)
+    _same_results(merged, seg, Q, "merge is invisible", engine)
+    seg, flat = merged.compact(), flat.compact()
+    _same_results(seg, flat, Q, "compacted", engine)
+
+
+def test_sharded_generations_scored_by_code_match_on_card(gen):
+    """On the card a generation's code-match scores come from the
+    code_match kernel, bit-equal to ref.match_scores, once per generation
+    per ``fused`` search, and two fused_phase1 kernels score the base."""
+    from repro_torch.dist import shard_index as si
+
+    seg, _, V = _sharded_pair(gen)
+    for _ in range(3):
+        seg = seg.add_documents(torch.randn((64, V.shape[1]), generator=gen,
+                                            device="cuda"))
+    seg = seg.add_documents(V[:5] * 2).delete([3001, 3070])
+    q = trerank.normalize(V[:6])
+    qcodes = seg.encoder.encode(q)
+    w = torch.rand(qcodes.shape, generator=gen, device="cuda")
+    for s in seg.segments:
+        got = si._generation_scores(s.codes[0], s.live[0], qcodes, w)
+        want = tref.match_scores(s.codes[0], qcodes, w).masked_fill(
+            ~s.live[0][None, :], float("-inf"))
+        assert torch.equal(got, want)
+    n_gens = seg.n_segments + 1
+    before_cm, before_fp = cm_ops.launches, tops.launches
+    seg.search(q, k=10, page=320, engine="fused")
+    assert cm_ops.launches - before_cm == n_gens * cm_kernel.KERNELS_PER_CALL
+    assert tops.launches - before_fp == tkernel.KERNELS_PER_CALL
+    before_q = tops.quant_launches
+    seg.search(q, k=10, page=320, engine="fused_int8")
+    assert tops.quant_launches - before_q == \
+        (1 + n_gens) * tkernel.KERNELS_PER_CALL
+
+
+def test_fused_int8_generation_scores_independent_of_width(gen):
+    """fused_phase1_quant gives a row the same score bits in a 64-row
+    generation and inside a 2,048-row one, at another offset, dead rows
+    around it: the int8 sums are exact and the combine is fixed."""
+    n = 48
+    rows = torch.randn((64, n), generator=gen, device="cuda")
+    wide = torch.randn((2048, n), generator=gen, device="cuda")
+    wide[1000:1064] = rows
+    q = trerank.normalize(torch.randn((16, n), generator=gen, device="cuda"))
+
+    def scores(table, live):
+        t = tquant.quantize_table(table)
+        s, i = tops.fused_phase1_quant(t.codes, t.scale, t.zero, q,
+                                       page=table.shape[0], live=live)
+        out = torch.full_like(s, float("nan"))
+        fin = torch.isfinite(s)
+        out[fin.nonzero(as_tuple=True)[0], i[fin].long()] = s[fin]
+        return out
+
+    live = torch.rand(2048, generator=gen, device="cuda") < 0.5
+    live[1000:1064] = True
+    narrow = scores(rows, torch.ones(64, dtype=torch.bool, device="cuda"))
+    assert torch.equal(scores(wide, live)[:, 1000:1064], narrow)
+    t = tquant.quantize_table(rows)
+    assert torch.equal(narrow, tref.quant_split_scores(
+        t.codes, t.scale, t.zero, q, q.sum(dim=-1)))
+
+
+def test_donated_ingest_allocates_nothing_on_card(gen):
+    """A donated batch that fits the active buffer allocates no device
+    memory and answers what a copying ingest of the same batch answers."""
+    from repro_torch.dist.shard_index import ShardedVectorIndex
+
+    V = torch.randn((3000, 48), generator=gen, device="cuda")
+    a = ShardedVectorIndex.build_sharded(V, seal_threshold=None,
+                                         device="cuda")
+    a = a.add_documents(torch.randn((100, 48), generator=gen, device="cuda"))
+    assert a.seg_capacity == 100
+    a = a.add_documents(torch.randn((10, 48), generator=gen, device="cuda"))
+    assert a.seg_capacity == 200
+    W = torch.randn((50, 48), generator=gen, device="cuda")
+    copied = a.add_documents(W)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    donated = a.add_documents(W, donate=True)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+    assert donated.seg_vectors.data_ptr() == a.seg_vectors.data_ptr()
+    Q = torch.cat([W[:8], V[:8]])
+    for engine in SHARD_ENGINES:
+        for page in (33, 320):
+            x = donated.search(Q, k=10, page=page, engine=engine)
+            y = copied.search(Q, k=10, page=page, engine=engine)
+            assert torch.equal(x[0], y[0]) and torch.equal(x[1], y[1]), \
+                (engine, page)

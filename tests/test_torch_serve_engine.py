@@ -7,6 +7,7 @@ padded batch bit for bit; a single request equals its unpadded search in
 ids, and in scores to rtol 1e-6.
 """
 
+import dataclasses
 import threading
 import time
 
@@ -352,3 +353,184 @@ def test_unknown_engine_fails_only_its_batch(index, queries):
         assert ids.shape == (5,)
     finally:
         eng.close()
+
+
+# ------------------------------------------- a ShardedVectorIndex behind it
+def _sharded(seed=5, n_docs=23, **kw):
+    from repro_torch.dist.shard_index import ShardedVectorIndex
+
+    rng = np.random.default_rng(seed)
+    V = rng.normal(size=(n_docs, N_FEAT)).astype(np.float32)
+    W = rng.normal(size=(9, N_FEAT)).astype(np.float32)
+    return ShardedVectorIndex.build_sharded(V, device="cpu", **kw), V, W
+
+
+def test_batched_engine_hot_ingest_and_delete():
+    """add_documents serves the new docs to every later batch and returns
+    the first id; delete hides a doc at once; both raise after close."""
+    sidx, V, W = _sharded()
+    eng = BatchedSearchEngine(sidx, batch_size=2, k=3, page=1_000, trim=None,
+                              engine="codes")
+    try:
+        ids0, _ = eng.search(V[0], timeout=60)
+        assert ids0[0] == 0
+        assert eng.add_documents(W) == 23
+        ids1, s1 = eng.search(W[4], timeout=60)
+        assert ids1[0] == 27 and abs(s1[0] - 1) < 1e-5
+        eng.delete([27])
+        ids2, _ = eng.search(W[4], timeout=60)
+        assert 27 not in ids2
+        assert eng.index.n_ids == 32 and eng.index.n_tombstones == 1
+    finally:
+        eng.close()
+    with pytest.raises(RuntimeError, match="closed"):
+        eng.add_documents(W)
+    with pytest.raises(RuntimeError, match="closed"):
+        eng.delete([0])
+
+
+@pytest.mark.parametrize("merge", [None, "gather", "stream"])
+@pytest.mark.parametrize("max_postings", [None, 3, "auto"])
+def test_merge_and_max_postings_reach_a_sharded_index(merge, max_postings):
+    """``merge`` and ``max_postings`` (``"auto"`` included) go to the
+    index as the reference's engine passes them, left out when None, and
+    the served answer is the direct search's."""
+    sidx, V, W = _sharded(seed=6)
+    sidx = sidx.add_documents(W)
+    rec = _RecordingIndex(sidx)
+    eng = BatchedSearchEngine(rec, batch_size=2, k=5, page=16, trim=None,
+                              engine="postings", merge=merge,
+                              max_postings=max_postings)
+    try:
+        ids, scores = eng.submit(V[3]).result(timeout=60)
+    finally:
+        eng.close()
+    (_, kw), = rec.calls
+    assert kw.get("merge") == merge and ("merge" in kw) == (merge is not None)
+    assert kw.get("max_postings") == max_postings
+    padded = np.stack([V[3], np.zeros(N_FEAT, np.float32)])
+    want_i, want_s = sidx.search(torch.from_numpy(padded), k=5, page=16,
+                                 trim=None, engine="postings",
+                                 merge=merge or "gather",
+                                 max_postings=max_postings)
+    assert np.array_equal(ids, want_i[0].numpy())
+    assert np.array_equal(scores, want_s[0].numpy())
+
+
+def test_donate_ingest_skipped_while_the_index_is_served():
+    """donate_ingest donates only while no batch is in flight: an ingest
+    during a batch copies, though a delete made the current index a new
+    object (it still shares the snapshot's active buffer); the next one,
+    with nothing in flight, donates; the answers are a copying ingest's."""
+    from repro_torch.dist.shard_index import ShardedVectorIndex
+
+    calls = []
+    entered, release = threading.Event(), threading.Event()
+
+    class Spy(ShardedVectorIndex):
+        def add_documents(self, vectors, *, donate=False):
+            calls.append(donate)
+            return super().add_documents(vectors, donate=donate)
+
+        def search(self, queries, **kw):
+            entered.set()
+            assert release.wait(timeout=60), "gate never released"
+            return super().search(queries, **kw)
+
+    sidx, V, W = _sharded(seed=7, seal_threshold=None)
+    sidx = Spy(**{f.name: getattr(sidx, f.name)
+                  for f in dataclasses.fields(sidx)}).add_documents(W[:2])
+    calls.clear()
+    eng = BatchedSearchEngine(sidx, batch_size=2, k=3, page=100, trim=None,
+                              engine="codes", donate_ingest=True)
+    try:
+        fut = eng.submit(V[0])
+        assert entered.wait(timeout=60)
+        assert eng._serving is sidx
+        eng.delete([1])        # a new index sharing sidx's active buffer
+        assert eng.index is not sidx
+        assert eng.index.seg_vectors is sidx.seg_vectors
+        before = sidx.seg_live.clone()
+        eng.add_documents(W[2:4])           # the batch in flight reads it
+        assert torch.equal(sidx.seg_live, before)
+        release.set()
+        fut.result(timeout=60)
+        deadline = time.monotonic() + 60
+        while eng.pending and time.monotonic() < deadline:
+            time.sleep(0.005)
+        assert eng._serving is None
+        served = eng.index
+        eng.add_documents(W[4:6])           # nothing in flight: donated
+        assert calls == [False, True]
+        assert eng.index.seg_vectors.data_ptr() == \
+            served.seg_vectors.data_ptr()
+        ids, s = eng.search(W[5], timeout=60)
+    finally:
+        release.set()
+        eng.close()
+    assert ids[0] == 23 + 5 and abs(s[0] - 1) < 1e-5
+    copied = sidx.delete([1]).add_documents(W[2:4]).add_documents(W[4:6])
+    want = copied.search(W[5:6], k=3, page=100, trim=None, engine="codes")
+    assert np.array_equal(ids, want[0][0].numpy())
+
+
+def test_sharded_from_numpy_round_trips_jax_leaves():
+    """interop.sharded_from_numpy carries a JAX ShardedVectorIndex's build
+    leaves across bit for bit; the port's own leaves, segments and
+    counters included, round-trip to the same answers."""
+    import jax.numpy as jnp
+
+    from repro.core import encoding as jenc
+    from repro.dist.shard_index import ShardedVectorIndex as JSharded
+    from repro.launch.mesh import make_shard_mesh
+    from repro_torch import interop
+    from repro_torch.core import RoundingEncoder
+
+    rng = np.random.default_rng(8)
+    V = rng.normal(size=(30, N_FEAT)).astype(np.float32)
+    Q = rng.normal(size=(4, N_FEAT)).astype(np.float32)
+    names = ("vectors", "codes", "post_docs", "post_codes", "offsets",
+             "live")
+    jidx = JSharded.build_sharded(jnp.asarray(V), make_shard_mesh(1),
+                                  encoder=jenc.RoundingEncoder(2))
+    got = interop.sharded_from_numpy(
+        *(np.asarray(getattr(jidx, n)) for n in names), RoundingEncoder(2),
+        jidx.n_docs, jidx.index_best, seal_threshold=jidx.seal_threshold,
+        device="cpu")
+    for n in names:
+        assert np.array_equal(getattr(got, n).numpy(),
+                              np.asarray(getattr(jidx, n))), n
+    assert got.n_ids == jidx.n_ids and got.seg_capacity == 0
+    assert got.max_df == jidx.max_df
+
+    port = got.add_documents(rng.normal(size=(7, N_FEAT)).astype(np.float32))
+    port = port.add_documents(rng.normal(size=(300, N_FEAT))
+                              .astype(np.float32)).delete([1, 31, 40])
+    port = port.add_documents(rng.normal(size=(3, N_FEAT))
+                              .astype(np.float32))
+    assert port.n_segments == 1 and port.n_active == 3
+
+    def arr(t):
+        return t.numpy()
+
+    back = interop.sharded_from_numpy(
+        *(arr(getattr(port, n)) for n in names), RoundingEncoder(2),
+        port.n_docs, port.index_best,
+        seg_vectors=arr(port.seg_vectors), seg_codes=arr(port.seg_codes),
+        seg_gids=arr(port.seg_gids), seg_live=arr(port.seg_live),
+        segments=[(arr(s.vectors), arr(s.codes), arr(s.gids), arr(s.live),
+                   arr(s.post_docs), arr(s.post_codes), s.n_rows,
+                   s.tombstones) for s in port.segments],
+        n_appended=port.n_appended, shard_tombstones=port.shard_tombstones,
+        seal_threshold=port.seal_threshold, seg_base=port.seg_base,
+        active_tombstones=port.active_tombstones, device="cpu")
+    assert (back.n_ids, back.n_segments, back.n_active, back.n_tombstones) \
+        == (port.n_ids, port.n_segments, port.n_active, port.n_tombstones)
+    for engine in ("postings", "fused", "fused_int8"):
+        a = port.search(Q, k=6, page=50, engine=engine)
+        b = back.search(Q, k=6, page=50, engine=engine)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), engine
+    with pytest.raises(ValueError, match="one shard"):
+        interop.sharded_from_numpy(
+            np.zeros((2, 3, N_FEAT), np.float32), *(np.zeros(1),) * 5,
+            RoundingEncoder(2), 6, device="cpu")

@@ -4,16 +4,19 @@
     python3 chip_smoke.py                 # every phase, full size
     python3 chip_smoke.py --phases A      # kernel build + parity only
     python3 chip_smoke.py --phases CF     # the segment lifecycle only
+    python3 chip_smoke.py --phases CG     # the observability plane only
 
 It builds the hand-written kernels from the sources in this checkout (one
 nvcc per library, all started together), holds each against its plain
 PyTorch version on the card, drives the port's search paths at the
 paper's scale -- a 4,181,504 x 400 Wikipedia-shaped index
 (RoundingEncoder(2), int8 codes), trim 0.05, page 320, k 10 -- runs the
-paper's quality pipeline on the card, and takes that index through the
-segment lifecycle (ingest, seal, delete, merge, compact).
+paper's quality pipeline on the card, takes that index through the
+segment lifecycle (ingest, seal, delete, merge, compact), and serves it
+with the observability plane on and off.
 
-Phases, each printing one JSON line (D one per engine, then a summary):
+Phases, each printing one JSON line (D and G one per engine, then a
+summary):
   A  each kernel against its plain version: fused_phase1 (scores
      bit-equal, ids equal where finite), code_match (rtol/atol 1e-5, and
      bit-equal to the match_scores tree) and fused_phase1_quant (scores
@@ -37,8 +40,10 @@ Phases, each printing one JSON line (D one per engine, then a summary):
      rows, served twice: both answers, and two runs of its phase-1
      scores, bit-equal), and ``onehot`` on the first 65,536 rows (32
      rows); one ``fused_int8`` batch under torch.profiler (host time,
-     device busy time and idle share); the same checks, the kernels'
-     launch counts, and each
+     device busy time, idle share and synchronise calls), through
+     ``index.search`` and through a default BatchedSearchEngine, whose
+     synchronise calls must be the index's plus the answers' two copies
+     to the host; the same checks, the kernels' launch counts, and each
      kernel's time, plain time and bound at Q 32; then
      ``bucketize.ops.encode`` of the raw 4,181,504 x 400 rows held to
      ``index.codes`` (the encode_4m cell of
@@ -72,7 +77,32 @@ Phases, each printing one JSON line (D one per engine, then a summary):
      plain versions as in A (fused_phase1 and fused_phase1_quant on the
      base, fused_phase1_quant and code_match on the first sealed segment
      and the active or flat buffer); add, delete, merge and compact
-     seconds, batch latency per stage and peak memory.
+     seconds, batch latency per stage and peak memory.  At 17 generations
+     each engine is served once more with the full observability plane
+     and a profile on every request (as in G): answers bit-equal to the
+     bare pass, and the phase1 node carries base, gen0..gen16 and active,
+     whose candidates add up to its own;
+  G  the observability plane on phase C's index (run after D): ``fused``,
+     ``fused_int8``, ``codes_pallas`` and ``postings`` (128 rows) and
+     ``codes`` (32 rows) each served three times, bare
+     (MetricsRegistry(enabled=False)), with metrics only, and with the
+     full plane (registry, Tracer(sample=1.0, annotate=True),
+     SlowLog(threshold_s=0), CompileWatch) and ``profile=True`` on every
+     request: the three answers bit-equal, every profile tree tiling its
+     root within 1e-6 s, phase1 naming the engine (or ``composed``), the
+     batches' dispatch nodes adding up to the dispatch-latency
+     histogram, submitted = completed = n and no failure, one
+     ``kernel_path`` count a batch, the slow log capturing every request,
+     no kernel build after the warm-up batch, and one
+     ``engine_requests_completed_total`` series of value n; batch latency
+     medians of the three and the profiles' encode / phase1 / rescore
+     split (printed, not gated); then one ``fused_int8`` batch traced
+     through ``index.search``, bare and with the full plane: the bare
+     engine's synchronise calls must be the index's plus the answers'
+     two copies (bare serving adds none), the full plane's the bare
+     engine's plus one fence per profiled phase, and the
+     ``repro.engine.dispatch`` range must enclose every kernel and copy
+     of the full one.
 Then the ``kernels`` line (launches summed over the phases' main paths,
 and by phase; each library's largest ptxas stack frame
 of a kernel: 0 bytes for the code-match scorers, checked), the card's
@@ -115,6 +145,7 @@ F_SEAL = 256                       # the reference's seal_threshold
 F_DELETE_BASE = 2_048              # deletes: base rows, sealed rows, and
 F_DELETE_SEALED = 1_848            # every tail row
 F_ENGINES = ("fused", "fused_int8", "codes_pallas", "postings")
+G_ENGINES = ("fused", "fused_int8", "codes_pallas", "postings", "codes")
 E_DOCS = 262_144                   # phase E corpus, cut from 4,181,352
 E_VOCAB = 100_000                  # gensim make_wiki: keep_n=100000
 E_TOPICS = 400
@@ -619,49 +650,89 @@ def serve_check(index, queries, src, results, ctx) -> dict:
     return {"rank1_share": rank1, "score_max_abs_err": score_err}
 
 
-def serve_engine(index, queries, ctx, reset_peak=True, **engine_kw):
-    """Serve ``queries`` through BatchedSearchEngine in batches of BATCH
-    -> (results, per-batch seconds, peak device bytes)."""
+def make_engine(index, **engine_kw):
     from repro_torch.core import TrimFilter
     from repro_torch.serve import BatchedSearchEngine
 
+    return BatchedSearchEngine(index, batch_size=BATCH, max_wait_s=0.005,
+                               k=K, page=PAGE, trim=TrimFilter(0.05),
+                               **engine_kw)
+
+
+def serve_engine(index, queries, ctx, reset_peak=True, profile=False,
+                 after_first=None, **engine_kw):
+    """Serve ``queries`` through BatchedSearchEngine in batches of BATCH
+    (every request profiled with ``profile``; ``after_first`` called after
+    the first batch) -> (results, per-batch seconds, peak device bytes).
+    The engine is closed, so its counters and traces are final."""
     if reset_peak:
         torch.cuda.reset_peak_memory_stats()
-    engine = BatchedSearchEngine(index, batch_size=BATCH, max_wait_s=0.005,
-                                 k=K, page=PAGE, trim=TrimFilter(0.05),
-                                 **engine_kw)
+    engine = make_engine(index, **engine_kw)
+    kw = {"profile": True} if profile else {}
     batch_s, results = [], []
     try:
         for b in range(0, len(queries), BATCH):
             t = time.monotonic()
-            futs = [engine.submit(q) for q in queries[b:b + BATCH]]
+            futs = [engine.submit(q, **kw) for q in queries[b:b + BATCH]]
             results += [f.result(timeout=600) for f in futs]
             batch_s.append(time.monotonic() - t)
             progress(f"{ctx}: batch {b // BATCH} served in "
                      f"{batch_s[-1]:.3f} s")
+            if b == 0 and after_first is not None:
+                after_first()
     finally:
         engine.close()
     return results, batch_s, torch.cuda.max_memory_allocated()
 
 
-def trace_batch(fn) -> dict:
+def trace_batch(fn, enclose=None) -> dict:
     """One call of ``fn`` under torch.profiler, after one warm call: its
     host-clock time, the device's busy time (the union of its kernels and
-    copies), the idle share of the call, and its three largest kernels'
-    device time."""
+    copies), the idle share of the call, its three largest kernels' device
+    time, and its count of synchronise calls (CUDA runtime calls named
+    ``*Synchronize``).  With ``enclose``, every thread is traced and the
+    call must hold exactly one host range of that name, enclosing every
+    kernel and copy of the call."""
     from torch.profiler import ProfilerActivity, profile
 
+    kw = {}
+    if enclose is not None:
+        from torch._C._profiler import _ExperimentalConfig
+
+        kw["experimental_config"] = _ExperimentalConfig(
+            profile_all_threads=True)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA], **kw) as prof:
         t = time.monotonic()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t) * 1e6
+    events = prof.events()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    # the profiler mirrors a host range onto the device timeline as well
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   for e in events
+                   if e.device_type == cuda and e.name != enclose)
+    syncs = sum(1 for e in events
+                if "Synchronize" in e.name and e.device_type == cpu)
+    enclosed = None
+    if enclose is not None:
+        ranges = [e.time_range for e in events
+                  if e.name == enclose and e.device_type == cpu]
+        check(len(ranges) == 1, f"{len(ranges)} {enclose} ranges in the "
+              "trace, want 1")
+        r = ranges[0]
+        check(bool(spans), "the trace holds no device time")
+        lead = min(s for s, _, _ in spans) - r.start
+        tail = r.end - max(e for _, e, _ in spans)
+        check(lead >= 0 and tail >= 0, f"{enclose} does not enclose the "
+              f"batch's kernels: {lead} us before the first, {tail} us "
+              "after the last")
+        enclosed = {"range": enclose, "device_events": len(spans),
+                    "range_us": r.end - r.start, "lead_us": lead,
+                    "tail_us": tail}
     busy, lo, hi, by_name = 0.0, None, None, {}
     for s, e, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (e - s)
@@ -673,9 +744,30 @@ def trace_batch(fn) -> dict:
     busy += 0.0 if hi is None else hi - lo
     check(busy > 0, "the trace holds no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-    return {"host_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-            "device_idle_share": 1.0 - busy / wall_us,
-            "top_kernels_ms": {name[:60]: us / 1e3 for name, us in top}}
+    out = {"host_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+           "device_idle_share": 1.0 - busy / wall_us,
+           "top_kernels_ms": {name[:60]: us / 1e3 for name, us in top},
+           "sync_calls": syncs}
+    if enclosed is not None:
+        out["enclosing_range"] = enclosed
+    return out
+
+
+def trace_engine_batch(index, qs, profile=False, enclose=None,
+                       **engine_kw) -> tuple:
+    """``trace_batch`` of one batch of ``qs`` served through a new
+    BatchedSearchEngine -> (the trace, the batch's results)."""
+    eng = make_engine(index, **engine_kw)
+    sub = {"profile": True} if profile else {}
+    out = []
+    try:
+        trace = trace_batch(
+            lambda: out.append([f.result(timeout=600) for f in
+                                [eng.submit(q, **sub) for q in qs]]),
+            enclose=enclose)
+    finally:
+        eng.close()
+    return trace, out[-1]
 
 
 def median_after_first(xs):
@@ -883,8 +975,18 @@ def phase_d(gen, index, queries, src, raw_state) -> tuple:
     qs = torch.from_numpy(queries[:BATCH])
     engines["fused_int8"]["trace"] = trace_batch(lambda: index.search(
         qs, k=K, page=PAGE, trim=TrimFilter(0.05), engine="fused_int8"))
+    # the same batch through a default engine: the index's synchronise
+    # calls and the answers' two copies to the host, no more
+    search_syncs = engines["fused_int8"]["trace"]["sync_calls"]
+    eng_trace, _ = trace_engine_batch(index, queries[:BATCH],
+                                      engine="fused_int8")
+    check(eng_trace["sync_calls"] == search_syncs + 2,
+          f"fused_int8: an engine batch made {eng_trace['sync_calls']} "
+          f"synchronise calls, want the index's {search_syncs} + 2")
+    engines["fused_int8"]["trace_engine"] = eng_trace
     emit({"phase": "D", "engine": "fused_int8",
-          "trace": engines["fused_int8"]["trace"]})
+          "trace": engines["fused_int8"]["trace"],
+          "trace_engine": eng_trace})
 
     # index.search with no engine named: postings, exact; served twice,
     # and its phase-1 scores taken twice: each pair bit-equal
@@ -1048,6 +1150,176 @@ def phase_d(gen, index, queries, src, raw_state) -> tuple:
     return summary, kernels
 
 
+def full_plane(n: int) -> dict:
+    """The whole observability plane for ``n`` requests, as engine
+    arguments: a registry, a tracer keeping every trace (annotated), a
+    slow log capturing every request, a build watch."""
+    from repro_torch.obs import CompileWatch, MetricsRegistry, SlowLog, Tracer
+
+    reg = MetricsRegistry()
+    return {"metrics": reg,
+            "tracer": Tracer(capacity=n, sample=1.0, annotate=True),
+            "slowlog": SlowLog(threshold_s=0.0, capacity=n, metrics=reg),
+            "compile_watch": CompileWatch(metrics=reg)}
+
+
+def plane_checks(results, plane, name, n_batches, ctx) -> dict:
+    """The plane's own checks on a profiled run: every tree tiles its root
+    (1e-6 s, the reference's), its phase1 node names the kernel path, the
+    batch's dispatch nodes add up to the dispatch-latency histogram,
+    submitted == completed == n, no failure, one ``kernel_path`` count a
+    batch, the slow log captured every request, no build after the warm-up
+    batch, and one ``engine_requests_completed_total`` series of value n;
+    -> the dispatch children's medians over batches 2.. (ms), and the
+    first batch's phase1 node."""
+    from repro_torch.obs import format_profile_tree, prometheus_text
+
+    n = len(results)
+    reg, watch = plane["metrics"], plane["compile_watch"]
+    kernel = name if name in ("fused", "fused_int8") else "composed"
+    phases, disp_total = {}, 0.0
+    for i, (_, _, tree) in enumerate(results):
+        kids = {c["name"]: c for c in tree["children"]}
+        check(list(kids) == ["queue_wait", "batch_form", "dispatch"],
+              f"{ctx}: tree children {list(kids)}")
+        tiled = sum(c["duration_s"] for c in kids.values())
+        check(abs(tree["duration_s"] - tiled) < 1e-6,
+              f"{ctx}: phases {tiled} s do not tile the root "
+              f"{tree['duration_s']} s")
+        disp = kids["dispatch"]
+        first = results[i - i % BATCH][2]["children"][2]
+        check(disp == first, f"{ctx}: request {i} has its own dispatch node")
+        p1 = [c for c in disp["children"] if c["name"] == "phase1"]
+        check(len(p1) == 1 and p1[0]["attrs"]["kernel"] == kernel,
+              f"{ctx}: phase1 node {p1}")
+        if i % BATCH == 0:
+            disp_total += disp["duration_s"]
+            for c in disp["children"]:
+                phases.setdefault(c["name"], []).append(c["duration_s"])
+    hist = reg.histogram("engine.dispatch.latency_s").snapshot()
+    check(hist["count"] == n_batches
+          and abs(hist["sum"] - disp_total) < 1e-6,
+          f"{ctx}: dispatch nodes {disp_total} s against the histogram's "
+          f"{hist['sum']} s over {hist['count']} batches")
+    req = {k: reg.value(f"engine.requests.{k}")
+           for k in ("submitted", "completed", "failed")}
+    check(req == {"submitted": n, "completed": n, "failed": 0},
+          f"{ctx}: requests {req}")
+    paths = reg.series("engine.kernel_path")
+    check(paths == {f"engine={name}": n_batches},
+          f"{ctx}: kernel_path {paths}, want {n_batches} on {name}")
+    slow = plane["slowlog"].stats()
+    check(slow["captured"] == slow["seen"] == n,
+          f"{ctx}: slow log {slow}")
+    check(watch.compiles_steady_state == 0,
+          f"{ctx}: {watch.compiles_steady_state} builds after warm-up")
+    watch.check()
+    done = [ln for ln in prometheus_text(reg.snapshot()).splitlines()
+            if ln.startswith("repro_engine_requests_completed_total")]
+    check(done == [f"repro_engine_requests_completed_total {n}"],
+          f"{ctx}: exposition {done}")
+    tracer = plane["tracer"].stats()
+    check(tracer["seen"] == tracer["retained"] == n,
+          f"{ctx}: tracer {tracer}")
+    return {"split_ms": {k: median_after_first(v) * 1e3
+                         for k, v in phases.items()},
+            "dispatch_ms": median_after_first(
+                [results[b][2]["children"][2]["duration_s"]
+                 for b in range(0, n, BATCH)]) * 1e3,
+            "builds": watch.compiles_total,
+            "tree": format_profile_tree(results[0][2]).splitlines()}
+
+
+def phase_g(index, queries, src) -> tuple:
+    """The observability plane on phase C's index: each engine served
+    bare, with metrics only, and with the full plane and a profile on
+    every request; answers bit-equal across the three, the plane's checks,
+    and one fused_int8 batch traced three times (``index.search``, a bare
+    engine, the full plane with the ``repro.engine.dispatch`` range around
+    its kernels) with their synchronise calls reconciled; -> (summary
+    line, the kernels' launches)."""
+    from repro_torch.core import TrimFilter
+    from repro_torch.kernels.code_match import kernel as cm_kernel
+    from repro_torch.kernels.fused_phase1 import kernel as fp_kernel
+    from repro_torch.obs import MetricsRegistry
+
+    per = {"fused": {"fused_phase1": fp_kernel.KERNELS_PER_CALL},
+           "fused_int8": {"fused_phase1_quant": fp_kernel.KERNELS_PER_CALL},
+           "codes_pallas": {"code_match": cm_kernel.KERNELS_PER_CALL},
+           "postings": {}, "codes": {}}
+    t_phase = time.monotonic()
+    rows, launches = {}, {}
+    for name in G_ENGINES:
+        qs = queries[:BATCH] if name == "codes" else queries
+        n_b = len(qs) // BATCH
+        reset_launches()
+        bare, bare_s, _ = serve_engine(
+            index, qs, f"G {name} bare", engine=name,
+            metrics=MetricsRegistry(enabled=False))
+        met, met_s, _ = serve_engine(index, qs, f"G {name} metrics",
+                                     engine=name, metrics=MetricsRegistry())
+        plane = full_plane(len(qs))
+        full, full_s, _ = serve_engine(
+            index, qs, f"G {name} full", profile=True,
+            after_first=plane["compile_watch"].mark_steady, engine=name,
+            **plane)
+        got = read_launches()
+        for kname, c in got.items():
+            want = 3 * n_b * per[name].get(kname, 0)
+            check(c == want, f"G {name}: {kname} launched {c} CUDA kernels, "
+                  f"want {want}")
+            launches[kname] = launches.get(kname, 0) + c
+        same = all(np.array_equal(b[0], m[0]) and np.array_equal(b[1], m[1])
+                   and np.array_equal(b[0], f[0])
+                   and np.array_equal(b[1], f[1])
+                   for b, m, f in zip(bare, met, full))
+        check(same, f"G {name}: bare, metrics-only and full-plane answers "
+              "differ")
+        row = {"engine": name, "queries": len(qs),
+               "batch_latency_s_median": {
+                   "bare": median_after_first(bare_s),
+                   "metrics": median_after_first(met_s),
+                   "full_profiled": median_after_first(full_s)},
+               "batch_latency_s": {"bare": bare_s, "metrics": met_s,
+                                   "full_profiled": full_s},
+               "bit_equal": same, "launches": got,
+               **serve_check(index, qs, src[:len(qs)], bare, f"G {name}"),
+               **plane_checks(full, plane, name, n_b, f"G {name}")}
+        rows[name] = row
+        emit({"phase": "G", **row})
+
+    # one fused_int8 batch traced through the index, through a bare
+    # engine and through the full plane: bare serving adds no synchronise
+    # call but the answers' two copies to the host, a profile one fence
+    # for each of its phases
+    qs = queries[:BATCH]
+    traces = {"index_search": trace_batch(lambda: index.search(
+        torch.from_numpy(qs), k=K, page=PAGE, trim=TrimFilter(0.05),
+        engine="fused_int8"))}
+    traces["bare"], _ = trace_engine_batch(
+        index, qs, engine="fused_int8",
+        metrics=MetricsRegistry(enabled=False))
+    traces["full_profiled"], res = trace_engine_batch(
+        index, qs, profile=True, enclose="repro.engine.dispatch",
+        engine="fused_int8", **full_plane(2 * BATCH))
+    syncs = {k: t["sync_calls"] for k, t in traces.items()}
+    check(syncs["bare"] == syncs["index_search"] + 2,
+          f"G: a bare engine batch made {syncs['bare']} synchronise calls, "
+          f"want the index's {syncs['index_search']} + 2")
+    fences = len(res[0][2]["children"][2]["children"])
+    check(syncs["full_profiled"] == syncs["bare"] + fences,
+          f"G: the full plane made {syncs['full_profiled']} synchronise "
+          f"calls, want bare's {syncs['bare']} + {fences} fences")
+    line = {"phase": "G", "n_docs": index.n_docs, "engines": list(rows),
+            "batch_latency_s_median": {n: r["batch_latency_s_median"]
+                                       for n, r in rows.items()},
+            "split_ms": {n: r["split_ms"] for n, r in rows.items()},
+            "trace_fused_int8": traces, "profile_fences": fences,
+            "launches": launches,
+            "phase_s": time.monotonic() - t_phase}
+    return line, launches
+
+
 def f_workload(index):
     """Phase F's seeded data: the appended unit rows on the card, the 128
     queries (64 noisy base rows, 60 noisy sealed rows, 4 noisy tail rows)
@@ -1081,12 +1353,15 @@ def f_workload(index):
 
 
 def f_stage(idx, base, new, queries, src, dead, stage, launches,
-            engines=F_ENGINES) -> tuple:
+            engines=F_ENGINES, plane=False) -> tuple:
     """Serve ``queries`` through every engine of ``engines`` on ``idx``
     and check each answer: no deleted id, every live appended source at
     rank 1 and >= 0.95 of the live base sources, scores within 1e-5 of a
     fresh fp32 cosine, and the kernels launched as the generations
-    predict; -> ({engine: (ids, scores)}, {engine: row of numbers})."""
+    predict; with ``plane``, through the full observability plane with a
+    profile on every request, held to ``plane_checks`` and to a phase1
+    node carrying ``base``, ``gen0``... and ``active`` whose candidates
+    add up; -> ({engine: (ids, scores)}, {engine: row of numbers})."""
     from repro_torch.core.rerank import normalize
     from repro_torch.kernels.code_match import kernel as cm_kernel
     from repro_torch.kernels.fused_phase1 import kernel as fp_kernel
@@ -1108,8 +1383,11 @@ def f_stage(idx, base, new, queries, src, dead, stage, launches,
     dead_t = torch.from_numpy(np.asarray(sorted(dead), np.int64))
     for name in engines:
         reset_launches()
-        results, batch_s, _ = serve_engine(idx, queries, f"F {stage} {name}",
-                                           reset_peak=False, engine=name)
+        obs = full_plane(len(queries)) if plane else {}
+        results, batch_s, _ = serve_engine(
+            idx, queries, f"F {stage} {name}", reset_peak=False,
+            profile=plane, after_first=obs["compile_watch"].mark_steady
+            if plane else None, engine=name, **obs)
         got = read_launches()
         for kname, n in got.items():
             launches[kname] = launches.get(kname, 0) + n
@@ -1147,6 +1425,22 @@ def f_stage(idx, base, new, queries, src, dead, stage, launches,
                       "batch_latency_s": batch_s, "launches": got,
                       "base_rank1_share": base_share,
                       "score_max_abs_err": err}
+        if plane:
+            rows[name].update(plane_checks(results, obs, name, n_batches,
+                                           f"F {stage} {name}"))
+            want_gens = ["base"] + [f"gen{i}" for i in range(idx.n_segments)]
+            want_gens += ["active"] if idx.n_active else []
+            for _, _, tree in results[::BATCH]:
+                (p1,) = [c for c in tree["children"][2]["children"]
+                         if c["name"] == "phase1"]
+                parts = {c["name"]: c["attrs"]["candidates"]
+                         for c in p1["children"] if c["name"] != "group0"}
+                check(list(parts) == want_gens,
+                      f"F {stage} {name}: phase1 children {list(parts)}")
+                check(sum(parts.values()) == p1["attrs"]["candidates"],
+                      f"F {stage} {name}: candidates {parts} do not add up "
+                      f"to {p1['attrs']['candidates']}")
+            rows[name]["candidates"] = parts
     return answers, {"generations": gens, "n_ids": idx.n_ids,
                      "engines": rows}
 
@@ -1320,6 +1614,17 @@ def f_history(index, seal_threshold, new, queries, src, victims,
         answers["ingested"], stages["ingested"] = f_stage(
             idx, index, new, queries, src, (), f"{kind} ingested", launches)
         if seal_threshold is not None:
+            # every engine again with the full plane, profiled: the same
+            # bits as the bare pass
+            plane, stages["ingested"]["plane"] = f_stage(
+                idx, index, new, queries, src, (), f"{kind} ingested plane",
+                launches, plane=True)
+            for name, (ids, scores) in plane.items():
+                check(np.array_equal(ids, answers["ingested"][name][0])
+                      and np.array_equal(scores,
+                                         answers["ingested"][name][1]),
+                      f"F ingested {name}: full plane and bare answers "
+                      "differ")
             # one batch of each fused engine traced at 17 generations
             qs = torch.from_numpy(queries[:BATCH])
             stages["ingested"]["trace"] = {
@@ -1424,6 +1729,11 @@ def phase_f(index) -> tuple:
             "merge_s": seg_info["merge_s"],
             "compact_s": seg_info["compact_s"],
             "batch_latency_s_median": latency,
+            "plane_at_17": {
+                name: {k: row[k] for k in ("batch_latency_s_median",
+                                           "split_ms", "candidates")}
+                for name, row in seg_info["stages"]["ingested"]["plane"]
+                ["engines"].items()},
             "flat": {k: flat_info[k] for k in ("add_s_median", "delete_s",
                                                "compact_s")},
             "launches": launches,
@@ -1582,7 +1892,7 @@ def phase_e() -> tuple:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="ABCDEF")
+    ap.add_argument("--phases", default="ABCDEFG")
     args = ap.parse_args(argv)
 
     src = pathlib.Path(__file__).resolve().parent / "src"
@@ -1666,6 +1976,9 @@ def main(argv=None) -> int:
             summary, kd = phase_d(gen, index, queries, src, raw_state)
             emit(summary)
             by_phase["D"] = {name: k["launches"] for name, k in kd.items()}
+        if "G" in args.phases:
+            line, by_phase["G"] = phase_g(index, queries, src)
+            emit(line)
         if "F" in args.phases:
             line, by_phase["F"] = phase_f(index)
             emit(line)

@@ -30,11 +30,17 @@ Filtering (trim/best) is query-side, choosable per request, with optional
 index-side ``best`` at build time.  The index lives on one device
 (``device``, ``"cuda"`` unless the caller asks for the CPU) and makes
 every tensor there.
+
+``search(profile=node)`` annotates a
+:class:`repro_torch.obs.profile.ProfileNode` with encode / phase1 /
+rescore children, each phase fenced by :func:`profile_phase`; without a
+profile no fence is added.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Tuple
 
 import torch
@@ -49,7 +55,7 @@ from .quantize import QuantizedTable, quantize_table
 from .rerank import brute_force_topk, normalize, rerank_topk, stable_topk
 
 __all__ = ["VectorIndex", "SearchParams", "phase1_engine_scores",
-           "encode_table", "FUSED_ENGINES"]
+           "encode_table", "profile_phase", "FUSED_ENGINES"]
 
 # engines that fuse phase-1 scoring with candidate selection: they return
 # the candidate page directly instead of a (Q, d) score matrix, so they
@@ -79,6 +85,19 @@ def encode_table(vectors: torch.Tensor, encoder: Encoder,
             c = index_best_codes(rows, c, index_best, _SENTINEL[c.dtype])
         parts.append(c)
     return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+def profile_phase(profile, name: str, t0: float, device, **attrs) -> float:
+    """Close one phase of a profiled search: wait for ``device``'s queued
+    work (``torch.cuda.synchronize``; nothing to wait for on the CPU),
+    then add child ``name`` to ``profile`` with the wall seconds since
+    ``t0`` -> the clock read, the next phase's start.  The fence changes
+    when the host observes values, never the values."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    t = time.monotonic()
+    profile.child(name, t - t0, **attrs)
+    return t
 
 
 def phase1_engine_scores(
@@ -217,6 +236,7 @@ class VectorIndex:
         engine: str = "postings",
         weighting: str = "idf",
         max_postings: Optional[int] = None,
+        profile=None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Two-phase search -> (ids (Q,k) int32, cosine scores (Q,k) f32),
         on the index's device.
@@ -225,7 +245,14 @@ class VectorIndex:
         matrix; ``fused_int8`` trades candidate recall for a quarter of
         the phase-1 bytes, and reads no tokens, so trim, best and
         weighting do not apply to it.  ``max_postings`` caps every posting
-        list the ``postings`` engine walks (None: exact)."""
+        list the ``postings`` engine walks (None: exact).
+
+        ``profile`` is an optional
+        :class:`repro_torch.obs.profile.ProfileNode` that receives encode /
+        phase1 / rescore children with host wall times (the JAX package's
+        names and attributes; ``kernel`` is the engine for the fused
+        engines, else ``"composed"``)."""
+        t_prof = time.monotonic() if profile is not None else 0.0
         queries = torch.atleast_2d(torch.as_tensor(
             queries, dtype=torch.float32, device=self.device))
         page = min(page, self.n_docs)
@@ -234,20 +261,36 @@ class VectorIndex:
             from repro_torch.kernels.fused_phase1 import ops as fp_ops
 
             q = normalize(queries)
+            if profile is not None:
+                t_prof = profile_phase(profile, "encode", t_prof,
+                                       self.device, n_queries=q.shape[0])
             qt = self.quantized
             _, cand = fp_ops.fused_phase1_quant(qt.codes, qt.scale, qt.zero,
                                                 q, page=page)
-            return rerank_topk(self.vectors, cand, q, k)
-        q, qcodes, w = self.encode_queries(queries, trim, best, weighting)
-        if engine == "fused":
-            from repro_torch.kernels.fused_phase1 import ops as fp_ops
-
-            _, cand = fp_ops.fused_phase1(self.codes, qcodes, w, page=page)
         else:
-            scores1 = self.phase1_scores(qcodes, w, engine, max_postings)
-            _, cand = stable_topk(scores1, page)
-            del scores1
-        return rerank_topk(self.vectors, cand, q, k)
+            q, qcodes, w = self.encode_queries(queries, trim, best,
+                                               weighting)
+            if profile is not None:
+                t_prof = profile_phase(profile, "encode", t_prof,
+                                       self.device, n_queries=q.shape[0])
+            if engine == "fused":
+                from repro_torch.kernels.fused_phase1 import ops as fp_ops
+
+                _, cand = fp_ops.fused_phase1(self.codes, qcodes, w,
+                                              page=page)
+            else:
+                scores1 = self.phase1_scores(qcodes, w, engine, max_postings)
+                _, cand = stable_topk(scores1, page)
+                del scores1
+        if profile is not None:
+            t_prof = profile_phase(
+                profile, "phase1", t_prof, self.device, engine=engine,
+                kernel=engine if engine in FUSED_ENGINES else "composed",
+                page=page, k=k, candidates=cand.numel())
+        ids, scores = rerank_topk(self.vectors, cand, q, k)
+        if profile is not None:
+            profile_phase(profile, "rescore", t_prof, self.device, k=k)
+        return ids, scores
 
     def shard(self, **kwargs):
         """This index as a one-shard

@@ -57,6 +57,7 @@ live doc can fill report ``(id=-1, score=-inf)``.  idf weighting uses
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -71,7 +72,8 @@ from repro_torch.core.quantize import quantize_table
 from repro_torch.core.rerank import (check_fp32_matmul, normalize,
                                      stable_topk, tree_dot)
 from repro_torch.core.search import (_SENTINEL, FUSED_ENGINES, VectorIndex,
-                                     encode_table, phase1_engine_scores)
+                                     encode_table, phase1_engine_scores,
+                                     profile_phase)
 
 __all__ = ["ShardedVectorIndex", "Segment", "DEFAULT_SEAL_THRESHOLD"]
 
@@ -653,6 +655,7 @@ class ShardedVectorIndex:
         weighting: str = "idf",
         max_postings: "Optional[int | str]" = None,
         merge: str = "gather",
+        profile=None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Two-phase search over base + generations -> (ids (Q, k) int32,
         exact cosine scores (Q, k) f32), on the index's device.
@@ -662,19 +665,31 @@ class ShardedVectorIndex:
         :attr:`max_df`, exact like ``None``.  ``merge`` is the reference's
         transport (``"gather"`` or ``"stream"``); at one shard the stream's
         running top-``k`` is the top-``k`` of the shard's page, so both
-        return the same bits."""
+        return the same bits.
+
+        ``profile`` is an optional
+        :class:`repro_torch.obs.profile.ProfileNode` that receives the
+        reference's children: encode, phase1 (with ``group0``, ``base``,
+        one ``gen{i}`` per sealed segment and ``active``, each with its
+        candidate count: a read of the page's ids to the host, made in
+        profile mode only), merge_select and rescore."""
         if merge not in ("gather", "stream"):
             raise ValueError(f"unknown merge transport {merge!r}")
+        t_prof = time.monotonic() if profile is not None else 0.0
         q = torch.atleast_2d(torch.as_tensor(queries, dtype=torch.float32,
                                              device=self.device))
         page = min(page, self.n_ids)
         k = min(k, page)
         page_loc = min(page, self.docs_per_shard + self.seg_capacity
                        + sum(s.width for s in self.segments))
+        n_q = q.shape[0]
         q = normalize(q)
         qcodes = self.encoder.encode(q)
         mask = expand_mask(feature_mask(q, trim=trim, best=best),
                            qcodes.shape[-1])
+        if profile is not None:
+            t_prof = profile_phase(profile, "encode", t_prof, self.device,
+                                   n_queries=n_q, groups=1)
         if max_postings == "auto":
             max_postings = max(1, self.max_df)
         L = (self.docs_per_shard if max_postings is None
@@ -684,7 +699,37 @@ class ShardedVectorIndex:
         if merge == "stream":
             _, pos = stable_topk(s2, k)
             gid, s2, cvec = _take(pos, gid, s2, cvec)
-        return _merge_phase(gid, s2, cvec, q, k)
+        if profile is None:
+            return _merge_phase(gid, s2, cvec, q, k)
+        profile_phase(profile, "phase1", t_prof, self.device, engine=engine,
+                      kernel=engine if engine in FUSED_ENGINES
+                      else "composed", page=page, page_loc=page_loc, k=k,
+                      merge=merge)
+        self._count_candidates(profile.children[-1], gid, n_q)
+        return _merge_phase(gid, s2, cvec, q, k, profile=profile,
+                            generations=len(self.segments) + int(
+                                bool(self.n_appended and self.seg_capacity)))
+
+    def _count_candidates(self, node, gid, n_q) -> None:
+        """The phase1 node's candidate counts, as the reference takes them:
+        the page's ids read to the host, split by membership into the
+        base, each sealed segment and the active buffer."""
+        node.child("group0", n_queries=n_q)
+        gh = gid.cpu().numpy()
+        valid = gh[gh >= 0]
+        node.attrs["candidates"] = int(valid.size)
+        node.child("base", rows=self.n_docs,
+                   candidates=int((valid < self.n_docs).sum()))
+        appended = valid[valid >= self.n_docs]
+        for gi, seg in enumerate(self.segments):
+            sg = seg.gids.cpu().numpy().ravel()
+            node.child(f"gen{gi}", rows=seg.n_rows, tombstones=seg.tombstones,
+                       candidates=int(np.isin(appended, sg[sg >= 0]).sum()))
+        if self.seg_capacity and self.n_active:
+            ag = self.seg_gids.cpu().numpy().ravel()
+            node.child("active", rows=self.n_active,
+                       tombstones=self.active_tombstones,
+                       candidates=int(np.isin(appended, ag[ag >= 0]).sum()))
 
     def _generations(self) -> List[Tuple[torch.Tensor, ...]]:
         """(vectors, codes, gids, live) of each generation, (W, .) each:
@@ -816,13 +861,18 @@ def _take(pos, gid, s2, cvec):
             torch.gather(cvec, 1, pos[..., None].expand(-1, -1, n)))
 
 
-def _merge_phase(gid, s2, cvec, q, k):
+def _merge_phase(gid, s2, cvec, q, k, profile=None, generations=0):
     """Stable top-``k`` over the page's exact cosines, then the reported
     scores from the (Q, k, n) einsum of ``exact_scores``; slots whose
-    score is -inf report (id=-1, score=-inf)."""
+    score is -inf report (id=-1, score=-inf).  With a ``profile`` the two
+    steps are its ``merge_select`` and ``rescore`` children."""
+    t_prof = time.monotonic() if profile is not None else 0.0
     top_s, pos = stable_topk(s2, k)
     top_ids, _, hits = _take(pos, gid, s2, cvec)
     top_ids = top_ids.masked_fill(torch.isneginf(top_s), -1)
+    if profile is not None:
+        t_prof = profile_phase(profile, "merge_select", t_prof, q.device,
+                               k=k, generations=generations)
     check_fp32_matmul(hits)
     scores = torch.einsum("qkn,qn->qk", hits, q)
     scores = scores.masked_fill(top_ids < 0, _NEG_INF)
@@ -831,6 +881,8 @@ def _merge_phase(gid, s2, cvec, q, k):
         top_ids = torch.nn.functional.pad(top_ids, (0, short), value=-1)
         scores = torch.nn.functional.pad(scores, (0, short),
                                          value=_NEG_INF)
+    if profile is not None:
+        profile_phase(profile, "rescore", t_prof, q.device, k=k)
     return top_ids, scores
 
 

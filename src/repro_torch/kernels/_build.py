@@ -10,7 +10,10 @@ The library is built at first use, for ``sm_90a``, into
 flags.  A library's ``sources`` name every file it is built from, the
 ``.cuh`` headers its ``.cu`` files include as well: the hash covers them
 all, so an edit to a shared header rebuilds every library that includes
-it.  Libraries of different names build in parallel.  Nothing here runs
+it.  Libraries of different names build in parallel.  Each build's wall
+seconds go to the callables in ``build_listeners``, on the building
+thread (the build watch of :mod:`repro_torch.obs.compile_watch` is one);
+loading a library that is already built calls none.  Nothing here runs
 when a module is imported.
 """
 
@@ -22,12 +25,13 @@ import os
 import pathlib
 import subprocess
 import threading
-from typing import Callable, Dict, Optional, Sequence, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "build_dir", "load_library", "row_stride",
-           "mma_row_stride", "launch_sizes", "smem_optin",
+__all__ = ["NVCC_FLAGS", "build_dir", "load_library", "build_listeners",
+           "row_stride", "mma_row_stride", "launch_sizes", "smem_optin",
            "check_code_inputs", "THREADS", "STAGE_BYTES", "MAX_COLUMNS"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -44,6 +48,9 @@ _REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 _lock = threading.Lock()
 _name_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
+
+# fn(name, seconds), called after each nvcc build that succeeded
+build_listeners: List[Callable[[str, float], None]] = []
 
 
 def build_dir() -> pathlib.Path:
@@ -79,13 +86,17 @@ def load_library(name: str, sources: Sequence[pathlib.Path]) -> ctypes.CDLL:
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                    *[str(s) for s in sources if str(s).endswith(".cu")]]
+            t0 = time.monotonic()
             proc = subprocess.run(cmd, capture_output=True, text=True)
+            seconds = time.monotonic() - t0
             (out_dir / f"{name}.log").write_text(
                 " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {name}:\n"
                                    f"{proc.stdout}{proc.stderr}")
             os.replace(tmp, so)
+            for fn in list(build_listeners):
+                fn(name, seconds)
         _libs[name] = ctypes.CDLL(str(so))
         return _libs[name]
 

@@ -1,0 +1,221 @@
+"""ES ``_stats``/``_cat``-style snapshot assembly, host part.
+
+One function per serving layer, each returning a plain nested dict (JSON-
+ready, the shape ES returns from ``GET <index>/_stats`` / ``_cat``
+endpoints).  ``BatchedSearchEngine.stats()`` exposes them, but the
+assembly lives here so the serving class carries no formatting code and
+the obs package owns the schema -- the JAX package's schema, key for key,
+but for the static-cost rollup of its compile section (XLA's cost model
+has no counterpart here yet).
+
+What maps where:
+
+* :func:`index_stats` -- ES ``_stats/docs,segments``: doc counts,
+  per-generation segment rows/tombstones/deleted ratios (the tiered
+  merge policy's inputs), active-buffer occupancy, per-shard tombstones,
+  tombstone ratio (the full-compact trigger).
+  :func:`format_segments_line` renders it ``_cat/segments``-style.
+* :func:`engine_stats` -- ES ``_cat/thread_pool`` + node stats for one
+  batcher: queue depth, in-flight, batch occupancy, queue-wait and
+  dispatch-latency histograms, request, ingest and kernel-path counters,
+  and the slow-log and build-watch sections.
+* :func:`format_stats_line` renders an engine (or a cluster rollup)
+  dict as one ``_cat`` line.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+__all__ = ["index_stats", "engine_stats", "format_stats_line",
+           "format_segments_line"]
+
+
+def _hist(registry, name: str, **labels) -> dict:
+    return registry.histogram(name, **labels).snapshot()
+
+
+def _kernel_mix(registry, labels: dict) -> dict:
+    """Dispatch counts per phase-1 path for ONE batcher, parsed from
+    the ``engine.kernel_path`` series (labelled ``engine=<name>`` plus
+    the batcher's own labels).  A fleet registry holds every batcher's
+    series; filtering on the non-engine labels keeps each group's mix
+    its own."""
+    want = {k: str(v) for k, v in labels.items()}
+    out: dict = {}
+    for label_str, v in registry.series("engine.kernel_path").items():
+        kv = dict(part.split("=", 1) for part in label_str.split(",") if part)
+        eng = kv.pop("engine", None)
+        if eng is None or kv != want:
+            continue
+        out[eng] = out.get(eng, 0) + v
+    return out
+
+
+def _compile_stats(watch) -> dict:
+    """The build-watch section, without the (possibly long) event list
+    -- stats lines want the totals; ``watch.stats()`` has the rest."""
+    s = watch.stats()
+    return {k: s[k] for k in ("compiles_total", "compiles_steady_state",
+                              "steady", "signatures", "by_function")}
+
+
+def index_stats(index) -> dict:
+    """Docs/segments section for any served index (plain VectorIndex
+    reports what it has; a sharded index reports the full ES segment
+    story).  Attribute-guarded: works through wrappers that proxy
+    attributes."""
+    out = {"n_ids": int(getattr(index, "n_ids", getattr(index, "n_docs", 0)))}
+    for name in ("n_docs", "n_shards", "n_replicas", "n_appended",
+                 "seg_capacity"):
+        v = getattr(index, name, None)
+        if v is not None:
+            out[name] = int(v)
+    tombs = getattr(index, "shard_tombstones", None)
+    if tombs is not None:
+        out["shard_tombstones"] = tuple(int(t) for t in tombs)
+        out["n_tombstones"] = int(getattr(index, "n_tombstones", sum(tombs)))
+        out["tombstone_ratio"] = float(getattr(index, "tombstone_ratio", 0.0))
+    segs = getattr(index, "segments", None)
+    if segs is not None:
+        # the _cat/segments view: per-generation doc/tombstone counts --
+        # the per-segment deleted ratios are what the tiered merge policy
+        # consults (the whole-index tombstone_ratio can't see which
+        # generation the deletes hit)
+        out["n_segments"] = len(segs)
+        out["segments"] = [
+            {"rows": int(s.n_rows), "width": int(s.width),
+             "tombstones": int(s.tombstones),
+             "deleted_ratio": float(s.deleted_ratio)}
+            for s in segs]
+        for name in ("n_active", "seg_base", "active_tombstones",
+                     "n_reclaimed"):
+            v = getattr(index, name, None)
+            if v is not None:
+                out[name] = int(v)
+    seq = getattr(index, "translog_seq", None)
+    if seq is not None:
+        out["translog_seq"] = int(seq)
+    return out
+
+
+def engine_stats(engine) -> dict:
+    """One batcher's thread-pool view: queue/in-flight depths, request
+    counters, occupancy + latency histograms, the served index's doc
+    stats."""
+    reg, labels = engine.metrics, engine._metric_labels
+    with engine._lock:
+        queue_depth = len(engine._queue)
+        inflight = engine._inflight
+        index = engine.index
+    # the full dispatch mix, not just this batcher's configured engine:
+    # a batcher reconfigured mid-life (or sharing a registry with its
+    # past self) reports every path it ever took, zero-seeded with the
+    # current one so the mix is never empty
+    mix = _kernel_mix(reg, labels)
+    mix.setdefault(engine.engine, 0)
+    out = {
+        "queue_depth": queue_depth,
+        "in_flight": inflight,
+        "pending": queue_depth + inflight,
+        "batch_size": engine.batch_size,
+        "max_wait_s": engine.max_wait_s,
+        "requests": {
+            "submitted": reg.value("engine.requests.submitted", **labels),
+            "completed": reg.value("engine.requests.completed", **labels),
+            "failed": reg.value("engine.requests.failed", **labels),
+        },
+        "batches": _hist(reg, "engine.batch.occupancy", **labels),
+        "queue_wait_s": _hist(reg, "engine.queue.wait_s", **labels),
+        "dispatch_latency_s": _hist(reg, "engine.dispatch.latency_s",
+                                    **labels),
+        "ingest": {
+            "added_docs": reg.value("engine.ingest.added_docs", **labels),
+            "delete_ops": reg.value("engine.ingest.delete_ops", **labels),
+            "swaps": reg.value("engine.swaps", **labels),
+        },
+        # dispatches by phase-1 path (labelled by engine name) -- the
+        # fused-kernel rollout gauge: a mixed fleet shows its
+        # fused/composed split here
+        "kernel_path": mix,
+        "index": index_stats(index),
+    }
+    slowlog = getattr(engine, "slowlog", None)
+    if slowlog is not None:
+        out["slowlog"] = slowlog.stats()
+    watch = getattr(engine, "compile_watch", None)
+    if watch is not None:
+        out["compile"] = _compile_stats(watch)
+    return out
+
+
+def _ms(v: Optional[float]) -> str:
+    if v is None or (isinstance(v, float) and math.isnan(v)):
+        return "-"
+    if math.isinf(v):
+        return "inf"
+    return f"{v * 1e3:.1f}ms"
+
+
+def format_segments_line(stats: dict) -> str:
+    """One ``_cat/segments``-style line from an :func:`index_stats` dict:
+    base docs, then each sealed generation as ``rows-tombstones``, then
+    the active buffer -- the operator's glanceable view of the segment
+    story (``seg`` entries read ``rows(-dead)``)."""
+    base = stats.get("n_docs", stats.get("n_ids", 0))
+    parts = [f"segments base={base}"]
+    for i, s in enumerate(stats.get("segments", ())):
+        dead = f"-{s['tombstones']}" if s["tombstones"] else ""
+        parts.append(f"seg{i}={s['rows']}{dead}")
+    if stats.get("n_active"):
+        dead = stats.get("active_tombstones", 0)
+        parts.append(f"active={stats['n_active']}"
+                     + (f"-{dead}" if dead else ""))
+    if stats.get("n_reclaimed"):
+        parts.append(f"reclaimed={stats['n_reclaimed']}")
+    if stats.get("n_tombstones"):
+        parts.append(f"tombstones={stats['n_tombstones']}")
+    return " ".join(parts)
+
+
+def _kernel_field(mix: dict) -> str:
+    """``kernel=codes:5/fused:3`` -- the fused/composed dispatch mix,
+    sorted by path name so the rendering is deterministic."""
+    return "/".join(f"{k}:{v}" for k, v in sorted(mix.items())) or "-"
+
+
+def format_stats_line(stats: dict) -> str:
+    """One compact ``_cat``-style line from a cluster OR engine stats
+    dict (the ``--stats-interval`` periodic printer)."""
+    if "groups" in stats:                      # cluster rollup
+        req = stats["requests"]
+        waits = [g["queue_wait_s"] for g in stats["groups"].values()]
+        disp = [g["dispatch_latency_s"] for g in stats["groups"].values()]
+        pend = sum(g["pending"] for g in stats["groups"].values())
+        up = sum(1 for g in stats["groups"].values()
+                 if g["health"] == "up")
+        p99s = [h["p99"] for h in disp if h["p99"] is not None]
+        w50s = [h["p50"] for h in waits if h["p50"] is not None]
+        mix: dict = {}
+        for g in stats["groups"].values():
+            for eng, v in g.get("kernel_path", {}).items():
+                mix[eng] = mix.get(eng, 0) + v
+        return (f"stats groups={up}/{stats['n_groups']}up "
+                f"pending={pend} "
+                f"done={req['completed']}/{req['submitted']} "
+                f"failed={req['failed']} "
+                f"spills={stats['routing']['spills']} "
+                f"resubmits={stats['routing']['failover_resubmits']} "
+                f"kernel={_kernel_field(mix)} "
+                f"wait_p50={_ms(max(w50s) if w50s else None)} "
+                f"dispatch_p99={_ms(max(p99s) if p99s else None)}")
+    req = stats["requests"]                    # single engine
+    occ = stats["batches"]["p50"]
+    return (f"stats pending={stats['pending']} "
+            f"done={req['completed']}/{req['submitted']} "
+            f"failed={req['failed']} "
+            f"occupancy_p50={'-' if occ is None else format(occ, '.2f')} "
+            f"kernel={_kernel_field(stats.get('kernel_path', {}))} "
+            f"wait_p50={_ms(stats['queue_wait_s']['p50'])} "
+            f"dispatch_p99={_ms(stats['dispatch_latency_s']['p99'])}")

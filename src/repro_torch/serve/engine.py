@@ -26,6 +26,23 @@ worker keeps serving; ``close`` drains everything already queued.
 ``swap_index(new, expected=old)`` is a compare-and-swap of the served
 index (a batch in flight finishes on its snapshot), and ``pending``
 (queued + in-flight) is a router's load signal.
+
+**Observability** (:mod:`repro_torch.obs`), as the reference threads it:
+request counters, batch occupancy, queue wait, dispatch latency, the
+``engine.kernel_path`` counter and the ingest series go to a
+:class:`~repro_torch.obs.metrics.MetricsRegistry` (labelled ``group=g``
+when the engine fronts one replica group); ``queue_wait`` /
+``batch_form`` / ``dispatch`` spans go to the request's
+:class:`~repro_torch.obs.tracing.Trace` (from ``tracer`` / ``slowlog``)
+before its future resolves; ``submit(..., profile=True)`` resolves to
+``(ids, scores, profile_dict)``, a per-request root over the batch's one
+shared ``dispatch`` node, its three phases cut from shared clock reads
+so they tile the root; the dispatch, ingest and delete run in
+``compile_watch`` regions, and the dispatch in a
+``torch.profiler.record_function`` range when the tracer annotates.
+All of it is host-side: the answers are bit-identical with the plane on
+or off, and a request without a profile adds no device synchronisation.
+``stats()`` is the ES ``_cat/thread_pool`` view of this engine.
 """
 
 from __future__ import annotations
@@ -40,8 +57,25 @@ import numpy as np
 import torch
 
 from repro_torch.core import TrimFilter
+from repro_torch.obs.compile_watch import active_watch
+from repro_torch.obs.metrics import default_registry
+from repro_torch.obs.profile import ProfileNode
+from repro_torch.obs.slowlog import start_request_trace
+from repro_torch.obs.tracing import annotation
 
 __all__ = ["BatchedSearchEngine"]
+
+
+def _accepts_profile(index) -> bool:
+    """Whether ``index.search`` takes the ``profile`` argument (the engine
+    serves anything with a ``search``; ``**kwargs`` wrappers count -- they
+    forward to an index that does)."""
+    try:
+        params = inspect.signature(index.search).parameters
+    except (TypeError, ValueError):
+        return False
+    return "profile" in params or any(
+        p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values())
 
 
 class BatchedSearchEngine:
@@ -56,7 +90,12 @@ class BatchedSearchEngine:
         engine: str = "codes",
         merge: Optional[str] = None,
         max_postings: "Optional[int | str]" = None,
+        metrics=None,
+        tracer=None,
+        group: Optional[int] = None,
         donate_ingest: bool = False,
+        slowlog=None,
+        compile_watch=None,
     ):
         self.index = index
         self.batch_size = batch_size
@@ -67,27 +106,65 @@ class BatchedSearchEngine:
         self.max_postings = max_postings
         self.donate_ingest = donate_ingest
         self._serving = None               # the in-flight batch's snapshot
+        self.metrics = metrics if metrics is not None else default_registry()
+        self.tracer = tracer
+        self.slowlog = slowlog
+        self.compile_watch = (compile_watch if compile_watch is not None
+                              else active_watch())
+        self.group = group
+        self._metric_labels = {} if group is None else {"group": group}
+        lb = self._metric_labels
+        self._c_submitted = self.metrics.counter(
+            "engine.requests.submitted", **lb)
+        self._c_completed = self.metrics.counter(
+            "engine.requests.completed", **lb)
+        self._c_failed = self.metrics.counter("engine.requests.failed", **lb)
+        self._h_occupancy = self.metrics.histogram(
+            "engine.batch.occupancy", **lb)
+        self._h_wait = self.metrics.histogram("engine.queue.wait_s", **lb)
+        self._h_dispatch = self.metrics.histogram(
+            "engine.dispatch.latency_s", **lb)
+        self._c_kernel_path = self.metrics.counter(
+            "engine.kernel_path", engine=self.engine, **lb)
         self._lock = threading.Condition()
-        self._queue: List[tuple] = []      # (query, future, enqueue time)
+        # (query, future, enqueue time, trace, want profile)
+        self._queue: List[tuple] = []
         self._stop = False
         self._inflight = 0
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
 
     # ------------------------------------------------------------------ API
-    def submit(self, query_vec) -> Future:
-        """Queue one query -> Future of (ids, scores) numpy arrays."""
+    def submit(self, query_vec, trace=None, profile: bool = False) -> Future:
+        """Queue one query -> Future of (ids, scores) numpy arrays, or of
+        (ids, scores, profile_dict) with ``profile=True``.  ``trace`` is an
+        optional :class:`~repro_torch.obs.tracing.Trace` the worker
+        appends its spans to; without one, an engine with a ``tracer`` or
+        ``slowlog`` admits its own and finishes it when the future
+        resolves."""
         fut: Future = Future()
+        if trace is None and (self.tracer is not None
+                              or self.slowlog is not None):
+            trace = start_request_trace(self.tracer, self.slowlog, "query")
+            if trace:
+                t = trace
+                fut.add_done_callback(
+                    lambda f: t.finish(
+                        error=None if f.cancelled() or f.exception()
+                        is None else repr(f.exception())))
         with self._lock:
             if self._stop:
                 raise RuntimeError("engine closed")
             self._queue.append((np.asarray(query_vec, np.float32), fut,
-                                time.monotonic()))
+                                time.monotonic(), trace, profile))
             self._lock.notify()
+        self._c_submitted.inc()
         return fut
 
-    def search(self, query_vec, timeout: float = 10.0):
-        return self.submit(query_vec).result(timeout=timeout)
+    def search(self, query_vec, timeout: float = 10.0,
+               profile: bool = False):
+        return self.submit(query_vec, profile=profile).result(
+            timeout=timeout)
 
     @property
     def pending(self) -> int:
@@ -111,8 +188,18 @@ class BatchedSearchEngine:
             first_id = self.index.n_ids
             donate = (self.donate_ingest and self._serving is None
                       and "donate" in inspect.signature(add).parameters)
-            self.index = (add(vectors, donate=True) if donate
-                          else add(vectors))
+            t0 = time.monotonic()
+            with self.compile_watch.region("engine.ingest",
+                                           sig=(tuple(np.shape(vectors)),)):
+                self.index = (add(vectors, donate=True) if donate
+                              else add(vectors))
+            latency = time.monotonic() - t0
+        # the stall submits see: measured inside the lock
+        self.metrics.histogram("engine.ingest.latency_s",
+                               **self._metric_labels).observe(latency)
+        self.metrics.counter("engine.ingest.added_docs",
+                             **self._metric_labels).inc(
+            int(np.shape(vectors)[0]))
         return first_id
 
     def delete(self, ids) -> None:
@@ -126,7 +213,15 @@ class BatchedSearchEngine:
                 raise TypeError(
                     f"{type(self.index).__name__} does not support deletes; "
                     "serve a ShardedVectorIndex")
-            self.index = delete(ids)
+            t0 = time.monotonic()
+            with self.compile_watch.region(
+                    "engine.delete", sig=(torch.as_tensor(ids).numel(),)):
+                self.index = delete(ids)
+            latency = time.monotonic() - t0
+        self.metrics.histogram("engine.ingest.latency_s",
+                               **self._metric_labels).observe(latency)
+        self.metrics.counter("engine.ingest.delete_ops",
+                             **self._metric_labels).inc()
 
     def swap_index(self, new_index, expected=None) -> bool:
         """Atomically replace the served index.  With ``expected`` this is
@@ -138,7 +233,19 @@ class BatchedSearchEngine:
             if expected is not None and self.index is not expected:
                 return False
             self.index = new_index
+        self.metrics.counter("engine.swaps", **self._metric_labels).inc()
         return True
+
+    def stats(self) -> dict:
+        """ES ``_cat/thread_pool``-style snapshot of this engine: queue
+        depth, in-flight count, request counters, occupancy, queue-wait
+        and dispatch-latency histograms, ingest counters, kernel-path mix,
+        the served index's doc/segment stats, and the slow-log and
+        build-watch sections (:func:`repro_torch.obs.stats.engine_stats`).
+        """
+        from repro_torch.obs.stats import engine_stats
+
+        return engine_stats(self)
 
     def close(self):
         with self._lock:
@@ -149,7 +256,8 @@ class BatchedSearchEngine:
     # --------------------------------------------------------------- worker
     def _next_batch(self):
         """Wait for a full batch, or for the oldest request's deadline;
-        -> (batch, index snapshot), or None once closed and drained."""
+        -> (batch, index snapshot, dequeue time), or None once closed and
+        drained."""
         with self._lock:
             while len(self._queue) < self.batch_size and not self._stop:
                 now = time.monotonic()
@@ -162,49 +270,119 @@ class BatchedSearchEngine:
                     self._lock.wait(timeout=self.max_wait_s)
             if self._stop and not self._queue:
                 return None
+            t_deq = time.monotonic()
             batch = self._queue[: self.batch_size]
             del self._queue[: len(batch)]
             # a hot swap after this point applies to the NEXT batch; a
             # donating ingest must not write into the snapshot's buffers
             self._inflight = len(batch)
             self._serving = self.index if batch else None
-            return batch, self.index
+            return batch, self.index, t_deq
 
-    def _search(self, index, batch):
+    def _padded(self, batch) -> np.ndarray:
         qs = np.stack([it[0] for it in batch])
         pad = self.batch_size - qs.shape[0]
         if pad:
             qs = np.concatenate([qs, np.zeros((pad, qs.shape[1]), qs.dtype)])
+        return qs
+
+    def _search(self, index, qs, profile=None):
         kwargs = {"merge": self.merge} if self.merge else {}
         if self.max_postings is not None:
             kwargs["max_postings"] = self.max_postings
-        # the index puts the batch on its own device
-        ids, scores = index.search(
-            torch.from_numpy(qs), k=self.k, page=self.page, trim=self.trim,
-            engine=self.engine, **kwargs)
-        return np.asarray(torch.as_tensor(ids).cpu()), \
-            np.asarray(torch.as_tensor(scores).cpu())
+        if profile is not None:
+            kwargs["profile"] = profile
+        with annotation("repro.engine.dispatch",
+                        self.tracer is not None and self.tracer.annotate):
+            # the dtype itself, not its str(): numpy builds that string in
+            # Python on every call, and the watch stringifies a signature
+            # only when it records a build
+            with self.compile_watch.region(
+                    "engine.dispatch",
+                    sig=(qs.shape, qs.dtype, self.engine, self.k,
+                         self.page, self.merge or "gather")):
+                # the index puts the batch on its own device
+                ids, scores = index.search(
+                    torch.from_numpy(qs), k=self.k, page=self.page,
+                    trim=self.trim, engine=self.engine, **kwargs)
+                return (np.asarray(torch.as_tensor(ids).cpu()),
+                        np.asarray(torch.as_tensor(scores).cpu()))
 
     def _run(self):
         while True:
             got = self._next_batch()
             if got is None:
                 return
-            batch, index = got
+            batch, index, t_deq = got
             if not batch:
                 continue
+            # one t_deq for the whole batch: every wait below is
+            # (t_deq - enqueue), the same clock read
+            self._h_wait.observe_many([t_deq - it[2] for it in batch])
+            self._h_occupancy.observe(len(batch) / self.batch_size)
             try:
+                error = prof = None
+                t_dispatch = t_deq        # overwritten once the batch is built
                 # a failing search fails only this batch's futures
                 try:
-                    ids, scores = self._search(index, batch)
+                    qs = self._padded(batch)
+                    if any(it[4] for it in batch):
+                        # ONE dispatch node shared by every profiled
+                        # request of the batch; the index annotates its
+                        # phases into it when it takes a profile
+                        prof = ProfileNode(
+                            "dispatch", batch_size=len(batch),
+                            engine=self.engine, k=self.k, page=self.page,
+                            **self._metric_labels)
+                    t_dispatch = time.monotonic()
+                    ids, scores = self._search(
+                        index, qs, prof if prof is not None
+                        and _accepts_profile(index) else None)
                 except Exception as exc:  # noqa: BLE001 - fwd to futures
-                    for _, fut, _ in batch:
+                    t_done = time.monotonic()
+                    error = exc
+                else:
+                    t_done = time.monotonic()
+                    if prof is not None:
+                        prof.duration_s = t_done - t_dispatch
+                self._h_dispatch.observe(t_done - t_dispatch)
+                # spans before futures: resolving one finishes its trace,
+                # and the slow log serializes the spans at finish
+                for _, _, t_enq, tr, _ in batch:
+                    if not tr:
+                        continue
+                    tr.span("queue_wait", t0=t_enq, t1=t_deq,
+                            group=self.group)
+                    tr.span("batch_form", t0=t_deq, t1=t_dispatch,
+                            batch_size=len(batch), group=self.group)
+                    tr.span("dispatch", t0=t_dispatch, t1=t_done,
+                            group=self.group, batch_size=len(batch),
+                            **({} if error is None
+                               else {"error": repr(error)}))
+                if error is not None:
+                    for _, fut, _, _, _ in batch:
                         if not fut.done():
-                            fut.set_exception(exc)
+                            fut.set_exception(error)
+                    self._c_failed.inc(len(batch))
                     continue
-                for i, (_, fut, _) in enumerate(batch):
-                    if not fut.done():      # caller may have cancelled
+                for i, (_, fut, t_enq, _, want) in enumerate(batch):
+                    if fut.done():          # caller may have cancelled
+                        continue
+                    if want:
+                        # shared clock reads: queue_wait + batch_form +
+                        # dispatch tile the root
+                        root = ProfileNode(
+                            "query", t_done - t_enq, engine=self.engine,
+                            k=self.k, page=self.page, **self._metric_labels)
+                        root.child("queue_wait", t_deq - t_enq)
+                        root.child("batch_form", t_dispatch - t_deq,
+                                   batch_size=len(batch))
+                        root.children.append(prof)
+                        fut.set_result((ids[i], scores[i], root.to_dict()))
+                    else:
                         fut.set_result((ids[i], scores[i]))
+                self._c_completed.inc(len(batch))
+                self._c_kernel_path.inc()       # one dispatch on `engine`
             finally:
                 with self._lock:
                     self._inflight = 0

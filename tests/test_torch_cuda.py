@@ -690,3 +690,62 @@ def test_donated_ingest_allocates_nothing_on_card(gen):
             y = copied.search(Q, k=10, page=page, engine=engine)
             assert torch.equal(x[0], y[0]) and torch.equal(x[1], y[1]), \
                 (engine, page)
+
+
+# ------------------------------------------------- the obs plane on the card
+@pytest.mark.parametrize("engine", ["fused", "fused_int8"])
+def test_full_plane_bit_parity_on_card(gen, engine):
+    """Metrics, tracer, slow log, build watch and ``profile=True`` give
+    the bare engine's answers bit for bit, on a flat index and on a
+    segmented one with tombstones; every tree tiles its root and names
+    the kernel, and the segmented phase1 node's counts add up."""
+    from repro_torch.core import VectorIndex
+    from repro_torch.dist.shard_index import ShardedVectorIndex
+    from repro_torch.obs import (CompileWatch, MetricsRegistry, SlowLog,
+                                 Tracer)
+    from repro_torch.serve import BatchedSearchEngine
+
+    V = torch.randn((20000, 48), generator=gen, device="cuda")
+    flat = VectorIndex.build(V, device="cuda")
+    seg = ShardedVectorIndex.build_sharded(V, seal_threshold=256,
+                                           device="cuda")
+    for rows in (300, 300, 50):              # gen0, gen1, active
+        seg = seg.add_documents(torch.randn((rows, 48), generator=gen,
+                                            device="cuda"))
+    seg = seg.delete(np.array([5, 20001, 20640]))
+    Q = (V[:64] + 0.01 * torch.randn((64, 48), generator=gen,
+                                     device="cuda")).cpu().numpy()
+    kw = dict(batch_size=16, k=10, page=320, engine=engine)
+    for index, gens in ((flat, None), (seg, ["gen0", "gen1"])):
+        reg = MetricsRegistry()
+        off = MetricsRegistry(enabled=False)
+        bare = BatchedSearchEngine(index, metrics=off,
+                                   compile_watch=CompileWatch(metrics=off),
+                                   **kw)
+        full = BatchedSearchEngine(
+            index, metrics=reg, tracer=Tracer(sample=1.0, annotate=True),
+            slowlog=SlowLog(threshold_s=0.0, metrics=reg),
+            compile_watch=CompileWatch(metrics=reg), **kw)
+        try:
+            want = [f.result(timeout=120) for f in
+                    [bare.submit(q) for q in Q]]
+            got = [f.result(timeout=120) for f in
+                   [full.submit(q, profile=True) for q in Q]]
+        finally:
+            bare.close()
+            full.close()
+        for (wi, ws), (gi, gs, tree) in zip(want, got):
+            assert np.array_equal(wi, gi) and np.array_equal(ws, gs)
+            kids = {c["name"]: c for c in tree["children"]}
+            assert abs(sum(c["duration_s"] for c in kids.values())
+                       - tree["duration_s"]) < 1e-6
+            phase1 = [c for c in kids["dispatch"]["children"]
+                      if c["name"] == "phase1"][0]
+            assert phase1["attrs"]["kernel"] == engine
+            if gens is not None:
+                parts = {c["name"]: c["attrs"]["candidates"]
+                         for c in phase1["children"] if c["name"] != "group0"}
+                assert list(parts) == ["base", *gens, "active"]
+                assert sum(parts.values()) == phase1["attrs"]["candidates"]
+        assert reg.value("engine.requests.completed") == len(Q)
+        assert reg.value("slowlog.captured") == len(Q)

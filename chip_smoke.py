@@ -24,8 +24,11 @@ summary):
      scores and finite ids bit-equal to ref.quant_split_scores' stable
      top-page, the tensor-core arithmetic in torch), ids in
      range, at four shapes or more each, page = d = 5000 and page 16,384
-     (the fold in device memory) included; rerank_topk (rtol 1e-4 / atol
-     5e-5) at five shapes, page 8192 and ragged n included; bucketize
+     (the fold in device memory) included; rerank_topk's two bodies
+     (rtol 1e-4 / atol 5e-5, and bit-equal to each other where both run)
+     at eleven shapes: page 8192, ragged n, a bulk ring that wraps, n = 4
+     and 4096, duplicate and out-of-range ids, a table 4 bytes off
+     16-byte alignment, each with the body its plan picks; bucketize
      (>= 99.99% of codes equal, the rest one bucket off) in both modes,
      int8 and int16, ragged rows;
   B  encoders and the int8 quant table on the card against the CPU (codes,
@@ -51,7 +54,10 @@ summary):
      ``rerank_topk.ops.rerank_topk`` on the served candidates at page 320
      and 8192 held to ``core.rerank.rerank_topk``, with its gathered
      signature (``ops.rerank_scores`` on pre-gathered rows) timed beside
-     the einsum on the same rows;
+     the einsum on the same rows, the bulk body's launches counted; at
+     page 320 both bodies and the einsum again over 8 random candidate
+     sets rotated in one graph (131 MB of rows: cold in L2), at page 8192
+     the kernel, the simple body and the einsum in turns, three each;
   E  the paper's quality path: make_corpus (262,144 docs, vocabulary
      100,000, 400 topics) -> build_lsa(400) on the card -> VectorIndex
      (CombinedEncoder(P1, I10)) with bucketize held to its codes -> P@10,
@@ -105,7 +111,8 @@ summary):
      of the full one.
 Then the ``kernels`` line (launches summed over the phases' main paths,
 and by phase; each library's largest ptxas stack frame
-of a kernel: 0 bytes for the code-match scorers, checked), the card's
+of a kernel: 0 bytes for the code-match scorers, checked; both rerank
+bodies' registers and spill bytes, 0 for the bulk body, checked), the card's
 name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the exit
 code is not 0.  Without a CUDA device, or without the ``src/repro_torch``
@@ -329,6 +336,21 @@ def spill_bytes(log_lines) -> dict:
     return out
 
 
+def registers(log_lines) -> dict:
+    """{mangled kernel name: registers a thread} from a library's
+    ``nvcc -Xptxas -v`` log."""
+    out, fn = {}, None
+    for ln in log_lines:
+        if "Function properties for" in ln:
+            fn = ln.rsplit(" ", 1)[-1]
+        elif "registers" in ln and fn is not None:
+            m = re.search(r"Used (\d+) registers", ln)
+            if "kernel" in fn and m:
+                out[fn] = int(m.group(1))
+            fn = None
+    return out
+
+
 def code_match_plain(D, Qc, W, block=32768):
     """The plain version at any size: code_match_ref a doc block at a
     time, so no (Q, d, C) tensor exists."""
@@ -521,27 +543,73 @@ def phase_a_quant(gen) -> dict:
 
 
 def phase_a_rerank(gen) -> dict:
+    """Both rerank bodies against the plain gather + einsum (rtol 1e-4 /
+    atol 5e-5) at phase D's shapes and at the shapes that stress the bulk
+    body's ring (P not a multiple of the rows a stage, more work items
+    than blocks, n = 4 and 4096) or its inputs (duplicate ids, ids out of
+    range -- clamped --, a table 4 bytes off 16-byte alignment, which
+    takes the simple body); the body the launch plan picks, read from the
+    wrapper's per-body launch counts; and the two bodies bit-equal where
+    both run, as their one summation order says."""
     from repro_torch.core.rerank import normalize
     from repro_torch.kernels.rerank_topk import kernel as rk_kernel
+    from repro_torch.kernels.rerank_topk import ops as rk_ops
     from repro_torch.kernels.rerank_topk import ref as rk_ref
 
-    shapes = [(131072, 32, 320, 400), (131072, 32, 8192, 400),
-              (5000, 9, 777, 37), (1000, 3, 50, 401), (64, 1, 1, 1)]
+    shapes = [(131072, 32, 320, 400, "random"),
+              (131072, 32, 8192, 400, "random"),
+              (5000, 9, 777, 37, "random"), (1000, 3, 50, 401, "random"),
+              (64, 1, 1, 1, "random"), (100000, 32, 3000, 400, "random"),
+              (100000, 5, 999, 4, "random"), (20000, 4, 777, 4096, "random"),
+              (50000, 8, 1000, 400, "duplicate"),
+              (50000, 8, 1000, 400, "out_of_range"),
+              (50000, 8, 1000, 400, "misaligned")]
     rows = []
     worst = 0.0
-    for d, Q, P, n in shapes:
+    for d, Q, P, n, kind in shapes:
         V = normalize(torch.randn((d, n), generator=gen, device="cuda"))
-        ids = torch.randint(0, d, (Q, P), generator=gen, device="cuda",
+        if kind == "misaligned":                   # 4 bytes past 16
+            buf = torch.empty(d * n + 1, device="cuda")
+            buf[1:].copy_(V.flatten())
+            V = buf[1:].view(d, n)
+        lo, hi = {"duplicate": (0, 64), "out_of_range": (-d, 2 * d)}.get(
+            kind, (0, d))
+        ids = torch.randint(lo, hi, (Q, P), generator=gen, device="cuda",
                             dtype=torch.int32)
+        if kind == "duplicate":
+            ids[:, 1::2] = ids[:, ::2][:, :P // 2]
         q = normalize(torch.randn((Q, n), generator=gen, device="cuda"))
-        got = rk_kernel.rerank_scores_cuda(V, ids, q)
+        want = rk_ref.candidate_scores_ref(V, ids.clamp(0, d - 1), q)
+        expect = "bulk" if n % 4 == 0 and kind != "misaligned" else "simple"
+        check(rk_kernel.plan_for(V, ids, q).body == expect,
+              f"rerank {(d, Q, P, n, kind)}: plan is not {expect}")
+        counts = dict(rk_ops.launches_by_body)
+        n_launched = rk_ops.launches
+        by_id = rk_ops.candidate_scores(V, ids, q)
+        ran = [b for b in counts if rk_ops.launches_by_body[b] > counts[b]]
+        rk_ops.launches_by_body.update(counts)     # not a main-path launch
+        rk_ops.launches = n_launched
+        check(ran == [expect], f"rerank {(d, Q, P, n, kind)}: launched "
+              f"{ran}, want {expect}")
+        got = {b: rk_kernel.rerank_scores_cuda(V, ids, q, body=b)
+               for b in ("bulk", "simple") if b == "simple" or
+               expect == "bulk"}
         torch.cuda.synchronize()
-        want = rk_ref.candidate_scores_ref(V, ids, q)
-        err = float((got - want).abs().max())
-        check(bool(torch.isclose(got, want, rtol=1e-4, atol=5e-5).all()),
-              f"rerank {(d, Q, P, n)}: off the plain version by {err}")
-        worst = max(worst, err)
-        rows.append({"d": d, "Q": Q, "P": P, "n": n, "max_abs_err": err})
+        errs = {}
+        for b, t in got.items():
+            errs[b] = float((t - want).abs().max())
+            check(bool(torch.isclose(t, want, rtol=1e-4, atol=5e-5).all()),
+                  f"rerank {(d, Q, P, n, kind)} {b}: off the plain version "
+                  f"by {errs[b]}")
+        check(torch.equal(by_id, got[expect]),
+              f"rerank {(d, Q, P, n, kind)}: the wrapper's scores are not "
+              f"the {expect} body's")
+        if len(got) == 2:
+            check(torch.equal(got["bulk"], got["simple"]),
+                  f"rerank {(d, Q, P, n, kind)}: bodies not bit-equal")
+        worst = max(worst, *errs.values())
+        rows.append({"d": d, "Q": Q, "P": P, "n": n, "ids": kind,
+                     "body": expect, "max_abs_err": errs})
     return {"phase": "A", "kernel": "rerank_topk", "shapes": rows,
             "max_abs_err": worst}
 
@@ -783,6 +851,7 @@ def reset_launches() -> None:
 
     fp_ops.launches = fp_ops.quant_launches = cm_ops.launches = 0
     bk_ops.launches = rk_ops.launches = 0
+    rk_ops.launches_by_body.update(dict.fromkeys(rk_ops.launches_by_body, 0))
 
 
 def read_launches() -> dict:
@@ -869,27 +938,47 @@ def phase_c(gen) -> tuple:
                        "bound_by": by}}, index, queries, src, raw_state
 
 
-def rerank_case(index, q, cand, ctx) -> dict:
+def alternate_ms(fns: dict, rounds: int = 3, reps: int = 20,
+                 per_call: int = 1) -> dict:
+    """{name: [device ms of one call, a round each]}: each fn timed by
+    ``graph_ms`` in turns, the order reversed every other round (A B B A
+    A B ...); ``per_call`` divides a fn that makes that many launches."""
+    out = {name: [] for name in fns}
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            out[name].append(graph_ms(fns[name], reps) / per_call)
+    return out
+
+
+def rerank_case(index, q, cand, ctx, cold_sets: int = 0,
+                alternated: bool = False) -> dict:
     """rerank_topk.ops.rerank_topk on ``cand`` against the core path:
     ids equal except where the k-th and (k+1)-th plain scores lie within
     the kernel's tolerance, scores bit-equal where the ids are; the
     kernel's scores within rtol 1e-4 / atol 5e-5 of the plain version;
-    times of the kernel, the plain version (gather + einsum) and the
-    einsum alone on pre-gathered rows (device time, from a CUDA graph:
-    at page 320 the wrapper's host work outlasts the kernel, so
-    ``call_ms`` times the calls as a caller makes them), the gathered
-    signature (``ops.rerank_scores`` over the pre-gathered rows, the
-    like-for-like peer of the einsum), and the bound."""
+    times of the kernel (the body the plan picks, and the simple body),
+    the plain version (gather + einsum) and the einsum alone on
+    pre-gathered rows (device time, from a CUDA graph: at page 320 the
+    wrapper's host work outlasts the kernel, so ``call_ms`` times the calls
+    as a caller makes them), the gathered signature (``ops.rerank_scores``
+    over the pre-gathered rows, the like-for-like peer of the einsum), and
+    the bound.  Those rows stay in L2 from launch to launch; with
+    ``cold_sets`` the bodies and the einsum are timed again over that many
+    random candidate sets of the same shape in turn, whose rows together
+    outgrow the 50 MB L2, as a caller meets them.  ``alternated``: the
+    kernel, the simple body and the einsum timed in turns three times each
+    and their medians reported (with each run)."""
     from repro_torch.core.rerank import rerank_topk as core_rerank
     from repro_torch.kernels.rerank_topk import kernel as rk_kernel
     from repro_torch.kernels.rerank_topk import ops as rk_ops
     from repro_torch.kernels.rerank_topk import ref as rk_ref
 
-    ids_g, s_g = rk_ops.rerank_topk(index.vectors, cand, q, K)
-    ids_c, s_c = core_rerank(index.vectors, cand, q, K)
+    V = index.vectors
+    ids_g, s_g = rk_ops.rerank_topk(V, cand, q, K)
+    ids_c, s_c = core_rerank(V, cand, q, K)
     cand = cand.to(torch.int32).contiguous()
-    plain = rk_ref.candidate_scores_ref(index.vectors, cand, q)
-    got = rk_kernel.rerank_scores_cuda(index.vectors, cand, q)
+    plain = rk_ref.candidate_scores_ref(V, cand, q)
+    got = rk_kernel.rerank_scores_cuda(V, cand, q)
     err = float((got - plain).abs().max())
     check(bool(torch.isclose(got, plain, rtol=1e-4, atol=5e-5).all()),
           f"{ctx}: kernel off the plain version by {err}")
@@ -900,30 +989,72 @@ def rerank_case(index, q, cand, ctx) -> dict:
     same = ids_g == ids_c
     check(torch.equal(s_g[same], s_c[same]),
           f"{ctx}: scores of equal ids not bit-equal")
-    gathered = index.vectors[cand.long()]
+    gathered = V[cand.long()]
     # the gathered signature against the einsum on the same rows; these
-    # timing calls are not main-path launches, so the count is restored
-    n_launched = rk_ops.launches
+    # timing calls are not main-path launches, so the counts are restored
+    counts = (rk_ops.launches, dict(rk_ops.launches_by_body))
     g_err = float((rk_ops.rerank_scores(gathered, q) - plain).abs().max())
     check(g_err <= 5e-5 + 1e-4 * float(plain.abs().max()),
           f"{ctx}: gathered signature off the plain version by {g_err}")
     gathered_ms = graph_ms(lambda: rk_ops.rerank_scores(gathered, q), 20)
-    rk_ops.launches = n_launched
+    rk_ops.launches = counts[0]
+    rk_ops.launches_by_body.update(counts[1])
+    plan = rk_kernel.plan_for(V, cand, q)
     bound, by = rerank_bound_ms(cand, index.n_features)
-    row = {"Q": cand.shape[0], "page": cand.shape[1],
+    fns = {"kernel": lambda: rk_kernel.rerank_scores_cuda(V, cand, q),
+           "simple": lambda: rk_kernel.rerank_scores_cuda(V, cand, q,
+                                                          body="simple"),
+           "einsum": lambda: torch.einsum("qpn,qn->qp", gathered, q)}
+    runs = alternate_ms(fns, rounds=3 if alternated else 1)
+    med = {name: sorted(v)[len(v) // 2] for name, v in runs.items()}
+    row = {"Q": cand.shape[0], "page": cand.shape[1], "body": plan.body,
+           "plan": {"blocks": plan.blocks, "rows": plan.rows,
+                    "stages": plan.stages, "smem": plan.smem},
            "ids_equal_share": float(same.float().mean()),
            "queries_apart": int(apart.sum()), "max_abs_err": err,
-           "ms": graph_ms(lambda: rk_kernel.rerank_scores_cuda(
-               index.vectors, cand, q), 20),
+           "ms": med["kernel"], "simple_ms": med["simple"],
            "call_ms": cuda_ms(lambda: rk_kernel.rerank_scores_cuda(
-               index.vectors, cand, q), 20),
+               V, cand, q), 20),
            "plain_ms": graph_ms(lambda: rk_ref.candidate_scores_ref(
-               index.vectors, cand, q), 5),
-           "library_ms": graph_ms(lambda: torch.einsum(
-               "qpn,qn->qp", gathered, q), 5),
+               V, cand, q), 5),
+           "library_ms": med["einsum"],
            "gathered_ms": gathered_ms, "gathered_max_abs_err": g_err,
-           "bound_ms": bound, "bound_by": by}
+           "bound_ms": bound, "bound_by": by,
+           "bound_share": bound / med["kernel"]}
+    if alternated:
+        row["alternated_ms"] = runs
+        row["beats_library"] = med["kernel"] <= med["einsum"]
     del gathered
+    if cold_sets:
+        Q, P = cand.shape
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        sets = [torch.randint(0, V.shape[0], (Q, P), generator=gen,
+                              device="cuda", dtype=torch.int32)
+                for _ in range(cold_sets)]
+        rows = [V[s.long()] for s in sets]
+        for s, g in zip(sets, rows):
+            check(bool(torch.isclose(
+                rk_kernel.rerank_scores_cuda(V, s, q),
+                torch.einsum("qpn,qn->qp", g, q), rtol=1e-4,
+                atol=5e-5).all()), f"{ctx}: cold set off the einsum")
+
+        def rotate(body):
+            return lambda: [rk_kernel.rerank_scores_cuda(V, s, q, body=body)
+                            for s in sets]
+
+        cold = alternate_ms({
+            "bulk": rotate("bulk"), "simple": rotate("simple"),
+            "einsum": lambda: [torch.einsum("qpn,qn->qp", g, q)
+                               for g in rows]},
+            rounds=3, reps=4, per_call=cold_sets)
+        row["cold"] = {
+            "sets": cold_sets,
+            "rows_bytes": cold_sets * Q * P * index.n_features * 4,
+            **{f"{name}_ms": sorted(v)[1] for name, v in cold.items()},
+            "alternated_ms": cold,
+            "bound_ms": sum(rerank_bound_ms(s, index.n_features)[0]
+                            for s in sets) / cold_sets}
+        del rows
     return row
 
 
@@ -1119,13 +1250,17 @@ def phase_d(gen, index, queries, src, raw_state) -> tuple:
     # rerank_topk on the served candidates (page 320) and at page 8192
     reset_launches()
     _, cand = fp_ops.fused_phase1(index.codes, qcodes, w, PAGE)
-    served = rerank_case(index, q, cand, "rerank page 320")
+    served = rerank_case(index, q, cand, "rerank page 320", cold_sets=8)
     rk_launches = read_launches()["rerank_topk"]
+    by_body = dict(rk_ops.launches_by_body)
     check(rk_launches >= 1, "rerank_topk launched no CUDA kernel")
+    check(by_body["bulk"] >= 1, f"the bulk body did not run at n = "
+          f"{N_FEATURES}: launches by body {by_body}")
     _, cand = fp_kernel.fused_phase1_cuda(index.codes, qcodes, w, 8192)
-    wide = rerank_case(index, q, cand, "rerank page 8192")
+    wide = rerank_case(index, q, cand, "rerank page 8192", alternated=True)
     del cand
-    rerank = {**served, "launches": rk_launches, "page_8192": wide}
+    rerank = {**served, "launches": rk_launches, "launches_by_body": by_body,
+              "page_8192": wide}
     emit({"phase": "D", "kernel": "rerank_topk", **rerank})
 
     kernels = {
@@ -1933,6 +2068,7 @@ def main(argv=None) -> int:
     ptxas = {}
     frames = {}
     spills = {}
+    regs = {}
     for name in builds:
         log = _build.build_dir() / f"{name}.log"
         lines = log.read_text().splitlines() if log.exists() else []
@@ -1940,6 +2076,15 @@ def main(argv=None) -> int:
                        if "registers" in ln or "spill" in ln]
         frames[name] = stack_frames(lines)
         spills[name] = spill_bytes(lines)
+        regs[name] = registers(lines)
+    rk_bodies = {}                      # both rerank bodies, by body
+    for body, kernel in (("bulk", "rerank_bulk_kernel"),
+                         ("simple", "rerank_scores_kernel")):
+        fn = next((f for f in regs["rerank_topk"] if kernel in f), None)
+        rk_bodies[body] = {"registers": regs["rerank_topk"].get(fn),
+                           "spill_bytes": spills["rerank_topk"].get(fn)}
+    check(rk_bodies["bulk"]["spill_bytes"] == 0,
+          f"rerank_topk bulk body spills: {rk_bodies['bulk']}")
     emit({"device": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
           "stack_frames": frames, "spill_bytes": spills})
@@ -2035,6 +2180,9 @@ def main(argv=None) -> int:
             "bound_ms": k.get("bound_ms"), "bound_by": k.get("bound_by"),
             "library_ms": k.get("library_ms"),
             "stack_frame_bytes": max(frames[name].values(), default=None)})
+        if name == "rerank_topk":
+            entries[-1]["bodies"] = rk_bodies
+            entries[-1]["launches_by_body"] = k.get("launches_by_body")
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -13,9 +13,11 @@ candidates and runs the same kernel over them as a (Q * P, n) table.
 
 A CUDA tensor goes to the hand-written kernel (:mod:`.kernel`) or raises;
 a CPU tensor goes to the plain version (:mod:`.ref`).  ``launches`` counts
-the CUDA kernels this wrapper launched, one per call on the card; calls
-made straight to :func:`.kernel.rerank_scores_cuda`, as a comparison with
-the plain version does, are not counted.
+the CUDA kernels this wrapper launched, one per call on the card, and
+``launches_by_body`` the same launches by the body the launch plan chose
+(``"bulk"`` or ``"simple"``, :mod:`.kernel`); calls made straight to
+:func:`.kernel.rerank_scores_cuda`, as a comparison with the plain version
+does, are not counted.
 """
 
 from __future__ import annotations
@@ -28,15 +30,18 @@ from repro_torch.core.rerank import exact_scores, stable_topk
 
 from . import kernel, ref
 
-__all__ = ["rerank_scores", "candidate_scores", "rerank_topk", "launches"]
+__all__ = ["rerank_scores", "candidate_scores", "rerank_topk", "launches",
+           "launches_by_body"]
 
 launches = 0
+launches_by_body = dict.fromkeys(kernel.BODIES, 0)
 
 
 def _launch(table, ids, queries):
     global launches
-    out = kernel.rerank_scores_cuda(table, ids, queries)
+    out, plan = kernel.launch(table, ids, queries)
     launches += kernel.KERNELS_PER_CALL
+    launches_by_body[plan.body] += 1
     return out
 
 
@@ -58,8 +63,9 @@ def candidate_scores(vectors: torch.Tensor, cand_ids: torch.Tensor,
     """(d, n) table, (Q, P) ids, (Q, n) queries -> (Q, P) scores of the
     rows ``vectors[cand_ids]``, never gathered on the card."""
     if vectors.is_cuda:
-        return _launch(vectors, cand_ids.to(torch.int32).contiguous(),
-                       queries)
+        if cand_ids.dtype != torch.int32 or not cand_ids.is_contiguous():
+            cand_ids = cand_ids.to(torch.int32).contiguous()
+        return _launch(vectors, cand_ids, queries)
     return ref.candidate_scores_ref(vectors, cand_ids, queries)
 
 

@@ -347,23 +347,53 @@ def test_search_engines_card_vs_cpu(gen, engine):
                                    rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("d,q,p,n", [
-    (131072, 32, 320, 400), (20000, 32, 8192, 400), (5000, 9, 777, 37),
-    (1000, 3, 50, 401), (64, 1, 1, 1)])
-def test_rerank_kernel_vs_plain(gen, d, q, p, n):
-    """rtol 1e-4 / atol 5e-5 against the plain gather + einsum, in both
-    forms (table + ids, gathered); rerank_topk selects the core path's
-    ids away from near-ties, with the core path's bits; one CUDA kernel
-    per call counted."""
+def _rerank_inputs(gen, d, q, p, n, kind):
+    """Unit table rows (``misaligned``: 4 bytes past a 16-byte boundary),
+    ids of ``kind`` (``random``, ``duplicate``: 64 ids, half of them
+    repeated at once, ``out_of_range``: -d to 2d), unit queries."""
     V = trerank.normalize(torch.randn((d, n), generator=gen, device="cuda"))
-    ids = torch.randint(0, d, (q, p), generator=gen, device="cuda",
+    if kind == "misaligned":
+        buf = torch.empty(d * n + 1, device="cuda")
+        buf[1:].copy_(V.flatten())
+        V = buf[1:].view(d, n)
+    lo, hi = {"duplicate": (0, 64), "out_of_range": (-d, 2 * d)}.get(
+        kind, (0, d))
+    ids = torch.randint(lo, hi, (q, p), generator=gen, device="cuda",
                         dtype=torch.int32)
+    if kind == "duplicate":
+        ids[:, 1::2] = ids[:, ::2][:, :p // 2]
     Q = trerank.normalize(torch.randn((q, n), generator=gen, device="cuda"))
+    return V, ids, Q
+
+
+_RERANK_SHAPES = [
+    (131072, 32, 320, 400, "random"), (20000, 32, 8192, 400, "random"),
+    (5000, 9, 777, 37, "random"), (1000, 3, 50, 401, "random"),
+    (64, 1, 1, 1, "random"), (100000, 32, 3000, 400, "random"),
+    (100000, 5, 999, 4, "random"), (20000, 4, 777, 4096, "random"),
+    (50000, 8, 1000, 400, "duplicate"), (50000, 8, 1000, 400, "out_of_range"),
+    (50000, 8, 1000, 400, "misaligned")]
+
+
+@pytest.mark.parametrize("d,q,p,n,kind", _RERANK_SHAPES)
+def test_rerank_kernel_vs_plain(gen, d, q, p, n, kind):
+    """rtol 1e-4 / atol 5e-5 against the plain gather + einsum (on the
+    clamped ids), in both forms (table + ids, gathered); the bulk body ran
+    where n % 4 == 0 on an aligned table (n = 400 among them), the simple
+    body elsewhere, one CUDA kernel per call counted; rerank_topk selects
+    the core path's ids away from near-ties, with the core path's bits."""
+    V, ids, Q = _rerank_inputs(gen, d, q, p, n, kind)
+    body = "bulk" if n % 4 == 0 and kind != "misaligned" else "simple"
     before = rk_ops.launches
+    by_body = dict(rk_ops.launches_by_body)
     got = rk_ops.candidate_scores(V, ids, Q)
     assert rk_ops.launches == before + rk_kernel.KERNELS_PER_CALL
-    want = rk_ref.candidate_scores_ref(V, ids, Q)
+    by_body[body] += 1
+    assert rk_ops.launches_by_body == by_body
+    want = rk_ref.candidate_scores_ref(V, ids.clamp(0, d - 1), Q)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=5e-5)
+    if kind == "out_of_range":      # the core path does not clamp
+        return
     cand = V[ids.long()]
     torch.testing.assert_close(rk_ops.rerank_scores(cand, Q),
                                rk_ref.rerank_scores_ref(cand, Q),
@@ -377,6 +407,25 @@ def test_rerank_kernel_vs_plain(gen, d, q, p, n):
     assert torch.equal(i_g[apart], i_c[apart])
     same = i_g == i_c
     assert torch.equal(s_g[same], s_c[same])
+
+
+@pytest.mark.parametrize("d,q,p,n,kind", _RERANK_SHAPES)
+def test_rerank_bodies_bit_equal_to_lane_order(gen, d, q, p, n, kind):
+    """Each body that can run a shape gives ref.lane_order_scores' bits
+    (the kernels' summation order in torch, fmaf rounded once), so the two
+    bodies are bit-equal where both run; forcing the bulk body on a shape
+    it does not take raises."""
+    V, ids, Q = _rerank_inputs(gen, d, q, p, n, kind)
+    vec = n % 4 == 0 and kind != "misaligned"
+    want = rk_ref.lane_order_scores(V, ids, Q, vec=vec)
+    assert torch.equal(rk_kernel.rerank_scores_cuda(V, ids, Q, body="simple"),
+                       want)
+    if vec:
+        assert torch.equal(
+            rk_kernel.rerank_scores_cuda(V, ids, Q, body="bulk"), want)
+    else:
+        with pytest.raises(ValueError, match="bulk body"):
+            rk_kernel.rerank_scores_cuda(V, ids, Q, body="bulk")
 
 
 def test_rerank_kernel_rejects_bad_input(gen):
@@ -397,6 +446,8 @@ def test_rerank_kernel_rejects_bad_input(gen):
         rk_ops.candidate_scores(V, ids, torch.cat([Q, Q], 1)[:, ::2])
     with pytest.raises(ValueError, match="contiguous"):
         rk_ops.rerank_scores(V[:10].reshape(2, 5, 8).transpose(0, 1), Q)
+    with pytest.raises(ValueError, match="body must be"):
+        rk_kernel.rerank_scores_cuda(V, ids, Q, body="tiled")
 
 
 def _assert_codes(got, want):

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases A      # kernel build + parity only
     python3 chip_smoke.py --phases CF     # the segment lifecycle only
     python3 chip_smoke.py --phases CG     # the observability plane only
+    python3 chip_smoke.py --phases CH     # the durability plane only
 
 It builds the hand-written kernels from the sources in this checkout (one
 nvcc per library, all started together), holds each against its plain
@@ -12,8 +13,9 @@ PyTorch version on the card, drives the port's search paths at the
 paper's scale -- a 4,181,504 x 400 Wikipedia-shaped index
 (RoundingEncoder(2), int8 codes), trim 0.05, page 320, k 10 -- runs the
 paper's quality pipeline on the card, takes that index through the
-segment lifecycle (ingest, seal, delete, merge, compact), and serves it
-with the observability plane on and off.
+segment lifecycle (ingest, seal, delete, merge, compact), serves it
+with the observability plane on and off, and commits, kills and
+recovers it through the durability plane.
 
 Phases, each printing one JSON line (D and G one per engine, then a
 summary):
@@ -108,7 +110,27 @@ summary):
      two copies (bare serving adds none), the full plane's the bare
      engine's plus one fence per profiled phase, and the
      ``repro.engine.dispatch`` range must enclose every kernel and copy
-     of the full one.
+     of the full one;
+  H  the durability plane on phase C's index (run after F): a Store with
+     request durability in a fresh directory under this checkout's
+     build/ (its filesystem and free bytes printed, the room for the
+     largest moment -- two bases during the compact commit -- checked
+     first), open_index(ShardedVectorIndex.from_index(...)) writing the
+     baseline commit, F's 16 x 4,096 + 200 rows and 4,096 deletes
+     through BatchedSearchEngine(donate_ingest=True) serving the
+     DurableIndex (never donated: no buffer of a served state written in
+     place), a commit after the 8th batch (8 blobs, under 1% of the
+     bytes it references); then three kills -- the engine and the store
+     dropped unclosed -- each followed by recover(dir, device="cuda")
+     from the directory alone: after the deletes (10 ops replayed), after
+     merge_segments(0, 16) and its commit, after compact() and its
+     commit.  Each recovered index has the live one's seq, every leaf
+     (base, posting tables, active buffer, each segment) torch.equal, and
+     the answers of ``fused``, ``fused_int8``, ``codes_pallas`` and
+     ``postings`` to the 128 queries bit-identical; commit seconds and
+     bytes, validate / restore / replay seconds, durable add latency
+     beside F's, peak device memory and host RSS, and ``store.stats()``
+     printed; the directory removed at the end.
 Then the ``kernels`` line (launches summed over the phases' main paths,
 and by phase; each library's largest ptxas stack frame
 of a kernel: 0 bytes for the code-match scorers, checked; both rerank
@@ -123,6 +145,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -1878,6 +1901,275 @@ def phase_f(index) -> tuple:
     return line, launches
 
 
+def filesystem(path) -> tuple:
+    """-> ({mount, type, device} of the mount holding ``path``, from
+    /proc/mounts: the longest mount point that prefixes it; its free
+    bytes)."""
+    real = str(pathlib.Path(path).resolve())
+    best = ("", "?", "?")
+    with open("/proc/mounts") as f:
+        for line in f:
+            dev, mnt, fs = line.split()[:3]
+            if ((real + "/").startswith(mnt.rstrip("/") + "/")
+                    and len(mnt) >= len(best[0])):
+                best = (mnt, fs, dev)
+    st = os.statvfs(real)
+    return {"mount": best[0], "type": best[1], "device": best[2]}, \
+        st.f_bavail * st.f_frsize
+
+
+def h_bytes_needed(index) -> int:
+    """The store's largest moment, the compact commit: the old base and
+    the compacted base, both referenced by retained commits, the appended
+    rows three times over (sealed segments, the merged segment, the
+    translog) and 1 GiB of manifests, small blobs and slack."""
+    C = index.codes.shape[1] * index.codes.element_size()
+    row = N_FEATURES * 4 + C + 1
+    n_new = F_NEW + F_TAIL
+    return (row * index.n_docs + row * (index.n_docs + n_new)
+            + 3 * (row + 4) * n_new + (1 << 30))
+
+
+def h_same_leaves(live, rec, ctx) -> None:
+    """Every leaf of ``rec`` -- base, posting tables, active buffer, each
+    segment's leaves and posting tables -- and every counter equal to
+    ``live``'s, on the card."""
+    for name in ("vectors", "codes", "post_docs", "post_codes", "offsets",
+                 "live", "seg_vectors", "seg_codes", "seg_gids", "seg_live"):
+        a, b = getattr(live, name), getattr(rec, name)
+        check(a.dtype == b.dtype and a.shape == b.shape
+              and bool(torch.equal(a, b)), f"H {ctx}: leaf {name} differs")
+    check(len(live.segments) == len(rec.segments),
+          f"H {ctx}: {len(rec.segments)} segments, want "
+          f"{len(live.segments)}")
+    for i, (sa, sb) in enumerate(zip(live.segments, rec.segments)):
+        check((sa.n_rows, sa.tombstones) == (sb.n_rows, sb.tombstones),
+              f"H {ctx}: segment {i} counters")
+        for name in ("vectors", "codes", "gids", "live", "post_docs",
+                     "post_codes"):
+            check(bool(torch.equal(getattr(sa, name), getattr(sb, name))),
+                  f"H {ctx}: segment {i} leaf {name} differs")
+    for name in ("n_docs", "n_appended", "seg_base", "active_tombstones",
+                 "shard_tombstones", "seal_threshold", "index_best",
+                 "encoder"):
+        check(getattr(live, name) == getattr(rec, name),
+              f"H {ctx}: {name} differs")
+
+
+def h_recover(store_dir, live, index, new, queries, src, dead, stage,
+              launches, answers) -> dict:
+    """Recover from ``store_dir`` alone on the card and hold the result to
+    the never-crashed ``live``: seq, every leaf, and the answers of four
+    engines bit-identical (``answers``: the live index's, by engine);
+    -> the recovery's numbers."""
+    from repro_torch.store import recover
+
+    stats = {}
+    t = time.monotonic()
+    rec, seq = recover(store_dir, device="cuda", stats=stats)
+    recover_s = time.monotonic() - t
+    check(rec.device.type == "cuda", f"H {stage}: recovered on {rec.device}")
+    check(seq == live.translog_seq,
+          f"H {stage}: recovered seq {seq}, live {live.translog_seq}")
+    progress(f"H {stage}: recovered in {recover_s:.2f} s ({stats})")
+    h_same_leaves(live.inner, rec, stage)
+    got, rows = f_stage(rec, index, new, queries, src, dead,
+                        f"H {stage} recovered", launches)
+    for name, (ids, scores) in got.items():
+        check(np.array_equal(ids, answers[name][0])
+              and np.array_equal(scores, answers[name][1]),
+              f"H {stage} {name}: recovered and live answers differ")
+    out = {"recover_s": recover_s, **stats, "seq": seq,
+           "generations": rows["generations"],
+           "batch_latency_s_median": {
+               name: r["batch_latency_s_median"]
+               for name, r in rows["engines"].items()}}
+    del rec
+    torch.cuda.empty_cache()
+    return out
+
+
+def h_commit(store, idx, what) -> dict:
+    stats = {}
+    t = time.monotonic()
+    store.commit(idx, stats=stats)
+    out = {"s": time.monotonic() - t, **stats}
+    progress(f"H: {what} commit in {out['s']:.2f} s, {stats}")
+    return out
+
+
+def phase_h(index, f_add_s=None) -> tuple:
+    """The durability plane at full width on phase C's index: a store in
+    a fresh directory under the checkout's build/, a baseline commit, F's
+    ingest and deletes through a durable engine with a commit after the
+    8th batch, then three kill-and-recover rounds (after the deletes,
+    after a merge and its commit, after a compact and its commit), each
+    held leaf for leaf and answer for answer to the never-crashed index;
+    -> (the phase line, the kernels' launches in its main-path runs)."""
+    import inspect
+    import resource
+    import shutil
+    import tempfile
+
+    from repro_torch.dist import ShardedVectorIndex
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.store import DurableIndex, Store
+
+    t_phase = time.monotonic()
+    root = pathlib.Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_store_", dir=root)
+    try:
+        fs, free = filesystem(store_dir)
+        need = h_bytes_needed(index)
+        progress(f"H: store in {store_dir} on {fs}, {free} bytes free, "
+                 f"{need} needed")
+        if free < need:
+            raise RuntimeError(
+                f"H: the disk holding {store_dir} has {free} bytes free; the "
+                f"store's largest moment needs {need}")
+        rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        torch.cuda.reset_peak_memory_stats()
+        new, queries, src, victims = f_workload(index)
+        reg = MetricsRegistry()
+        launches = {}
+        commits = {}
+
+        store = Store(store_dir, durability="request", metrics=reg)
+        sidx = ShardedVectorIndex.from_index(index, seal_threshold=F_SEAL)
+        base_stats = {}
+        t = time.monotonic()
+        live = store.open_index(sidx, stats=base_stats)
+        commits["baseline"] = {"s": time.monotonic() - t, **base_stats}
+        progress(f"H: baseline commit in {commits['baseline']['s']:.2f} s, "
+                 f"{base_stats}")
+        check(base_stats["blobs_written"] == 2
+              and base_stats["bytes_written"] == base_stats["bytes_total"],
+              f"H: baseline commit {base_stats}")
+
+        eng = make_engine(live, engine="fused", donate_ingest=True)
+        check("donate" not in inspect.signature(
+            eng.index.add_documents).parameters,
+            "H: a durable index's add_documents takes donate")
+        add_s = []
+        try:
+            for b in range(F_NEW // F_BATCH + 1):
+                lo = (b % (len(queries) // BATCH)) * BATCH
+                for f in [eng.submit(q) for q in queries[lo:lo + BATCH]]:
+                    f.result(timeout=600)
+                rows = (new[b * F_BATCH:(b + 1) * F_BATCH]
+                        if b < F_NEW // F_BATCH else new[F_NEW:])
+                prev = eng.index.inner
+                versions = [t_._version for t_ in (
+                    prev.seg_vectors, prev.seg_codes, prev.seg_gids,
+                    prev.seg_live)]
+                t = time.monotonic()
+                first = eng.add_documents(rows)
+                torch.cuda.synchronize()
+                add_s.append(time.monotonic() - t)
+                check(first == index.n_docs + b * F_BATCH,
+                      f"H: ingest batch {b}: first id {first}")
+                check(versions == [t_._version for t_ in (
+                    prev.seg_vectors, prev.seg_codes, prev.seg_gids,
+                    prev.seg_live)],
+                      f"H: ingest batch {b} wrote the served index in place")
+                if b == 7:
+                    commits["after_8_batches"] = h_commit(
+                        store, eng.index, "incremental")
+            t = time.monotonic()
+            eng.delete(victims)
+            torch.cuda.synchronize()
+            delete_s = time.monotonic() - t
+            live = eng.index
+        finally:
+            eng.close()
+        inc = commits["after_8_batches"]
+        check(inc["blobs_written"] == 8
+              and inc["bytes_written"] < 0.01 * inc["bytes_total"],
+              f"H: the commit after 8 batches wrote {inc}")
+        check(live.translog_seq == F_NEW // F_BATCH + 2
+              and live.n_segments == 16 and live.n_active == F_TAIL
+              and live.n_tombstones == len(victims),
+              f"H: seq {live.translog_seq}, {live.n_segments} segments, "
+              f"{live.n_active} active, {live.n_tombstones} tombstones")
+        progress(f"H: ingested, median add {median_after_first(add_s):.4f} s;"
+                 f" deleted in {delete_s:.3f} s")
+        dead = set(victims.tolist())
+
+        def served(idx, stage):
+            answers, rows = f_stage(idx, index, new, queries, src, dead,
+                                    f"H {stage} live", launches)
+            return answers, {name: r["batch_latency_s_median"]
+                             for name, r in rows["engines"].items()}
+
+        # the kill: the engine is gone and the store is dropped unclosed;
+        # the restarted process recovers from the directory alone
+        recoveries, latency = {}, {}
+        answers, latency["deleted"] = served(live.inner, "deleted")
+        recoveries["deleted"] = h_recover(
+            store_dir, live, index, new, queries, src, dead, "deleted",
+            launches, answers)
+        first = recoveries["deleted"]
+        check(first["replay_ops"] == 10
+              and first["replay_rows"] == 8 * F_BATCH + F_TAIL,
+              f"H: replayed {first['replay_ops']} ops, "
+              f"{first['replay_rows']} rows")
+        store = Store(store_dir, durability="request", metrics=reg)
+        live = DurableIndex(live.inner, store, live.translog_seq)
+
+        t = time.monotonic()
+        live = live.merge_segments(0, 16)
+        torch.cuda.synchronize()
+        merge_s = time.monotonic() - t
+        commits["merged"] = h_commit(store, live, "merge")
+        check(commits["merged"]["blobs_written"] == 3,
+              f"H: the merge commit wrote {commits['merged']}")
+        answers, latency["merged"] = served(live.inner, "merged")
+        recoveries["merged"] = h_recover(
+            store_dir, live, index, new, queries, src, dead, "merged",
+            launches, answers)
+
+        t = time.monotonic()
+        live = live.compact()
+        torch.cuda.synchronize()
+        compact_s = time.monotonic() - t
+        commits["compacted"] = h_commit(store, live, "compact")
+        check(commits["compacted"]["blobs_written"] == 2
+              and commits["compacted"]["bytes_written"]
+              == commits["compacted"]["bytes_total"],
+              f"H: the compact commit wrote {commits['compacted']}")
+        answers, latency["compacted"] = served(live.inner, "compacted")
+        recoveries["compacted"] = h_recover(
+            store_dir, live, index, new, queries, src, dead, "compacted",
+            launches, answers)
+        check(recoveries["compacted"]["replay_ops"] == 0,
+              "H: ops replayed past the compact commit")
+        stats = store.stats()
+        check(stats["commits"] == 4 and stats["commit"]["seq"]
+              == live.translog_seq, f"H: store stats {stats}")
+        store.close()
+        line = {
+            "phase": "H", "store": store_dir, "filesystem": fs,
+            "free_bytes": free, "bytes_needed": need,
+            "durability": "request", "commits": commits,
+            "recoveries": recoveries,
+            "add_s_median": median_after_first(add_s), "add_s": add_s,
+            "f_add_s_median": f_add_s, "delete_s": delete_s,
+            "merge_s": merge_s, "compact_s": compact_s,
+            "batch_latency_s_median": latency,
+            "bit_identical_recovered_vs_live": True,
+            "donated": False,
+            "launches": launches, "store_stats": stats,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "max_rss_bytes": resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss * 1024,
+            "max_rss_bytes_before": rss0,
+            "phase_s": time.monotonic() - t_phase}
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+    return line, launches
+
+
 def quality(ids, sims, gold_ids, gold_sims) -> dict:
     from repro_torch.core import avg_diff, ndcg_k, precision_at_k
 
@@ -2027,7 +2319,7 @@ def phase_e() -> tuple:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="ABCDEFG")
+    ap.add_argument("--phases", default="ABCDEFGH")
     args = ap.parse_args(argv)
 
     src = pathlib.Path(__file__).resolve().parent / "src"
@@ -2124,11 +2416,16 @@ def main(argv=None) -> int:
         if "G" in args.phases:
             line, by_phase["G"] = phase_g(index, queries, src)
             emit(line)
+        f_add_s = None
         if "F" in args.phases:
             line, by_phase["F"] = phase_f(index)
             emit(line)
+            f_add_s = line["add_s_median"]
             for name, err in line["kernels_max_abs_err"].items():
                 a_err[name] = max(a_err.get(name, 0.0), err)
+        if "H" in args.phases:
+            line, by_phase["H"] = phase_h(index, f_add_s)
+            emit(line)
         del index
         torch.cuda.empty_cache()
     if "E" in args.phases:

@@ -20,10 +20,11 @@ answers are bit-identical with the plane on or off.  The JAX package's
 * :mod:`~repro_torch.obs.compile_watch` -- counts and attributes the
   ``nvcc`` builds of the kernel libraries, the port's recompiles;
 * :mod:`~repro_torch.obs.stats` -- ``BatchedSearchEngine.stats()``
-  (ES ``_cat/thread_pool``) and the index's ``_cat/segments`` view.
+  (ES ``_cat/thread_pool``), the index's ``_cat/segments`` view and
+  ``Store.stats()`` (ES ``_stats/translog``).
 
 The device part (byte accounting, cost model, node stats, diagnostics)
-and the cluster and store rollups are not ported yet.
+and the cluster rollups are not ported yet.
 """
 
 from .compile_watch import CompileWatch, active_watch, watch_region
@@ -34,13 +35,13 @@ from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
 from .profile import ProfileNode, format_profile_tree, profile_from_trace
 from .slowlog import SlowLog, start_request_trace
 from .stats import (engine_stats, format_segments_line, format_stats_line,
-                    index_stats)
+                    index_stats, store_stats)
 from .tracing import NULL_TRACE, Span, Trace, Tracer, annotation
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "default_registry",
     "Span", "Trace", "Tracer", "NULL_TRACE", "annotation",
-    "index_stats", "engine_stats",
+    "index_stats", "engine_stats", "store_stats",
     "format_stats_line", "format_segments_line",
     "ProfileNode", "format_profile_tree", "profile_from_trace",
     "SlowLog", "start_request_trace",

@@ -19,6 +19,10 @@ What maps where:
   batcher: queue depth, in-flight, batch occupancy, queue-wait and
   dispatch-latency histograms, request, ingest and kernel-path counters,
   and the slow-log and build-watch sections.
+* :func:`store_stats` -- ES ``_stats/translog`` for one
+  :class:`repro_torch.store.Store`: translog seqno, generation and
+  on-disk bytes, the newest commit, commit and recovery counts and
+  timings, the incremental-commit byte counts.
 * :func:`format_stats_line` renders an engine (or a cluster rollup)
   dict as one ``_cat`` line.
 """
@@ -26,10 +30,11 @@ What maps where:
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
-__all__ = ["index_stats", "engine_stats", "format_stats_line",
-           "format_segments_line"]
+__all__ = ["index_stats", "engine_stats", "store_stats",
+           "format_stats_line", "format_segments_line"]
 
 
 def _hist(registry, name: str, **labels) -> dict:
@@ -148,6 +153,50 @@ def engine_stats(engine) -> dict:
     if watch is not None:
         out["compile"] = _compile_stats(watch)
     return out
+
+
+def store_stats(store) -> dict:
+    """Translog + commit section (ES ``_stats/translog``).  Bytes are
+    the on-disk sum over retained generation files -- what a trim
+    reclaims."""
+    from repro_torch.store.snapshot import latest_commit
+
+    reg = store.metrics
+    tl = store.translog
+    tl_bytes = 0
+    n_gens = 0
+    try:
+        for fn in os.listdir(store.path):
+            if fn.startswith("translog-") and fn.endswith(".log"):
+                n_gens += 1
+                tl_bytes += os.path.getsize(os.path.join(store.path, fn))
+    except OSError:  # pragma: no cover - dir raced away
+        pass
+    commit = latest_commit(store.path, validate=False)
+    return {
+        "path": store.path,
+        "durability": store.durability,
+        "translog": {
+            "seqno": tl.seqno,
+            "generation": tl.generation,
+            "n_generations": n_gens,
+            "bytes": tl_bytes,
+        },
+        "commit": (None if commit is None
+                   else {"generation": commit.generation,
+                         "seq": commit.seq}),
+        "commits": reg.value("store.commits"),
+        "recoveries": reg.value("store.recoveries"),
+        "commit_duration_s": _hist(reg, "store.commit.duration_s"),
+        "recovery_duration_s": _hist(reg, "store.recovery.duration_s"),
+        # the incremental-commit evidence: last commit's changed bytes vs
+        # the bytes it references (shared blobs make written << total)
+        "commit_bytes": {
+            "written_total": reg.value("store.commit.bytes_written"),
+            "last_written": reg.value("store.commit.last_bytes_written"),
+            "last_total": reg.value("store.commit.last_bytes_total"),
+        },
+    }
 
 
 def _ms(v: Optional[float]) -> str:

@@ -800,3 +800,80 @@ def test_full_plane_bit_parity_on_card(gen, engine):
                 assert sum(parts.values()) == phase1["attrs"]["candidates"]
         assert reg.value("engine.requests.completed") == len(Q)
         assert reg.value("slowlog.captured") == len(Q)
+
+
+# ---------------------------------------------------- the store on the card
+_STORE_LEAVES = ("vectors", "codes", "post_docs", "post_codes", "offsets",
+                 "live", "seg_vectors", "seg_codes", "seg_gids", "seg_live")
+
+
+def _assert_same_index(a, b, ctx):
+    """Leaves, segments and counters equal, moved to the CPU first."""
+    for name in _STORE_LEAVES:
+        assert torch.equal(getattr(a, name).cpu(), getattr(b, name).cpu()), \
+            (ctx, name)
+    assert len(a.segments) == len(b.segments), ctx
+    for sa, sb in zip(a.segments, b.segments):
+        assert (sa.n_rows, sa.tombstones) == (sb.n_rows, sb.tombstones), ctx
+        for name in ("vectors", "codes", "gids", "live", "post_docs",
+                     "post_codes"):
+            assert torch.equal(getattr(sa, name).cpu(),
+                               getattr(sb, name).cpu()), (ctx, name)
+    for name in ("n_docs", "n_appended", "seg_base", "active_tombstones",
+                 "shard_tombstones", "seal_threshold"):
+        assert getattr(a, name) == getattr(b, name), (ctx, name)
+
+
+def test_store_recovers_card_index_bit_identical(gen, tmp_path):
+    """A store written from a card index (card batches logged as their
+    host rows, a commit mid-stream, a merge and its commit) recovers on
+    the card with every leaf and every engine's answers bit-identical to
+    the never-crashed index."""
+    from repro_torch.dist.shard_index import ShardedVectorIndex
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.store import Store, recover
+
+    V = torch.randn((5000, 48), generator=gen, device="cuda")
+    store = Store(str(tmp_path), metrics=MetricsRegistry())
+    live = store.open_index(ShardedVectorIndex.build_sharded(
+        V, seal_threshold=256, device="cuda"))
+    for i, rows in enumerate((300, 300, 300, 50)):
+        live = live.add_documents(torch.randn((rows, 48), generator=gen,
+                                              device="cuda"))
+        if i == 1:
+            store.commit(live)
+    live = live.delete(torch.tensor([5, 5001, 5310, 5940]))
+    Q = torch.cat([V[:16], live.seg_vectors[0, :4]])
+    for stage in ("ingested", "merged"):
+        rec, seq = recover(str(tmp_path), device="cuda")
+        assert seq == live.translog_seq and rec.device.type == "cuda"
+        _assert_same_index(live.inner, rec, stage)
+        for engine in SHARD_ENGINES:
+            for page in (33, 320):
+                x = live.search(Q, k=10, page=page, engine=engine)
+                y = rec.search(Q, k=10, page=page, engine=engine)
+                assert torch.equal(x[0], y[0]) and torch.equal(x[1], y[1]), \
+                    (stage, engine, page)
+        live = live.merge_segments(0, live.n_segments)
+        store.commit(live)
+    store.close()
+
+
+def test_cpu_commit_restores_on_card(gen, tmp_path):
+    """A commit written from a CPU index restores on the card with every
+    leaf equal to a CPU restore of the same commit."""
+    from repro_torch.dist.shard_index import ShardedVectorIndex
+    from repro_torch.store import latest_commit, restore, write_commit
+
+    V = torch.randn((3000, 40), generator=gen, device="cuda").cpu()
+    idx = ShardedVectorIndex.build_sharded(V, seal_threshold=128,
+                                           device="cpu")
+    idx = idx.add_documents(torch.randn((300, 40), generator=gen,
+                                        device="cuda").cpu())
+    idx = idx.delete([3, 3001, 3290])
+    write_commit(str(tmp_path), idx, 2)
+    commit = latest_commit(str(tmp_path))
+    on_card = restore(commit, device="cuda")
+    assert on_card.device.type == "cuda"
+    _assert_same_index(on_card, restore(commit, device="cpu"), "card vs cpu")
+    _assert_same_index(on_card, idx, "card vs source")

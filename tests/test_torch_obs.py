@@ -642,5 +642,7 @@ def test_port_imports_neither_jax_nor_reference():
         assert f"repro_torch.obs.{mod}" in names, mod
     assert "repro_torch.serve.engine" in names
     assert "repro_torch.dist.shard_index" in names
+    for mod in ("translog", "snapshot", "recovery", "durable"):
+        assert f"repro_torch.store.{mod}" in names, mod
     assert int(count) == len(names)
     assert bad == "", bad

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases CF     # the segment lifecycle only
     python3 chip_smoke.py --phases CG     # the observability plane only
     python3 chip_smoke.py --phases CH     # the durability plane only
+    python3 chip_smoke.py --phases CI     # shards and replica groups only
 
 It builds the hand-written kernels from the sources in this checkout (one
 nvcc per library, all started together), holds each against its plain
@@ -14,8 +15,9 @@ paper's scale -- a 4,181,504 x 400 Wikipedia-shaped index
 (RoundingEncoder(2), int8 codes), trim 0.05, page 320, k 10 -- runs the
 paper's quality pipeline on the card, takes that index through the
 segment lifecycle (ingest, seal, delete, merge, compact), serves it
-with the observability plane on and off, and commits, kills and
-recovers it through the durability plane.
+with the observability plane on and off, commits, kills and recovers it
+through the durability plane, and splits it into 4 doc-shards x 1 and
+x 2 replica groups.
 
 Phases, each printing one JSON line (D and G one per engine, then a
 summary):
@@ -130,7 +132,35 @@ summary):
      ``postings`` to the 128 queries bit-identical; commit seconds and
      bytes, validate / restore / replay seconds, durable add latency
      beside F's, peak device memory and host RSS, and ``store.stats()``
-     printed; the directory removed at the end.
+     printed; the directory removed at the end;
+  I  doc-shards and replica groups on phase C's index (run after H):
+     ShardedVectorIndex.from_index onto 4 x 2 (views of the vectors,
+     codes and int8 table, checked; per-shard posting tables built, their
+     seconds and bytes printed) and its replica_group(0), the 4 x 1
+     index sharing every tensor; ``fused``, ``fused_int8``,
+     ``codes_pallas``, ``postings`` (128 rows) and ``codes`` (32 rows)
+     served through BatchedSearchEngine on one shard, 4 x 1, 4 x 2 and 4
+     x 2 with the stream transport: the three sharded answers bit-equal,
+     live_groups=(1,) and replica_group(0 and 1) bit-equal to them, rank
+     1 for >= 0.95 of the sources, scores within 1e-5, every top-1
+     cosine at least the one-shard index's (the shards' pages hold its
+     page), each kernel launched once per shard and row-block; the three
+     kernels held to their plain versions on shard 1's slice as in A;
+     the first 65,536 rows at page >= n_ids: 4 x 2 (both transports)
+     bit-equal to one shard for all six engines, then F's history at a
+     sixteenth of its size (16 x 1,024 + 50 rows, 1,024 deletes, a
+     16-segment merge, a compact) on a segmented 4 x 2, a flat 4 x 1 and
+     a segmented one-shard index, bit-equal at every stage for four
+     engines and both transports; the store: the 4 x 1 index committed
+     and recovered onto 4 x 2 (every leaf and four engines' answers
+     identical), the depth history made durable, two ops replayed onto
+     4 x 2, and a one-shard commit restored onto 4 shards equal to
+     from_index; last F's history at full width on 4 shards, served as F
+     serves it, with its add, delete, merge and compact seconds.  Batch
+     medians beside phase C's and D's, launches a batch by kernel, one
+     ``fused_int8`` batch traced on 4 x 1 and 4 x 2 (host time, device
+     busy time, idle share: one shard's is D's and G's), peak memory and
+     the card's name and power limit in its line.
 Then the ``kernels`` line (launches summed over the phases' main paths,
 and by phase; each library's largest ptxas stack frame
 of a kernel: 0 bytes for the code-match scorers, checked; both rerank
@@ -175,6 +205,11 @@ F_SEAL = 256                       # the reference's seal_threshold
 F_DELETE_BASE = 2_048              # deletes: base rows, sealed rows, and
 F_DELETE_SEALED = 1_848            # every tail row
 F_ENGINES = ("fused", "fused_int8", "codes_pallas", "postings")
+ENGINES = ("postings", "codes", "onehot", "codes_pallas", "fused",
+           "fused_int8")
+I_DEPTH = 65_536                   # phase I: rows served at page >= n_ids,
+I_BATCH = 1_024                    # F's history at a sixteenth of its size
+I_TAIL = 50
 G_ENGINES = ("fused", "fused_int8", "codes_pallas", "postings", "codes")
 E_DOCS = 262_144                   # phase E corpus, cut from 4,181,352
 E_VOCAB = 100_000                  # gensim make_wiki: keep_n=100000
@@ -1526,7 +1561,8 @@ def f_stage(idx, base, new, queries, src, dead, stage, launches,
 
     n_base = base.n_docs
     gens = idx.n_segments + (1 if idx.seg_capacity else 0)
-    n_batches = len(queries) // BATCH
+    # one query phase per shard and per group's row-block of a batch
+    n_batches = len(queries) // BATCH * idx.n_shards * idx.n_replicas
     per = fp_kernel.KERNELS_PER_CALL
     want = {"fused": {"fused_phase1": per,
                       "code_match": gens * cm_kernel.KERNELS_PER_CALL},
@@ -1543,40 +1579,40 @@ def f_stage(idx, base, new, queries, src, dead, stage, launches,
         reset_launches()
         obs = full_plane(len(queries)) if plane else {}
         results, batch_s, _ = serve_engine(
-            idx, queries, f"F {stage} {name}", reset_peak=False,
+            idx, queries, f"{stage} {name}", reset_peak=False,
             profile=plane, after_first=obs["compile_watch"].mark_steady
             if plane else None, engine=name, **obs)
         got = read_launches()
         for kname, n in got.items():
             launches[kname] = launches.get(kname, 0) + n
             check(n == want[name].get(kname, 0) * n_batches,
-                  f"F {stage} {name}: {kname} launched {n} CUDA kernels, "
+                  f"{stage} {name}: {kname} launched {n} CUDA kernels, "
                   f"want {want[name].get(kname, 0) * n_batches} at {gens} "
-                  "generations")
+                  f"generations, {idx.n_shards} x {idx.n_replicas} shards")
         ids = torch.from_numpy(np.stack([r[0] for r in results])).long()
         scores = torch.from_numpy(np.stack([r[1] for r in results]))
         check(bool(((ids >= 0) & (ids < idx.n_ids)).all()),
-              f"F {stage} {name}: id out of range")
+              f"{stage} {name}: id out of range")
         check(bool(torch.isfinite(scores).all()),
-              f"F {stage} {name}: non-finite score")
+              f"{stage} {name}: non-finite score")
         check(not bool(torch.isin(ids, dead_t).any()),
-              f"F {stage} {name}: a deleted id surfaced")
+              f"{stage} {name}: a deleted id surfaced")
         live_src = ~torch.isin(torch.from_numpy(src), dead_t)
         hit = ids[:, 0] == torch.from_numpy(src)
         base_q = torch.arange(len(src)) < 64
         base_share = float(hit[base_q & live_src].float().mean())
-        check(base_share >= 0.95, f"F {stage} {name}: base sources at rank "
+        check(base_share >= 0.95, f"{stage} {name}: base sources at rank "
               f"1 for only {base_share:.3f}")
         if appended:
             check(bool(hit[~base_q & live_src].all()),
-                  f"F {stage} {name}: a live appended source missed rank 1")
+                  f"{stage} {name}: a live appended source missed rank 1")
         ig = ids.cuda()
         vecs = torch.where(
             (ig < n_base)[..., None], base.vectors[ig.clamp(max=n_base - 1)],
             new[(ig - n_base).clamp(0, new.shape[0] - 1)])
         exact = torch.einsum("qkn,qn->qk", vecs, qn).cpu()
         err = float((exact - scores).abs().max())
-        check(err <= 1e-5, f"F {stage} {name}: scores off the exact cosine "
+        check(err <= 1e-5, f"{stage} {name}: scores off the exact cosine "
               f"by {err}")
         answers[name] = (ids.numpy(), scores.numpy())
         rows[name] = {"batch_latency_s_median": median_after_first(batch_s),
@@ -1585,7 +1621,7 @@ def f_stage(idx, base, new, queries, src, dead, stage, launches,
                       "score_max_abs_err": err}
         if plane:
             rows[name].update(plane_checks(results, obs, name, n_batches,
-                                           f"F {stage} {name}"))
+                                           f"{stage} {name}"))
             want_gens = ["base"] + [f"gen{i}" for i in range(idx.n_segments)]
             want_gens += ["active"] if idx.n_active else []
             for _, _, tree in results[::BATCH]:
@@ -1594,9 +1630,9 @@ def f_stage(idx, base, new, queries, src, dead, stage, launches,
                 parts = {c["name"]: c["attrs"]["candidates"]
                          for c in p1["children"] if c["name"] != "group0"}
                 check(list(parts) == want_gens,
-                      f"F {stage} {name}: phase1 children {list(parts)}")
+                      f"{stage} {name}: phase1 children {list(parts)}")
                 check(sum(parts.values()) == p1["attrs"]["candidates"],
-                      f"F {stage} {name}: candidates {parts} do not add up "
+                      f"{stage} {name}: candidates {parts} do not add up "
                       f"to {p1['attrs']['candidates']}")
             rows[name]["candidates"] = parts
     return answers, {"generations": gens, "n_ids": idx.n_ids,
@@ -1643,6 +1679,70 @@ def hold_live(ids, scores, live, ctx) -> None:
           f"{ctx}: finite count != {want} live rows the page holds")
 
 
+def hold_table(codes, live, quant, q, qcodes, w, where, errs,
+               scorers) -> None:
+    """The kernels of ``scorers`` (``fused_phase1``, ``code_match``) and
+    ``fused_phase1_quant`` held to their plain versions on one table with
+    its live mask, at page ``min(d, PAGE)``: ``fused_phase1`` bit-equal to
+    ``ref.fused_phase1_stream``, ``code_match`` bit-equal to
+    ``ref.match_scores`` and within rtol / atol 1e-5 of
+    ``code_match_plain``, ``fused_phase1_quant`` bit-equal to the split
+    reference and within ``assert_quant_parity`` of
+    ``fused_phase1_quant_ref``; the largest |error| of each goes into
+    ``errs``."""
+    from repro_torch.kernels.code_match import kernel as cm_kernel
+    from repro_torch.kernels.fused_phase1 import kernel as fp_kernel
+    from repro_torch.kernels.fused_phase1 import ref as fp_ref
+
+    c8, sc, zp = quant
+    d = codes.shape[0]
+    page = min(d, PAGE)
+    if "fused_phase1" in scorers:
+        got = fp_kernel.fused_phase1_cuda(codes, qcodes, w, page, live)
+        want = fp_ref.fused_phase1_stream(codes, qcodes, w, page, live,
+                                          block=16384)
+        errs["fused_phase1"] = max(errs["fused_phase1"], assert_fused_parity(
+            got, want, d, where))
+        hold_live(got[1], got[0], live, where)
+        del got, want
+    if "code_match" in scorers:
+        got = cm_kernel.code_match_cuda(codes, qcodes, w)
+        errs["code_match"] = max(errs["code_match"], assert_code_match_close(
+            got, code_match_plain(codes, qcodes, w), where))
+        check(torch.equal(got, match_scores_blocked(codes, qcodes, w)),
+              f"{where}: code_match not bit-equal to match_scores")
+        del got
+    got = fp_kernel.fused_phase1_quant_cuda(c8, sc, zp, q, page, live)
+    want = fp_ref.fused_phase1_quant_ref(c8, sc, zp, q, min(page + 1, d),
+                                         live)
+    errs["fused_phase1_quant"] = max(errs["fused_phase1_quant"],
+                                     assert_quant_parity(got, want, d, where))
+    del want
+    split = quant_split_blocked(c8, sc, zp, q, page, live)
+    fin = torch.isfinite(split[0])
+    check(torch.equal(got[0], split[0])
+          and torch.equal(got[1][fin], split[1][fin]),
+          f"{where}: fused_phase1_quant not bit-equal to the split "
+          "reference")
+    hold_live(got[1], got[0], live, where)
+
+
+def served_weights(idx, queries) -> tuple:
+    """(unit queries, their codes, the trimmed idf weights) as a sharded
+    index's search hands them to its kernels."""
+    from repro_torch.core import TrimFilter
+    from repro_torch.core.filtering import expand_mask, feature_mask
+    from repro_torch.core.postings import idf_weights
+    from repro_torch.core.rerank import normalize
+
+    q = normalize(torch.from_numpy(queries).cuda())
+    qcodes = idx.encoder.encode(q)
+    mask = expand_mask(feature_mask(q, trim=TrimFilter(0.05)),
+                       qcodes.shape[-1])
+    return q, qcodes, torch.where(
+        mask, idf_weights(idx.token_df(q), idx.n_ids), 0.0)
+
+
 def f_holds(idx, queries, ctx) -> dict:
     """Each kernel of the lifecycle held to its plain version on the
     tombstoned tables and live masks the served path hands it, at Q 32:
@@ -1655,89 +1755,48 @@ def f_holds(idx, queries, ctx) -> dict:
     within ``assert_quant_parity`` of ``fused_phase1_quant_ref``,
     ``code_match`` bit-equal to ``ref.match_scores`` and within rtol /
     atol 1e-5 of ``code_match_plain``; -> {kernel: max |error|}."""
-    from repro_torch.core import TrimFilter
-    from repro_torch.core.filtering import expand_mask, feature_mask
-    from repro_torch.core.postings import idf_weights
-    from repro_torch.core.rerank import normalize
-    from repro_torch.kernels.code_match import kernel as cm_kernel
-    from repro_torch.kernels.fused_phase1 import kernel as fp_kernel
-    from repro_torch.kernels.fused_phase1 import ref as fp_ref
-
-    q = normalize(torch.from_numpy(queries[:BATCH]).cuda())
-    qcodes = idx.encoder.encode(q)
-    mask = expand_mask(feature_mask(q, trim=TrimFilter(0.05)),
-                       qcodes.shape[-1])
-    w = torch.where(mask, idf_weights(idx.token_df(q), idx.n_ids), 0.0)
+    q, qcodes, w = served_weights(idx, queries[:BATCH])
     errs = {"fused_phase1": 0.0, "fused_phase1_quant": 0.0,
             "code_match": 0.0}
     tables = []
     if not bool(idx.live.all()):
-        tables.append(("base", idx.codes[0], idx.live[0], idx._quant_base()))
+        tables.append(("base", idx.codes[0], idx.live[0],
+                       [t[0] for t in idx._quant_base()]))
     tables += [(f"generation 0 of {idx.n_segments}", s.codes[0], s.live[0],
-                s.quantized()) for s in idx.segments[:1]]
+                [t[0] for t in s.quantized()]) for s in idx.segments[:1]]
     if idx.seg_capacity:
         tables.append(("active buffer", idx.seg_codes[0], idx.seg_live[0],
-                       idx._quant_active()))
-    for name, codes, live, (c8, sc, zp) in tables:
-        where = (f"F {ctx} {name} ({codes.shape[0]} rows, "
+                       [t[0] for t in idx._quant_active()]))
+    for name, codes, live, quant in tables:
+        where = (f"{ctx} {name} ({codes.shape[0]} rows, "
                  f"{int((~live).sum())} dead)")
-        d = codes.shape[0]
-        page = min(d, PAGE)
-        if name == "base":
-            got = fp_kernel.fused_phase1_cuda(codes, qcodes, w, page, live)
-            want = fp_ref.fused_phase1_stream(codes, qcodes, w, page, live,
-                                              block=16384)
-            errs["fused_phase1"] = max(errs["fused_phase1"],
-                                       assert_fused_parity(
-                                           got, want, d, where))
-            hold_live(got[1], got[0], live, where)
-            del got, want
-        else:
-            got = cm_kernel.code_match_cuda(codes, qcodes, w)
-            errs["code_match"] = max(errs["code_match"],
-                                     assert_code_match_close(
-                                         got, code_match_plain(
-                                             codes, qcodes, w), where))
-            check(torch.equal(got, match_scores_blocked(codes, qcodes, w)),
-                  f"{where}: code_match not bit-equal to match_scores")
-            del got
-        got = fp_kernel.fused_phase1_quant_cuda(c8[0], sc[0], zp[0], q, page,
-                                                live)
-        want = fp_ref.fused_phase1_quant_ref(c8[0], sc[0], zp[0], q,
-                                             min(page + 1, d), live)
-        errs["fused_phase1_quant"] = max(errs["fused_phase1_quant"],
-                                         assert_quant_parity(
-                                             got, want, d, where))
-        del want
-        split = quant_split_blocked(c8[0], sc[0], zp[0], q, page, live)
-        fin = torch.isfinite(split[0])
-        check(torch.equal(got[0], split[0])
-              and torch.equal(got[1][fin], split[1][fin]),
-              f"{where}: fused_phase1_quant not bit-equal to the split "
-              "reference")
-        hold_live(got[1], got[0], live, where)
-        del got, split, fin
-    check(len(tables) >= 2, f"F {ctx}: {len(tables)} tables held")
+        hold_table(codes, live, quant, q, qcodes, w, where, errs,
+                   ("fused_phase1",) if name == "base" else ("code_match",))
+    check(len(tables) >= 2, f"{ctx}: {len(tables)} tables held")
     return {"tables": [t[0] for t in tables], "max_abs_err": errs}
 
 
 def f_history(index, seal_threshold, new, queries, src, victims,
-              launches) -> tuple:
-    """The lifecycle on a ShardedVectorIndex over phase C's index, served
-    through one BatchedSearchEngine: 16 ingest batches between served
-    batches, the tail, delete, merge (segmented only), compact, with
-    ``f_stage`` after each stage; -> ({stage: answers}, the history's
+              launches, mesh=None, tag="F", plane=True) -> tuple:
+    """The lifecycle on a ShardedVectorIndex over phase C's index (one
+    shard, or ``mesh``'s layout), served through one BatchedSearchEngine:
+    16 ingest batches between served batches, the tail, delete, merge
+    (segmented only), compact, with ``f_stage`` after each stage (and,
+    segmented with ``plane``, the full observability plane and two traced
+    batches at 17 generations); -> ({stage: answers}, the history's
     numbers)."""
     from repro_torch.core import TrimFilter
     from repro_torch.dist import ShardedVectorIndex
     from repro_torch.serve import BatchedSearchEngine
 
-    sidx = ShardedVectorIndex.from_index(index, seal_threshold=seal_threshold)
+    sidx = ShardedVectorIndex.from_index(index, seal_threshold=seal_threshold,
+                                         mesh=mesh)
     check(sidx.vectors.data_ptr() == index.vectors.data_ptr()
-          and sidx.post_docs.data_ptr()
-          == index.postings.post_docs.data_ptr(),
+          and (sidx.n_shards > 1 or sidx.post_docs.data_ptr()
+               == index.postings.post_docs.data_ptr()),
           "from_index copied the base")
-    kind = "flat" if seal_threshold is None else "segmented"
+    kind = (f"{tag} " + ("flat" if seal_threshold is None else "segmented")
+            + (f" {sidx.n_shards}x{sidx.n_replicas}" if mesh else ""))
     answers, stages = {}, {}
     answers["built"], stages["built"] = f_stage(
         sidx, index, new, queries, src, (), f"{kind} built", launches)
@@ -1767,17 +1826,17 @@ def f_history(index, seal_threshold, new, queries, src, victims,
               and idx.n_active == (F_TAIL if seal_threshold
                                    else F_NEW + F_TAIL),
               f"{kind}: {idx.n_segments} segments, {idx.n_active} active")
-        progress(f"F {kind}: ingested, median add "
+        progress(f"{kind}: ingested, median add "
                  f"{median_after_first(add_s):.4f} s")
         answers["ingested"], stages["ingested"] = f_stage(
             idx, index, new, queries, src, (), f"{kind} ingested", launches)
-        if seal_threshold is not None:
+        if seal_threshold is not None and plane:
             # every engine again with the full plane, profiled: the same
             # bits as the bare pass
-            plane, stages["ingested"]["plane"] = f_stage(
+            planed, stages["ingested"]["plane"] = f_stage(
                 idx, index, new, queries, src, (), f"{kind} ingested plane",
                 launches, plane=True)
-            for name, (ids, scores) in plane.items():
+            for name, (ids, scores) in planed.items():
                 check(np.array_equal(ids, answers["ingested"][name][0])
                       and np.array_equal(scores,
                                          answers["ingested"][name][1]),
@@ -1796,12 +1855,14 @@ def f_history(index, seal_threshold, new, queries, src, victims,
         idx = eng.index
         check(idx.n_tombstones == len(victims),
               f"{kind}: {idx.n_tombstones} tombstones")
-        progress(f"F {kind}: deleted {len(victims)} ids in {delete_s:.3f} s")
+        progress(f"{kind}: deleted {len(victims)} ids in {delete_s:.3f} s")
         dead = set(victims.tolist())
         answers["deleted"], stages["deleted"] = f_stage(
             idx, index, new, queries, src, dead, f"{kind} deleted", launches,
             engines=F_ENGINES + ("codes",))
-        stages["deleted"]["holds"] = f_holds(idx, queries, f"{kind} deleted")
+        if plane:
+            stages["deleted"]["holds"] = f_holds(idx, queries,
+                                                 f"{kind} deleted")
         merge_s = merged = None
         if seal_threshold is not None:
             t = time.monotonic()
@@ -1814,7 +1875,7 @@ def f_history(index, seal_threshold, new, queries, src, victims,
                   and merged.n_tombstones == len(victims) - F_DELETE_SEALED,
                   "merge_segments(0, 16) reclaimed the wrong rows")
             idx = merged
-            progress(f"F {kind}: merged 16 segments in {merge_s:.3f} s")
+            progress(f"{kind}: merged 16 segments in {merge_s:.3f} s")
             answers["merged"], stages["merged"] = f_stage(
                 idx, index, new, queries, src, dead, f"{kind} merged",
                 launches)
@@ -1826,7 +1887,7 @@ def f_history(index, seal_threshold, new, queries, src, victims,
         check(packed.n_docs == index.n_docs + F_NEW + F_TAIL
               and packed.n_segments == 0 and packed.n_tombstones == 0,
               f"{kind}: compacted to {packed.n_docs} docs")
-        progress(f"F {kind}: compacted in {compact_s:.3f} s")
+        progress(f"{kind}: compacted in {compact_s:.3f} s")
         idx = merged = None        # only the compacted index stays alive
         answers["compacted"], stages["compacted"] = f_stage(
             packed, index, new, queries, src, dead, f"{kind} compacted",
@@ -2170,6 +2231,340 @@ def phase_h(index, f_add_s=None) -> tuple:
     return line, launches
 
 
+def i_answers(results) -> tuple:
+    return (np.stack([r[0] for r in results]),
+            np.stack([r[1] for r in results]))
+
+
+def i_serve(index, s4, s42, queries, src) -> tuple:
+    """Each engine of G_ENGINES served through BatchedSearchEngine on the
+    one-shard index, on 4 x 1, on 4 x 2 and on 4 x 2 with the stream
+    transport, with the checks of phase I step 2; -> ({engine: row},
+    the kernels' launches in the sharded runs)."""
+    from repro_torch.core import TrimFilter
+    from repro_torch.kernels.code_match import kernel as cm_kernel
+    from repro_torch.kernels.fused_phase1 import kernel as fp_kernel
+
+    per = {"fused": {"fused_phase1": fp_kernel.KERNELS_PER_CALL},
+           "fused_int8": {"fused_phase1_quant": fp_kernel.KERNELS_PER_CALL},
+           "codes_pallas": {"code_match": cm_kernel.KERNELS_PER_CALL},
+           "postings": {}, "codes": {}}
+    rows, launches = {}, {}
+    for name in G_ENGINES:
+        qs = queries[:BATCH] if name == "codes" else queries
+        n_b = len(qs) // BATCH
+        flat, flat_s, _ = serve_engine(index, qs, f"I {name} one shard",
+                                       reset_peak=False, engine=name)
+        row = {"batch_latency_s_median": {
+            "1x1": median_after_first(flat_s)}, "launches_per_batch": {}}
+        answers = {}
+        for label, idx, merge in (("4x1", s4, None), ("4x2", s42, None),
+                                  ("4x2 stream", s42, "stream")):
+            reset_launches()
+            res, batch_s, _ = serve_engine(idx, qs, f"I {name} {label}",
+                                           reset_peak=False, engine=name,
+                                           merge=merge)
+            got = read_launches()
+            calls = n_b * idx.n_shards * idx.n_replicas
+            for kname, c in got.items():
+                want = calls * per[name].get(kname, 0)
+                check(c == want, f"I {name} {label}: {kname} launched {c} "
+                      f"CUDA kernels, want {want}")
+                launches[kname] = launches.get(kname, 0) + c
+            answers[label] = i_answers(res)
+            row["batch_latency_s_median"][label] = median_after_first(
+                batch_s)
+            row["launches_per_batch"][label] = {
+                k: c // n_b for k, c in got.items() if c}
+            if label == "4x2":
+                row.update(serve_check(index, qs, src[:len(qs)], res,
+                                       f"I {name} 4x2"))
+        ids, scores = answers["4x2"]
+        for other in ("4x1", "4x2 stream"):
+            check(np.array_equal(ids, answers[other][0])
+                  and np.array_equal(scores, answers[other][1]),
+                  f"I {name}: 4x2 and {other} answers differ")
+        # the union of the shards' pages holds the one-shard page, and a
+        # hit's reported score is the same einsum in both; the selections
+        # differ in the page scorer, so an exact tie may move an ulp
+        top1 = i_answers(flat)[1][:, 0]
+        short = float(np.max(top1 - scores[:, 0]))
+        check(short <= 1e-6, f"I {name}: a sharded top-1 cosine is "
+              f"{short} below the one-shard index's")
+        q = torch.from_numpy(qs[:BATCH])
+        kw = dict(k=K, page=PAGE, trim=TrimFilter(0.05), engine=name)
+        for what, got in (
+                ("live_groups=(1,)", s42.search(q, live_groups=(1,), **kw)),
+                ("replica_group(1)", s42.replica_group(1).search(q, **kw)),
+                ("replica_group(0)", s42.replica_group(0).search(q, **kw))):
+            check(np.array_equal(got[0].cpu().numpy(), ids[:BATCH])
+                  and np.array_equal(got[1].cpu().numpy(), scores[:BATCH]),
+                  f"I {name}: {what} answers differ from the whole")
+        row["top1_margin_over_one_shard_min"] = float(
+            np.min(scores[:, 0] - top1))
+        row["bit_equal"] = True
+        rows[name] = row
+        progress(f"I {name}: {row['batch_latency_s_median']}")
+    return rows, launches
+
+
+def i_depth(index, queries) -> dict:
+    """Phase I step 4: the first I_DEPTH rows at page >= n_ids, where every
+    live doc reaches the exact rescore.  4 x 2 (both transports) against
+    one shard for all six engines; then F's history at a sixteenth of its
+    size on a segmented 4 x 2, a flat 4 x 1 and a segmented one-shard
+    index, all three bit-equal at every stage; -> (the step's numbers,
+    the 65,536-row index, the segmented 4 x 2 history after its merge)."""
+    from repro_torch.core import TrimFilter, VectorIndex
+    from repro_torch.core.postings import build_postings
+    from repro_torch.core.rerank import normalize
+    from repro_torch.launch import make_shard_mesh
+
+    t0 = time.monotonic()
+    small = VectorIndex(index.vectors[:I_DEPTH], index.codes[:I_DEPTH],
+                        build_postings(index.codes[:I_DEPTH]),
+                        index.encoder, index.index_best)
+    q = torch.from_numpy(queries[:BATCH])
+    one = small.shard(seal_threshold=F_SEAL)
+    wide = small.shard(make_shard_mesh(4, 2))
+    for name in ENGINES:
+        kw = dict(k=K, page=I_DEPTH, trim=TrimFilter(0.05), engine=name)
+        want = one.search(q, **kw)
+        for merge in ("gather", "stream"):
+            got = wide.search(q, merge=merge, **kw)
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                               want[1]),
+                  f"I depth {I_DEPTH} {name} {merge}: 4x2 and one shard "
+                  "differ")
+    del wide
+    g = torch.Generator(device="cuda").manual_seed(7)
+    new = normalize(torch.randn((16 * I_BATCH + I_TAIL, N_FEATURES),
+                                generator=g, device="cuda"))
+    rng = np.random.default_rng(7)
+    n = I_DEPTH
+    victims = np.concatenate([
+        rng.choice(n, 512, replace=False),
+        n + rng.choice(16 * I_BATCH, I_BATCH // 2 - I_TAIL, replace=False),
+        n + 16 * I_BATCH + np.arange(I_TAIL)])
+    hist = {"segmented 4x2": small.shard(make_shard_mesh(4, 2),
+                                         seal_threshold=F_SEAL),
+            "flat 4x1": small.shard(make_shard_mesh(4), seal_threshold=None),
+            "segmented 1x1": one}
+
+    def same(stage):
+        idxs = list(hist.values())
+        for name in F_ENGINES:
+            kw = dict(k=K, page=2 * idxs[0].n_ids, trim=TrimFilter(0.05),
+                      engine=name)
+            want = idxs[-1].search(q, **kw)
+            for label, idx in hist.items():
+                for merge in ("gather", "stream"):
+                    got = idx.search(q, merge=merge, **kw)
+                    check(torch.equal(got[0], want[0])
+                          and torch.equal(got[1], want[1]),
+                          f"I depth {stage} {name} {label} {merge}: "
+                          "answers differ from one shard")
+
+    same("built")
+    for b in range(16):
+        rows = new[b * I_BATCH:(b + 1) * I_BATCH]
+        hist = {k: v.add_documents(rows) for k, v in hist.items()}
+    hist = {k: v.add_documents(new[16 * I_BATCH:]) for k, v in hist.items()}
+    check(hist["segmented 4x2"].n_segments == 16
+          and hist["segmented 4x2"].n_active == I_TAIL,
+          "I depth: the ingest did not seal 16 segments")
+    same("ingested")
+    hist = {k: v.delete(victims) for k, v in hist.items()}
+    same("deleted")
+    for k in ("segmented 4x2", "segmented 1x1"):
+        hist[k] = hist[k].merge_segments(0, 16)
+    same("merged")
+    durable = hist["segmented 4x2"]
+    hist = {k: v.compact() for k, v in hist.items()}
+    same("compacted")
+    del hist
+    return {"n_docs": I_DEPTH, "engines_at_build": list(ENGINES),
+            "lifecycle_engines": list(F_ENGINES),
+            "appended": 16 * I_BATCH + I_TAIL, "deleted": len(victims),
+            "bit_equal_4x2_flat_4x1_one_shard": True,
+            "s": time.monotonic() - t0}, small, durable
+
+
+def i_store(s4, small, durable, queries) -> dict:
+    """Phase I step 6: the 4-shard index of phase C's rows committed and
+    recovered onto 4 x 2 (every leaf and answer identical); at depth, a
+    segmented 4 x 2 history made durable, killed and recovered onto 4 x 2
+    with its ops replayed, and a one-shard commit restored onto 4 shards
+    equal to from_index; -> the step's numbers."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import TrimFilter
+    from repro_torch.launch import make_shard_mesh
+    from repro_torch.store import Store, latest_commit, recover, restore
+    from repro_torch.store import write_commit
+
+    root = pathlib.Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_shards_", dir=root)
+    out = {}
+    q = torch.from_numpy(queries[:BATCH])
+    try:
+        fs, free = filesystem(store_dir)
+        row = N_FEATURES * 4 + s4.codes.shape[-1] * s4.codes.element_size() + 1
+        need = row * s4.n_docs + (2 << 30)     # one base, the depth stores
+        check(free >= need, f"I: {free} bytes free under {store_dir}, "
+              f"{need} needed")
+        store = Store(os.path.join(store_dir, "full"))
+        stats = {}
+        t = time.monotonic()
+        store.open_index(s4, stats=stats)
+        out["commit_s"] = time.monotonic() - t
+        out["commit_bytes"] = stats["bytes_written"]
+        store.close()
+        rstats = {}
+        t = time.monotonic()
+        rec, seq = recover(os.path.join(store_dir, "full"),
+                           mesh=make_shard_mesh(4, 2), stats=rstats)
+        out["recover_s"] = time.monotonic() - t
+        out["recover"] = rstats
+        check(rec.n_shards == 4 and rec.n_replicas == 2 and seq == 0,
+              f"I: recovered {rec.n_shards} x {rec.n_replicas} at seq {seq}")
+        h_same_leaves(s4, rec, "I 4x2 recovery")
+        for name in F_ENGINES:
+            kw = dict(k=K, page=PAGE, trim=TrimFilter(0.05), engine=name)
+            a, b = s4.search(q, **kw), rec.search(q, **kw)
+            check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+                  f"I {name}: recovered 4x2 and live 4x1 answers differ")
+        del rec
+        torch.cuda.empty_cache()
+        progress(f"I: 4-shard commit in {out['commit_s']:.2f} s, recovery "
+                 f"onto 4x2 in {out['recover_s']:.2f} s")
+
+        # at depth: ops replayed onto 4 x 2, and a one-shard commit
+        # re-placed onto 4 shards
+        path = os.path.join(store_dir, "depth")
+        store = Store(path)
+        live = store.open_index(durable)
+        g = torch.Generator(device="cuda").manual_seed(8)
+        live = live.add_documents(torch.randn((3 * I_BATCH, N_FEATURES),
+                                              generator=g, device="cuda"))
+        live = live.delete(np.arange(0, durable.n_ids, 97))
+        store.close()
+        store = Store(path)
+        rec, seq = store.recover(mesh=make_shard_mesh(4, 2))
+        store.close()
+        check(seq == live.translog_seq == 2,
+              f"I depth: recovered seq {seq}, live {live.translog_seq}")
+        h_same_leaves(live.inner, rec.inner, "I depth 4x2 recovery")
+        for name in ENGINES:
+            kw = dict(k=K, page=2 * live.n_ids, trim=TrimFilter(0.05),
+                      engine=name)
+            a, b = live.search(q, **kw), rec.search(q, **kw)
+            check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+                  f"I depth {name}: recovered and live answers differ")
+        path = os.path.join(store_dir, "one")
+        write_commit(path, small.shard(), 0)
+        got = restore(latest_commit(path), mesh=make_shard_mesh(4))
+        h_same_leaves(small.shard(make_shard_mesh(4)), got,
+                      "I one-shard commit onto 4 shards")
+        out.update(depth_replay_ops=2, one_shard_onto_four=True,
+                   filesystem=fs)
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+    return out
+
+
+def phase_i(index, queries, src, smi, one_shard_medians=None) -> tuple:
+    """Doc-sharding and replica groups on phase C's index (run after H):
+    4 doc-shards x 1 and x 2 replica groups viewing its tensors, served,
+    held to one shard, its kernels held to their plain versions on a
+    shard, the lifecycle and the store at 4 shards; -> (the phase line,
+    the kernels' launches in its main-path runs)."""
+    from repro_torch.core import TrimFilter
+    from repro_torch.dist import ShardedVectorIndex
+    from repro_torch.launch import make_shard_mesh
+
+    t_phase = time.monotonic()
+    qt = index.quantized            # the int8 table the shards view
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t = time.monotonic()
+    s42 = ShardedVectorIndex.from_index(index, mesh=make_shard_mesh(4, 2))
+    torch.cuda.synchronize()
+    postings_s = time.monotonic() - t
+    s4 = s42.replica_group(0)
+    b8, bsc, bzp = s42._quant_base()
+    check(s42.vectors.data_ptr() == index.vectors.data_ptr()
+          and s42.codes.data_ptr() == index.codes.data_ptr()
+          and b8.data_ptr() == qt.codes.data_ptr()
+          and bsc.data_ptr() == qt.scale.data_ptr()
+          and bzp.data_ptr() == qt.zero.data_ptr(),
+          "I: from_index copied the vectors, codes or int8 table")
+    check(s42.docs_per_shard * 4 == index.n_docs
+          and tuple(s42.vectors.shape[:2]) == (4, index.n_docs // 4),
+          f"I: shards of {tuple(s42.vectors.shape)}")
+    check(s4.n_replicas == 1 and s42.n_replicas == 2
+          and all(getattr(s4, n) is getattr(s42, n) for n in (
+              "vectors", "codes", "post_docs", "post_codes", "live"))
+          and s42.replica_group(1)._quant_base() is s42._quant_base(),
+          "I: replica groups do not share the tensors")
+    build = {"postings_s": postings_s,
+             "postings_bytes": s42.post_docs.nbytes + s42.post_codes.nbytes,
+             "peak_bytes_over_held": torch.cuda.max_memory_allocated() - held}
+    progress(f"I: 4 x {index.n_docs // 4} shards, per-shard postings in "
+             f"{postings_s:.2f} s")
+
+    rows, launches = i_serve(index, s4, s42, queries, src)
+    # one fused_int8 batch traced on each layout (one shard: phases D and
+    # G): S (and R) times the launches and host steps of a batch, against
+    # the device's busy time
+    qs = torch.from_numpy(queries[:BATCH])
+    kw = dict(k=K, page=PAGE, trim=TrimFilter(0.05), engine="fused_int8")
+    traces = {label: trace_batch(lambda idx=idx: idx.search(qs, **kw))
+              for label, idx in (("4x1", s4), ("4x2", s42))}
+
+    q, qcodes, w = served_weights(s4, queries[:BATCH])
+    errs = {"fused_phase1": 0.0, "fused_phase1_quant": 0.0,
+            "code_match": 0.0}
+    hold_table(s4.codes[1], s4.live[1], (b8[1], bsc[1], bzp[1]), q, qcodes,
+               w, "I shard 1 of 4", errs, ("fused_phase1", "code_match"))
+    del q, qcodes, w
+
+    depth, small, durable = i_depth(index, queries)
+    store = i_store(s4, small, durable, queries)
+    del s4, s42, small, durable
+    torch.cuda.empty_cache()
+
+    new, f_queries, f_src, victims = f_workload(index)
+    _, hist = f_history(index, F_SEAL, new, f_queries, f_src, victims,
+                        launches, mesh=make_shard_mesh(4), tag="I",
+                        plane=False)
+    line = {"phase": "I", "device": smi, "n_docs": index.n_docs,
+            "layouts": ["4x1", "4x2"],
+            "docs_per_shard": index.n_docs // 4, "build": build,
+            "batch_latency_s_median": {
+                n: r["batch_latency_s_median"] for n, r in rows.items()},
+            "one_shard_phase_cd_median": one_shard_medians,
+            "launches_per_batch": {n: r["launches_per_batch"]
+                                   for n, r in rows.items()},
+            "engines": rows, "trace_fused_int8": traces,
+            "kernels_vs_plain_shard_1": errs,
+            "kernels_max_abs_err": errs, "depth": depth,
+            "lifecycle_4x1": {k: hist[k] for k in (
+                "add_s_median", "add_s", "delete_s", "merge_s",
+                "compact_s")},
+            "lifecycle_latency_s_median": {
+                st: {n: r["batch_latency_s_median"] for n, r
+                     in hist["stages"][st]["engines"].items()}
+                for st in hist["stages"]},
+            "store": store, "launches": launches,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "phase_s": time.monotonic() - t_phase}
+    return line, launches
+
+
 def quality(ids, sims, gold_ids, gold_sims) -> dict:
     from repro_torch.core import avg_diff, ndcg_k, precision_at_k
 
@@ -2319,7 +2714,7 @@ def phase_e() -> tuple:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="ABCDEFGH")
+    ap.add_argument("--phases", default="ABCDEFGHI")
     args = ap.parse_args(argv)
 
     src = pathlib.Path(__file__).resolve().parent / "src"
@@ -2392,7 +2787,7 @@ def main(argv=None) -> int:
               f"{scorers}, want 0")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    a = c = None
+    a = c = d_summary = None
     a_err = {}
     kd = {}
     by_phase = {}
@@ -2412,6 +2807,7 @@ def main(argv=None) -> int:
         if "D" in args.phases:
             summary, kd = phase_d(gen, index, queries, src, raw_state)
             emit(summary)
+            d_summary = summary
             by_phase["D"] = {name: k["launches"] for name, k in kd.items()}
         if "G" in args.phases:
             line, by_phase["G"] = phase_g(index, queries, src)
@@ -2426,6 +2822,15 @@ def main(argv=None) -> int:
         if "H" in args.phases:
             line, by_phase["H"] = phase_h(index, f_add_s)
             emit(line)
+        if "I" in args.phases:
+            one_shard = {"fused": c["batch_latency_s_median"]}
+            if d_summary is not None:
+                one_shard.update(d_summary["batch_latency_s_median"])
+            line, by_phase["I"] = phase_i(index, queries, src, smi,
+                                          one_shard)
+            emit(line)
+            for name, err in line["kernels_max_abs_err"].items():
+                a_err[name] = max(a_err.get(name, 0.0), err)
         del index
         torch.cuda.empty_cache()
     if "E" in args.phases:

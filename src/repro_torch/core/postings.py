@@ -52,14 +52,18 @@ class Postings(NamedTuple):
     n_docs: int
 
 
-def build_postings(codes: torch.Tensor) -> Postings:
+def build_postings(codes: torch.Tensor, out=None) -> Postings:
     """codes: (d, C) -> Postings, by a stable sort of every column.
 
-    Columns are sorted a block at a time into preallocated int32 tables,
-    so the int64 sort indices never exist for the whole table."""
+    Columns are sorted a block at a time into preallocated int32 tables
+    (``out``: a (post_docs, post_codes) pair of (C, d) tensors to fill,
+    such as one shard's slices of a sharded index's tables), so the int64
+    sort indices never exist for the whole table."""
     d, C = codes.shape
-    post_docs = torch.empty((C, d), dtype=torch.int32, device=codes.device)
-    post_codes = torch.empty((C, d), dtype=codes.dtype, device=codes.device)
+    if out is None:
+        out = (torch.empty((C, d), dtype=torch.int32, device=codes.device),
+               torch.empty((C, d), dtype=codes.dtype, device=codes.device))
+    post_docs, post_codes = out
     for j in range(0, C, _SORT_COLUMNS):
         vals, order = torch.sort(codes[:, j:j + _SORT_COLUMNS], dim=0,
                                  stable=True)

@@ -292,14 +292,16 @@ class VectorIndex:
             profile_phase(profile, "rescore", t_prof, self.device, k=k)
         return ids, scores
 
-    def shard(self, **kwargs):
-        """This index as a one-shard
-        :class:`repro_torch.dist.shard_index.ShardedVectorIndex` sharing
-        every tensor: the same ``search`` contract, plus ingest, delete,
-        segment merges and compaction (``kwargs``: ``seal_threshold``)."""
+    def shard(self, mesh=None, **kwargs):
+        """This index split over ``mesh``'s doc-shards and replica groups
+        (one shard by default) as a
+        :class:`repro_torch.dist.shard_index.ShardedVectorIndex` on this
+        index's device, viewing its tensors where the rows split evenly:
+        the same ``search`` contract, plus ingest, delete, segment merges
+        and compaction (``kwargs``: ``seal_threshold``)."""
         from repro_torch.dist.shard_index import ShardedVectorIndex
 
-        return ShardedVectorIndex.from_index(self, **kwargs)
+        return ShardedVectorIndex.from_index(self, mesh=mesh, **kwargs)
 
     def gold_topk(self, queries, k: int = 10):
         """Paper's gold standard: brute-force cosine scan over all vectors.

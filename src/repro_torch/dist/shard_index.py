@@ -1,13 +1,38 @@
-"""Two-phase search over a base plus Lucene-style segments, at one shard.
+"""Doc-sharded two-phase search with the segment lifecycle, S shards x R
+replica groups on one device.
 
-:class:`ShardedVectorIndex` is the reference's doc-sharded index held on
-one device: its tensors keep the leading shard axis, at size 1
-(``vectors (1, dp, n)``, ``codes (1, dp, C)``, ``post_docs`` /
-``post_codes (1, C, dp)``, ``seg_* (1, G, ...)``), so round-robin routing,
-seal widths and the repacking of :meth:`merge_segments` are the
-reference's formulas verbatim.  Where the reference holds a mesh, it holds
-a device: every build method takes ``device`` (``"cuda"`` unless the caller
-asks for the CPU) and every tensor lives there.
+:class:`ShardedVectorIndex` is the reference's doc-sharded index: its
+tensors keep the leading shard axis (``vectors (S, dp, n)``, ``codes (S,
+dp, C)``, ``post_docs`` / ``post_codes (S, C, dp)``, ``offsets (S,)``,
+``live (S, dp)``, ``seg_* (S, G, ...)``) and shard ``s`` holds the
+contiguous id range ``[offsets[s], offsets[s] + dp)``; a ragged tail is
+padded with zero rows, sentinel codes and ``live=False``.  The layout is a
+:class:`repro_torch.launch.mesh.ShardMesh` (``mesh=``): S doc-shards along
+``data`` and R replica groups along ``replica``, every cell on one device,
+so a shard is a slice of one tensor and the R groups share every tensor.
+``device=`` alone is the one-shard, one-group mesh on that device
+(``"cuda"`` unless the caller asks for the CPU).
+
+A query runs the reference's query/fetch protocol:
+
+1. **query phase**, per shard: phase 1 over the shard's base and its
+   column of every generation, with idf weights from the document
+   frequencies summed over the shards (integer-exact, over the global
+   ``n_ids``); the shard's stable top-``page``, the page's exact cosines
+   (:func:`repro_torch.core.rerank.tree_dot`) and its ids made global;
+2. **merge phase**: ``merge="gather"`` joins the shard pages shard-major
+   and takes one stable top-``k``; ``merge="stream"`` folds the pages in
+   shard order into a running stable top-``k`` over ``[acc | page]``, so
+   at most ``k + page`` candidates a query are held.  Both keep the lower
+   shard (then the lower page slot) on ties, so they return the same bits.
+   The hits are then rescored unsharded, at the ``(Q, k, n)`` shape.
+
+**Replica groups.**  A batch is zero-padded to ``U * B`` rows for the
+``U`` live groups and row-block ``j`` runs the query phase on group
+``groups[j]``; pad rows are dropped before the rescore, whose shape they
+would change.  ``search(live_groups=...)`` serves from the named groups
+only (the failover path), and :meth:`replica_group` views one group as a
+one-group index sharing the tensors: the unit a router batches.
 
 **The segment story.**
 
@@ -29,14 +54,14 @@ asks for the CPU) and every tensor lives there.
   must not be used again (the serving engine donates only when no batch
   in flight holds the index).
 
-**Search** scores the base, then each generation (sealed segments oldest
-first, then the active buffer), keeps the top ``page`` of the joined
-positions ``[base | generations... | active]`` by a stable selection (the
-order of append, so ties go to the lower id), re-ranks the page by exact
-cosine and keeps ``k``.  Sealing must be invisible: a row has to score the
-same bits in a 4,096-row segment as in a 65,536-row flat buffer.  So every
-generation is scored by a function whose per-row bits do not depend on
-the table's width:
+**Per shard**, phase 1 scores the base, then each generation (sealed
+segments oldest first, then the active buffer), and keeps the top ``page``
+of the joined positions ``[base | generations... | active]`` by a stable
+selection (the order of append, so ties go to the lower id).  Sealing and
+sharding must be invisible: a row has to score the
+same bits in a 4,096-row segment as in a 65,536-row flat buffer, and in a
+shard as in the whole table.  So every generation is scored by a function
+whose per-row bits do not depend on the table's width:
 
 * the code-matching engines (``postings``, ``codes``, ``onehot``,
   ``codes_pallas``, ``fused``) score generations with ``code_match``,
@@ -49,7 +74,8 @@ the table's width:
   :func:`repro_torch.core.rerank.exact_scores`.
 
 A segmented index and a flat one (``seal_threshold=None``) given the same
-history return the same ids and scores bit for bit.  Result slots that no
+history return the same ids and scores bit for bit; at ``page >= n_ids``
+so do S shards and one, for every engine.  Result slots that no
 live doc can fill report ``(id=-1, score=-inf)``.  idf weighting uses
 ``N = n_ids`` (every id ever assigned, Elasticsearch's ``maxDoc``).
 """
@@ -90,33 +116,76 @@ Quant = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def _quantize(vectors: torch.Tensor) -> Quant:
-    """(codes (1, W, n) int8, scale (1, W), zero (1, W)) of (1, W, n) rows."""
-    t = quantize_table(vectors[0])
-    return t.codes[None], t.scale[None], t.zero[None]
+    """(codes (S, W, n) int8, scale (S, W), zero (S, W)) of (S, W, n) rows:
+    the quantization is row-wise, so the whole table at once."""
+    ns, w, n = vectors.shape
+    t = quantize_table(vectors.reshape(ns * w, n))
+    return (t.codes.view(ns, w, n), t.scale.view(ns, w),
+            t.zero.view(ns, w))
 
 
 def _postings(codes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The (1, C, W) posting tables of (1, W, C) codes."""
-    p = build_postings(codes[0])
-    return p.post_docs[None], p.post_codes[None]
+    """The (S, C, W) posting tables of (S, W, C) codes, each shard's sorted
+    into its slice."""
+    ns, w, n_cols = codes.shape
+    pdocs = torch.empty((ns, n_cols, w), dtype=torch.int32,
+                        device=codes.device)
+    pcodes = torch.empty((ns, n_cols, w), dtype=codes.dtype,
+                         device=codes.device)
+    for s in range(ns):
+        build_postings(codes[s], out=(pdocs[s], pcodes[s]))
+    return pdocs, pcodes
+
+
+def resolve_mesh(mesh, device) -> "ShardMesh":
+    """The layout an entry point builds on: ``mesh``, or the one-shard
+    mesh on ``device`` (the card when neither is given)."""
+    from repro_torch.launch.mesh import make_shard_mesh
+
+    if mesh is not None and device is not None:
+        raise ValueError("pass mesh= or device=, not both")
+    if mesh is None:
+        mesh = make_shard_mesh(1, device="cuda" if device is None else device)
+    mesh.device                 # raises for a grid over several devices
+    return mesh
+
+
+def _same_device(a, b) -> bool:
+    a, b = torch.device(a), torch.device(b)
+    return a.type == b.type and (a.index is None or b.index is None
+                                 or a.index == b.index)
+
+
+def _partition(n: int, ns: int) -> Tuple[int, int]:
+    """(docs per shard, pad rows) of ``n`` docs over ``ns`` contiguous
+    shards."""
+    if ns > n:
+        raise ValueError(f"more shards ({ns}) than documents ({n})")
+    dp = -(-n // ns)
+    return dp, ns * dp - n
+
+
+def _offsets(ns: int, dp: int, device) -> torch.Tensor:
+    return torch.arange(ns, dtype=torch.int32, device=device) * dp
 
 
 @dataclasses.dataclass
 class Segment:
     """One immutable sealed generation of appended docs.
 
-    Rows are the exact round-robin width; the mini posting table answers
+    Rows are round-robin over the shards, at the exact width of the
+    fullest shard; the per-shard mini posting tables answer
     df lookups.  The only changes are tombstones (through
     :meth:`ShardedVectorIndex.delete`, which returns a new Segment with
     rebuilt postings) and replacement by a merge.  ``n_rows`` and
     ``tombstones`` are host ints."""
 
-    vectors: torch.Tensor     # (1, G, n) f32 unit rows; zero rows pad
-    codes: torch.Tensor       # (1, G, C) int; sentinel = dead or padding
-    gids: torch.Tensor        # (1, G) int32 global ids; -1 = padding
-    live: torch.Tensor        # (1, G) bool
-    post_docs: torch.Tensor   # (1, C, G) int32
-    post_codes: torch.Tensor  # (1, C, G)
+    vectors: torch.Tensor     # (S, G, n) f32 unit rows; zero rows pad
+    codes: torch.Tensor       # (S, G, C) int; sentinel = dead or padding
+    gids: torch.Tensor        # (S, G) int32 global ids; -1 = padding
+    live: torch.Tensor        # (S, G) bool
+    post_docs: torch.Tensor   # (S, C, G) int32
+    post_codes: torch.Tensor  # (S, C, G)
     n_rows: int               # rows holding a doc, live or tombstoned
     tombstones: int           # dead rows among n_rows
 
@@ -141,18 +210,19 @@ class Segment:
 
 @dataclasses.dataclass
 class ShardedVectorIndex:
-    """:class:`VectorIndex` plus segments and tombstones, at one shard."""
+    """:class:`VectorIndex` split into doc-shards, plus segments and
+    tombstones, on a :class:`~repro_torch.launch.mesh.ShardMesh`."""
 
-    vectors: torch.Tensor      # (1, dp, n) f32 unit rows; zero rows pad
-    codes: torch.Tensor        # (1, dp, C) int; sentinel = tombstone
-    post_docs: torch.Tensor    # (1, C, dp) int32
-    post_codes: torch.Tensor   # (1, C, dp)
-    offsets: torch.Tensor      # (1,) int32 global id of the shard's doc 0
-    live: torch.Tensor         # (1, dp) bool; False = tombstone
-    seg_vectors: torch.Tensor  # (1, G, n) f32 active buffer
-    seg_codes: torch.Tensor    # (1, G, C) int; sentinel = empty or dead
-    seg_gids: torch.Tensor     # (1, G) int32; -1 = never used
-    seg_live: torch.Tensor     # (1, G) bool
+    vectors: torch.Tensor      # (S, dp, n) f32 unit rows; zero rows pad
+    codes: torch.Tensor        # (S, dp, C) int; sentinel = pad or tombstone
+    post_docs: torch.Tensor    # (S, C, dp) int32
+    post_codes: torch.Tensor   # (S, C, dp)
+    offsets: torch.Tensor      # (S,) int32 global id of each shard's doc 0
+    live: torch.Tensor         # (S, dp) bool; False = pad or tombstone
+    seg_vectors: torch.Tensor  # (S, G, n) f32 active buffer
+    seg_codes: torch.Tensor    # (S, G, C) int; sentinel = empty or dead
+    seg_gids: torch.Tensor     # (S, G) int32; -1 = never used
+    seg_live: torch.Tensor     # (S, G) bool
     segments: Tuple[Segment, ...]   # sealed generations, oldest first
     encoder: Encoder
     n_docs: int                # base id-space size
@@ -162,6 +232,14 @@ class ShardedVectorIndex:
     seal_threshold: Optional[int] = DEFAULT_SEAL_THRESHOLD
     seg_base: int = 0          # append count at the active buffer's start
     active_tombstones: int = 0  # dead rows in the active buffer
+    mesh: Optional["ShardMesh"] = None   # None: one shard, one group
+
+    def __post_init__(self):
+        if self.mesh is None:
+            self.mesh = resolve_mesh(None, self.vectors.device)
+        if self.mesh.n_shards != self.vectors.shape[0]:
+            raise ValueError(f"{self.vectors.shape[0]} shards on a mesh of "
+                             f"{self.mesh.n_shards}")
 
     # ------------------------------------------------------------ properties
     @property
@@ -171,6 +249,10 @@ class ShardedVectorIndex:
     @property
     def n_shards(self) -> int:
         return self.vectors.shape[0]
+
+    @property
+    def n_replicas(self) -> int:
+        return self.mesh.n_replicas
 
     @property
     def docs_per_shard(self) -> int:
@@ -241,13 +323,13 @@ class ShardedVectorIndex:
 
     @property
     def max_df(self) -> int:
-        """Longest live posting list over every column: the exact
-        ``max_postings`` window.  Cached per instance (mutations return new
+        """Longest live posting list over every shard and column: the exact
+        per-shard ``max_postings`` window.  Cached per instance (mutations return new
         instances)."""
         cached = self.__dict__.get("_max_df_cache")
         if cached is None:
-            cached = _max_df(self.post_codes[0],
-                             _SENTINEL[self.codes.dtype])
+            cached = max(_max_df(pc, _SENTINEL[self.codes.dtype])
+                         for pc in self.post_codes)
             self.__dict__["_max_df_cache"] = cached
         return cached
 
@@ -279,6 +361,21 @@ class ShardedVectorIndex:
                 out.__dict__[key] = self.__dict__[key]
         return out
 
+    # ------------------------------------------------------------- replicas
+    def replica_group(self, g: int) -> "ShardedVectorIndex":
+        """Replica group ``g`` as a one-group index over the same tensors
+        (and derived tables): the unit a router fronts with its own
+        batcher, searched, mutated and compacted on its own."""
+        R = self.n_replicas
+        if not 0 <= g < R:
+            raise ValueError(f"replica group must be in [0, {R}), got {g}")
+        if R == 1:
+            return self
+        out = dataclasses.replace(self, mesh=self.mesh.column(g))
+        if "_max_df_cache" in self.__dict__:
+            out.__dict__["_max_df_cache"] = self.__dict__["_max_df_cache"]
+        return self._carry_quant(out, base=True, active=True)
+
     # --------------------------------------------------------- introspection
     def token_df(self, queries) -> torch.Tensor:
         """Per-token document frequencies (Q, C) int32, exactly what the
@@ -288,28 +385,32 @@ class ShardedVectorIndex:
         return self._df(self.encoder.encode(q))
 
     def _df(self, qcodes: torch.Tensor) -> torch.Tensor:
-        df = df_lookup(Postings(self.post_docs[0], self.post_codes[0],
-                                self.docs_per_shard), qcodes)
-        for s in self.segments:
+        """Live document frequencies summed over the shards, integer-exact:
+        the base's and each sealed segment's posting tables, and the active
+        buffer's codes."""
+        df = _shards_df(self.post_docs, self.post_codes, qcodes)
+        for seg in self.segments:
             # sealed generations answer off their mini posting tables
-            df = df + df_lookup(Postings(s.post_docs[0], s.post_codes[0],
-                                         s.width), qcodes)
+            df = df + _shards_df(seg.post_docs, seg.post_codes, qcodes)
         if self.seg_capacity:
-            df = df + code_df(self.seg_codes[0], qcodes)
+            df = df + code_df(self.seg_codes.reshape(-1, qcodes.shape[-1]),
+                              qcodes)
         return df
 
     # ----------------------------------------------------------------- build
     @classmethod
-    def _empty_active(cls, n_feat: int, n_cols: int, code_dtype,
+    def _empty_active(cls, ns: int, n_feat: int, n_cols: int, code_dtype,
                       device) -> dict:
-        """The ``seg_*`` tensors of an empty active buffer."""
+        """The ``seg_*`` tensors of an empty active buffer over ``ns``
+        shards."""
         return {
-            "seg_vectors": torch.zeros((1, 0, n_feat), device=device),
-            "seg_codes": torch.full((1, 0, n_cols), _SENTINEL[code_dtype],
+            "seg_vectors": torch.zeros((ns, 0, n_feat), device=device),
+            "seg_codes": torch.full((ns, 0, n_cols), _SENTINEL[code_dtype],
                                     dtype=code_dtype, device=device),
-            "seg_gids": torch.full((1, 0), -1, dtype=torch.int32,
+            "seg_gids": torch.full((ns, 0), -1, dtype=torch.int32,
                                    device=device),
-            "seg_live": torch.zeros((1, 0), dtype=torch.bool, device=device)}
+            "seg_live": torch.zeros((ns, 0), dtype=torch.bool,
+                                    device=device)}
 
     @classmethod
     def build_sharded(
@@ -320,66 +421,95 @@ class ShardedVectorIndex:
         *,
         live=None,
         seal_threshold: Optional[int] = DEFAULT_SEAL_THRESHOLD,
-        device="cuda",
+        mesh=None,
+        device=None,
     ) -> "ShardedVectorIndex":
-        """Normalize -> encode -> ``index_best`` masking -> posting tables,
-        on ``device``.  ``live=False`` rows (how :meth:`compact` carries
-        tombstones) become zero vectors with sentinel codes."""
-        v = torch.as_tensor(vectors, dtype=torch.float32, device=device)
+        """Normalize -> encode -> ``index_best`` masking -> per-shard
+        posting tables, on ``mesh`` (or the one-shard mesh on ``device``).
+        Rows split into contiguous shards, the last padded.  ``live=False``
+        rows (how :meth:`compact` carries tombstones) become zero vectors
+        with sentinel codes."""
+        mesh = resolve_mesh(mesh, device)
+        dev = mesh.device
+        v = torch.as_tensor(vectors, dtype=torch.float32, device=dev)
         if v.ndim != 2:
             raise ValueError(
                 f"vectors must be 2-D, got shape {tuple(v.shape)}")
         n, n_feat = v.shape
-        if n < 1:
-            raise ValueError(f"more shards (1) than documents ({n})")
-        lv = (torch.ones((n,), dtype=torch.bool, device=device) if live is None
-              else torch.as_tensor(live, dtype=torch.bool, device=device))
+        ns = mesh.n_shards
+        dp, pad = _partition(n, ns)
+        lv = (torch.ones((n,), dtype=torch.bool, device=dev) if live is None
+              else torch.as_tensor(live, dtype=torch.bool, device=dev))
         v = normalize(v)
+        if pad:
+            v = torch.cat([v, torch.zeros((pad, n_feat), device=dev)])
+            lv = torch.cat([lv, torch.zeros((pad,), dtype=torch.bool,
+                                            device=dev)])
         v.masked_fill_(~lv[:, None], 0.0)
         codes = encode_table(v, encoder, index_best)
         codes.masked_fill_(~lv[:, None], _SENTINEL[codes.dtype])
-        pdocs, pcodes = _postings(codes[None])
-        return cls(vectors=v[None], codes=codes[None], post_docs=pdocs,
-                   post_codes=pcodes,
-                   offsets=torch.zeros((1,), dtype=torch.int32,
-                                       device=device),
-                   live=lv[None], encoder=encoder, n_docs=n,
-                   index_best=index_best, seal_threshold=seal_threshold,
-                   segments=(), **cls._empty_active(
-                       n_feat, codes.shape[1], codes.dtype, device))
+        codes = codes.view(ns, dp, -1)
+        pdocs, pcodes = _postings(codes)
+        return cls(vectors=v.view(ns, dp, n_feat), codes=codes,
+                   post_docs=pdocs, post_codes=pcodes,
+                   offsets=_offsets(ns, dp, dev), live=lv.view(ns, dp),
+                   encoder=encoder, n_docs=n, index_best=index_best,
+                   seal_threshold=seal_threshold, segments=(), mesh=mesh,
+                   **cls._empty_active(ns, n_feat, codes.shape[-1],
+                                       codes.dtype, dev))
 
     @classmethod
     def from_index(cls, index: VectorIndex, *,
                    seal_threshold: Optional[int] = DEFAULT_SEAL_THRESHOLD,
-                   ) -> "ShardedVectorIndex":
-        """One shard over ``index``, sharing its tensors (views, no copy;
-        at one shard the shard's posting tables are the index's), and its
-        int8 table when it has one."""
-        n, dev = index.n_docs, index.device
-        out = cls(vectors=index.vectors[None], codes=index.codes[None],
-                  post_docs=index.postings.post_docs[None],
-                  post_codes=index.postings.post_codes[None],
-                  offsets=torch.zeros((1,), dtype=torch.int32, device=dev),
-                  live=torch.ones((1, n), dtype=torch.bool, device=dev),
+                   mesh=None) -> "ShardedVectorIndex":
+        """``index`` split over ``mesh``'s shards (one shard by default),
+        on the index's device.  The vectors, codes and int8 table (when
+        the index has one) are views of the index's wherever ``n_docs``
+        divides by the shard count (padded copies otherwise); at one shard
+        the posting tables are the index's, at S they are rebuilt per
+        shard.  Replica groups share every tensor."""
+        dev = index.device
+        mesh = resolve_mesh(mesh, None if mesh is not None else dev)
+        if not _same_device(mesh.device, dev):
+            raise ValueError(f"the index is on {dev}, the mesh on "
+                             f"{mesh.device}")
+        n, n_feat, ns = index.n_docs, index.n_features, mesh.n_shards
+        dp, pad = _partition(n, ns)
+        vectors, codes = index.vectors, index.codes
+        if pad:
+            vectors = torch.cat([vectors, vectors.new_zeros((pad, n_feat))])
+            codes = torch.cat([codes, codes.new_full(
+                (pad, codes.shape[1]), _SENTINEL[codes.dtype])])
+        codes = codes.view(ns, dp, -1)
+        if ns == 1:
+            pdocs = index.postings.post_docs[None]
+            pcodes = index.postings.post_codes[None]
+        else:
+            pdocs, pcodes = _postings(codes)
+        live = (torch.arange(dp, device=dev)[None, :]
+                < (n - torch.arange(ns, device=dev) * dp)[:, None])
+        out = cls(vectors=vectors.view(ns, dp, n_feat), codes=codes,
+                  post_docs=pdocs, post_codes=pcodes,
+                  offsets=_offsets(ns, dp, dev), live=live,
                   encoder=index.encoder, n_docs=n,
                   index_best=index.index_best, seal_threshold=seal_threshold,
-                  segments=(), **cls._empty_active(
-                      index.n_features, index.codes.shape[1],
-                      index.codes.dtype, dev))
+                  segments=(), mesh=mesh, **cls._empty_active(
+                      ns, n_feat, codes.shape[-1], codes.dtype, dev))
         qt = index.__dict__.get("_quant_cache")
-        if qt is not None:
-            out.__dict__["_quant_base_cache"] = (qt.codes[None],
-                                                 qt.scale[None],
-                                                 qt.zero[None])
+        if qt is not None and not pad:
+            out.__dict__["_quant_base_cache"] = (
+                qt.codes.view(ns, dp, n_feat), qt.scale.view(ns, dp),
+                qt.zero.view(ns, dp))
         return out
 
     @classmethod
-    def build(cls, vectors, encoder=None, index_best=None, device="cuda"):
+    def build(cls, vectors, encoder=None, index_best=None, device=None,
+              mesh=None):
         """:meth:`build_sharded` with the default encoder unless one is
         given."""
         kwargs = {} if encoder is None else {"encoder": encoder}
         return cls.build_sharded(vectors, index_best=index_best,
-                                 device=device, **kwargs)
+                                 device=device, mesh=mesh, **kwargs)
 
     # ---------------------------------------------------------------- ingest
     def add_documents(self, vectors, *,
@@ -468,8 +598,8 @@ class ShardedVectorIndex:
         out = dataclasses.replace(
             self, segments=self.segments + (seg,), seg_base=self.n_appended,
             active_tombstones=0, **self._empty_active(
-                self.n_features, self.codes.shape[-1], self.codes.dtype,
-                self.device))
+                self.n_shards, self.n_features, self.codes.shape[-1],
+                self.codes.dtype, self.device))
         return self._carry_quant(out, base=True)
 
     def delete(self, ids) -> "ShardedVectorIndex":
@@ -569,7 +699,7 @@ class ShardedVectorIndex:
         return type(self).build_sharded(
             table_v, encoder=self.encoder, index_best=self.index_best,
             live=table_l, seal_threshold=self.seal_threshold,
-            device=self.device)
+            mesh=self.mesh)
 
     def merge_segments(self, start: int = 0,
                        count: Optional[int] = None) -> "ShardedVectorIndex":
@@ -655,66 +785,96 @@ class ShardedVectorIndex:
         weighting: str = "idf",
         max_postings: "Optional[int | str]" = None,
         merge: str = "gather",
+        live_groups: Optional[Tuple[int, ...]] = None,
         profile=None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Two-phase search over base + generations -> (ids (Q, k) int32,
-        exact cosine scores (Q, k) f32), on the index's device.
+        """Two-phase search over base + generations of every shard -> (ids
+        (Q, k) int32, exact cosine scores (Q, k) f32), on the index's
+        device.
 
-        Same contract as :meth:`VectorIndex.search`, with ids global.
+        Same contract as :meth:`VectorIndex.search`, with ids global, and
+        bit-identical to it at ``page >= n_docs`` for either ``merge``
+        transport (``"gather"`` or ``"stream"``) and any replica count.
         ``max_postings="auto"`` sizes the postings window from
-        :attr:`max_df`, exact like ``None``.  ``merge`` is the reference's
-        transport (``"gather"`` or ``"stream"``); at one shard the stream's
-        running top-``k`` is the top-``k`` of the shard's page, so both
-        return the same bits.
+        :attr:`max_df`, exact like ``None``.  ``live_groups`` names the
+        replica groups that serve (the failover mask; every group by
+        default): the batch's row-blocks go to those groups only.
 
         ``profile`` is an optional
         :class:`repro_torch.obs.profile.ProfileNode` that receives the
-        reference's children: encode, phase1 (with ``group0``, ``base``,
-        one ``gen{i}`` per sealed segment and ``active``, each with its
-        candidate count: a read of the page's ids to the host, made in
-        profile mode only), merge_select and rescore."""
+        reference's children: encode, phase1 (with one ``group{g}`` per
+        group that served rows, ``base``, one ``gen{i}`` per sealed segment
+        and ``active``, each with its candidate count: a read of the page's
+        ids to the host, made in profile mode only), merge_select and
+        rescore."""
         if merge not in ("gather", "stream"):
             raise ValueError(f"unknown merge transport {merge!r}")
         t_prof = time.monotonic() if profile is not None else 0.0
+        R = self.n_replicas
+        if live_groups is None:
+            groups = tuple(range(R))
+        else:
+            groups = tuple(sorted({int(g) for g in live_groups}))
+            if not groups or groups[0] < 0 or groups[-1] >= R:
+                raise ValueError(
+                    f"live_groups must be a non-empty subset of [0, {R}), "
+                    f"got {live_groups}")
         q = torch.atleast_2d(torch.as_tensor(queries, dtype=torch.float32,
                                              device=self.device))
         page = min(page, self.n_ids)
         k = min(k, page)
         page_loc = min(page, self.docs_per_shard + self.seg_capacity
                        + sum(s.width for s in self.segments))
-        n_q = q.shape[0]
+        # round-robin over the live groups: row-block j of the batch,
+        # zero-padded to U * B rows, runs on group groups[j]
+        n_q, U = q.shape[0], len(groups)
+        B = -(-n_q // U)
+        if U * B > n_q:
+            q = torch.cat([q, q.new_zeros((U * B - n_q, q.shape[1]))])
         q = normalize(q)
         qcodes = self.encoder.encode(q)
         mask = expand_mask(feature_mask(q, trim=trim, best=best),
                            qcodes.shape[-1])
         if profile is not None:
             t_prof = profile_phase(profile, "encode", t_prof, self.device,
-                                   n_queries=n_q, groups=1)
+                                   n_queries=n_q, groups=U)
         if max_postings == "auto":
             max_postings = max(1, self.max_df)
         L = (self.docs_per_shard if max_postings is None
              else min(max_postings, self.docs_per_shard))
-        gid, s2, cvec = self._query_phase(q, qcodes, mask, engine, weighting,
-                                          L, page_loc)
-        if merge == "stream":
-            _, pos = stable_topk(s2, k)
-            gid, s2, cvec = _take(pos, gid, s2, cvec)
+        # every group holds this index's tensors: block j's query phase
+        # runs on them for group groups[j]
+        blocks = []
+        for j in range(U):
+            rows = slice(j * B, (j + 1) * B)
+            pages = self._shard_pages(q[rows], qcodes[rows], mask[rows],
+                                      engine, weighting, L, page_loc)
+            blocks.append(_stream_merge(pages, k) if merge == "stream"
+                          else _gather_merge(pages))
+        # pad rows leave before the rescore, whose (Q, k, n) shape they
+        # would change
+        gid, s2, cvec = (torch.cat(t)[:n_q] for t in zip(*blocks))
+        q = q[:n_q]
         if profile is None:
             return _merge_phase(gid, s2, cvec, q, k)
         profile_phase(profile, "phase1", t_prof, self.device, engine=engine,
                       kernel=engine if engine in FUSED_ENGINES
                       else "composed", page=page, page_loc=page_loc, k=k,
                       merge=merge)
-        self._count_candidates(profile.children[-1], gid, n_q)
+        self._count_candidates(profile.children[-1], gid, n_q, groups, B)
         return _merge_phase(gid, s2, cvec, q, k, profile=profile,
                             generations=len(self.segments) + int(
                                 bool(self.n_appended and self.seg_capacity)))
 
-    def _count_candidates(self, node, gid, n_q) -> None:
-        """The phase1 node's candidate counts, as the reference takes them:
-        the page's ids read to the host, split by membership into the
-        base, each sealed segment and the active buffer."""
-        node.child("group0", n_queries=n_q)
+    def _count_candidates(self, node, gid, n_q, groups, B) -> None:
+        """The phase1 node's children, as the reference makes them: the
+        queries each group served, then the candidate counts of the page's
+        ids read to the host, split by membership into the base, each
+        sealed segment and the active buffer."""
+        for j, g in enumerate(groups):
+            nq_j = max(0, min(n_q, (j + 1) * B) - j * B)
+            if nq_j:
+                node.child(f"group{g}", n_queries=nq_j)
         gh = gid.cpu().numpy()
         valid = gh[gh >= 0]
         node.attrs["candidates"] = int(valid.size)
@@ -731,26 +891,24 @@ class ShardedVectorIndex:
                        tombstones=self.active_tombstones,
                        candidates=int(np.isin(appended, ag[ag >= 0]).sum()))
 
-    def _generations(self) -> List[Tuple[torch.Tensor, ...]]:
-        """(vectors, codes, gids, live) of each generation, (W, .) each:
-        the sealed segments oldest first, then the active buffer."""
-        gens = [(s.vectors[0], s.codes[0], s.gids[0], s.live[0])
-                for s in self.segments]
+    def _generations(self, s: int) -> List[Tuple[torch.Tensor, ...]]:
+        """(vectors, codes, gids, live) of each generation's column on
+        shard ``s``, (W, .) each: the sealed segments oldest first, then
+        the active buffer."""
+        gens = [(g.vectors[s], g.codes[s], g.gids[s], g.live[s])
+                for g in self.segments]
         if self.seg_capacity:
-            gens.append((self.seg_vectors[0], self.seg_codes[0],
-                         self.seg_gids[0], self.seg_live[0]))
+            gens.append((self.seg_vectors[s], self.seg_codes[s],
+                         self.seg_gids[s], self.seg_live[s]))
         return gens
 
-    def _query_phase(self, q, qcodes, mask, engine, weighting, max_postings,
-                     page_loc):
-        """Phase 1 over base + generations and the page's exact cosines
-        -> (gids (Q, P) int32, scores (Q, P), vectors (Q, P, n)); slots
-        that hold no live doc score -inf."""
-        dp = self.docs_per_shard
-        codes, lv = self.codes[0], self.live[0]
-        gens = self._generations()
-        quant = engine == "fused_int8"
-        if quant:
+    def _shard_pages(self, q, qcodes, mask, engine, weighting, max_postings,
+                     page_loc) -> list:
+        """The query phase: idf weights from the document frequencies
+        summed over the shards, then each shard's page of ``page_loc``
+        candidates -> [(gids (Q, P) int32, scores (Q, P), vectors
+        (Q, P, n))] in shard order."""
+        if engine == "fused_int8":
             w = None    # reads no tokens: no df, no idf
         elif weighting == "idf":
             w = idf_weights(self._df(qcodes), self.n_ids)
@@ -761,6 +919,16 @@ class ShardedVectorIndex:
             raise ValueError(f"unknown weighting {weighting!r}")
         if w is not None:
             w = torch.where(mask, w, 0.0)
+        return [self._shard_page(s, q, qcodes, w, engine, max_postings,
+                                 page_loc) for s in range(self.n_shards)]
+
+    def _shard_page(self, s, q, qcodes, w, engine, max_postings, page_loc):
+        """Phase 1 over shard ``s``'s base + generations and the page's
+        exact cosines -> (gids (Q, P) int32, scores (Q, P), vectors
+        (Q, P, n))."""
+        dp = self.docs_per_shard
+        codes, lv = self.codes[s], self.live[s]
+        gens = self._generations(s)
 
         if engine in FUSED_ENGINES:
             from repro_torch.kernels.fused_phase1 import ops as fp_ops
@@ -768,11 +936,11 @@ class ShardedVectorIndex:
             # the fused kernel's top min(page_loc, dp) of the base holds
             # every base doc the joined selection can take
             p_base = min(page_loc, dp)
-            if quant:
+            if engine == "fused_int8":
                 b8, bsc, bzp = self._quant_base()
-                parts = [fp_ops.fused_phase1_quant(b8[0], bsc[0], bzp[0], q,
+                parts = [fp_ops.fused_phase1_quant(b8[s], bsc[s], bzp[s], q,
                                                    page=p_base, live=lv)]
-                tables = [s.quantized() for s in self.segments]
+                tables = [g.quantized() for g in self.segments]
                 if self.seg_capacity:
                     tables.append(self._quant_active())
                 # each generation's own top page, sorted by score with ties
@@ -782,15 +950,15 @@ class ShardedVectorIndex:
                 # reach the joined top page_loc
                 for (g8, gsc, gzp), (_, _, _, gl) in zip(tables, gens):
                     parts.append(fp_ops.fused_phase1_quant(
-                        g8[0], gsc[0], gzp[0], q,
+                        g8[s], gsc[s], gzp[s], q,
                         page=min(gl.shape[0], page_loc), live=gl))
             else:
                 parts = [fp_ops.fused_phase1(codes, qcodes, w, page=p_base,
                                              live=lv)]
                 for _, gc, _, gl in gens:
-                    s = _generation_scores(gc, gl, qcodes, w)
-                    parts.append((s, torch.arange(
-                        s.shape[1], device=s.device).expand_as(s)))
+                    sc = _generation_scores(gc, gl, qcodes, w)
+                    parts.append((sc, torch.arange(
+                        sc.shape[1], device=sc.device).expand_as(sc)))
             if len(parts) == 1:
                 cand_s, cand = parts[0]
                 cand = cand.long()
@@ -798,13 +966,13 @@ class ShardedVectorIndex:
                 offs = [0, dp]
                 for g in gens[:-1]:
                     offs.append(offs[-1] + g[0].shape[0])
-                cat_s = torch.cat([s for s, _ in parts], dim=1)
+                cat_s = torch.cat([p for p, _ in parts], dim=1)
                 cat_i = torch.cat([i.long() + o for (_, i), o
                                    in zip(parts, offs)], dim=1)
                 cand_s, pos = stable_topk(cat_s, page_loc)
                 cand = torch.gather(cat_i, 1, pos)
         else:
-            postings = Postings(self.post_docs[0], self.post_codes[0], dp)
+            postings = Postings(self.post_docs[s], self.post_codes[s], dp)
             s1 = phase1_engine_scores(codes, postings, qcodes, w, engine,
                                       max_postings,
                                       self.encoder.max_abs_bucket)
@@ -815,23 +983,23 @@ class ShardedVectorIndex:
             del parts
             cand_s, cand = stable_topk(s1, page_loc)
 
-        cvec, live_c, gid = self._gather(cand, gens)
+        cvec, live_c, gid = self._gather(s, cand, gens)
         s2 = tree_dot(cvec, q[:, None, :])
         # the fused kernels' -inf slots carry unspecified ids: -inf by the
         # phase-1 score, not only by the row's live flag
         s2 = s2.masked_fill(~live_c | torch.isneginf(cand_s), _NEG_INF)
         return gid, s2, cvec
 
-    def _gather(self, cand, gens):
-        """Rows of the joined positions ``cand`` (Q, P) -> (vectors
-        (Q, P, n), live (Q, P), gids (Q, P) int32): one gather from the
-        base and one from the generations, joined into one table for this
-        call (a few MB per 4,096 rows, against a (Q, P, n) gather per
-        generation)."""
+    def _gather(self, s, cand, gens):
+        """Rows of shard ``s``'s joined positions ``cand`` (Q, P) ->
+        (vectors (Q, P, n), live (Q, P), global ids (Q, P) int32): one
+        gather from the base and one from the generations, joined into one
+        table for this call (a few MB per 4,096 rows, against a (Q, P, n)
+        gather per generation)."""
         dp = self.docs_per_shard
         base = cand.clamp(max=dp - 1)
-        cvec, live_c = self.vectors[0][base], self.live[0][base]
-        gid = (base + self.offsets[0]).to(torch.int32)
+        cvec, live_c = self.vectors[s][base], self.live[s][base]
+        gid = (base + self.offsets[s]).to(torch.int32)
         if not gens:
             return cvec, live_c, gid
         gv, gg, gl = (torch.cat(t) for t in zip(*((v, g, l)
@@ -844,6 +1012,16 @@ class ShardedVectorIndex:
         return cvec, live_c, gid
 
 
+def _shards_df(post_docs, post_codes, qcodes) -> torch.Tensor:
+    """(Q, C) int32 document frequencies summed over the S shards of
+    (S, C, W) posting tables: one lookup over the S * C sorted rows."""
+    ns, n_cols, w = post_codes.shape
+    df = df_lookup(Postings(post_docs.reshape(ns * n_cols, w),
+                            post_codes.reshape(ns * n_cols, w), w),
+                   qcodes.repeat(1, ns))
+    return df.view(-1, ns, n_cols).sum(dim=1, dtype=torch.int32)
+
+
 def _generation_scores(codes, live, qcodes, w) -> torch.Tensor:
     """(Q, W) code-match scores of one generation, -inf where not live:
     the ``code_match`` kernel on the card, its plain version on the CPU;
@@ -852,6 +1030,28 @@ def _generation_scores(codes, live, qcodes, w) -> torch.Tensor:
 
     return cm_ops.code_match(codes, qcodes, w).masked_fill(~live[None, :],
                                                            _NEG_INF)
+
+
+def _gather_merge(pages):
+    """The shard pages joined shard-major: (gids, scores, vectors) of
+    width S * P."""
+    if len(pages) == 1:
+        return pages[0]
+    return tuple(torch.cat(t, dim=1) for t in zip(*pages))
+
+
+def _stream_merge(pages, k):
+    """The shard pages folded in shard order into a running stable top-
+    ``k``: each step selects from ``[acc | page]``, the accumulator first,
+    so ties keep the lower shard and the fold returns the gather's top-
+    ``k`` bit for bit, holding at most ``k + P`` candidates a query."""
+    acc = None
+    for page in pages:
+        cat = page if acc is None else tuple(
+            torch.cat(t, dim=1) for t in zip(acc, page))
+        _, pos = stable_topk(cat[1], min(k, cat[1].shape[1]))
+        acc = _take(pos, *cat)
+    return acc
 
 
 def _take(pos, gid, s2, cvec):

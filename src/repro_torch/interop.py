@@ -9,8 +9,8 @@ run one model or search one index:
 * ``lsa_from_numpy``: an ``LsaPipeline`` (idf, V, singular values, doc
   vectors), so ``embed`` and ``fold_in`` run on the same model;
 * ``mlt_from_numpy``: an ``MLTIndex`` (its term postings and the corpus);
-* ``sharded_from_numpy``: a one-shard ``ShardedVectorIndex`` (its base,
-  active buffer and sealed segments, and the host counters).
+* ``sharded_from_numpy``: a ``ShardedVectorIndex`` of any shard count
+  (its base, active buffer and sealed segments, and the host counters).
 
 This module imports no JAX: the caller does the ``np.asarray``.
 """
@@ -27,7 +27,8 @@ from repro_torch.core.mlt import MLTIndex, TermPostings
 from repro_torch.core.postings import Postings
 from repro_torch.core.search import VectorIndex
 from repro_torch.dist.shard_index import (DEFAULT_SEAL_THRESHOLD, Segment,
-                                          ShardedVectorIndex)
+                                          ShardedVectorIndex, resolve_mesh)
+from repro_torch.launch.mesh import make_shard_mesh
 from repro_torch.lsa import LsaModel, LsaPipeline, TfIdf
 
 __all__ = ["index_from_numpy", "lsa_from_numpy", "mlt_from_numpy",
@@ -98,20 +99,20 @@ def mlt_from_numpy(
 
 
 def sharded_from_numpy(
-    vectors: np.ndarray,       # (1, dp, n) f32
-    codes: np.ndarray,         # (1, dp, C) int
-    post_docs: np.ndarray,     # (1, C, dp) int32
-    post_codes: np.ndarray,    # (1, C, dp) int
-    offsets: np.ndarray,       # (1,) int32
-    live: np.ndarray,          # (1, dp) bool
+    vectors: np.ndarray,       # (S, dp, n) f32
+    codes: np.ndarray,         # (S, dp, C) int
+    post_docs: np.ndarray,     # (S, C, dp) int32
+    post_codes: np.ndarray,    # (S, C, dp) int
+    offsets: np.ndarray,       # (S,) int32
+    live: np.ndarray,          # (S, dp) bool
     encoder: Encoder,
     n_docs: int,
     index_best: Optional[int] = None,
     *,
-    seg_vectors: Optional[np.ndarray] = None,   # (1, G, n); None: empty
-    seg_codes: Optional[np.ndarray] = None,     # (1, G, C)
-    seg_gids: Optional[np.ndarray] = None,      # (1, G) int32
-    seg_live: Optional[np.ndarray] = None,      # (1, G) bool
+    seg_vectors: Optional[np.ndarray] = None,   # (S, G, n); None: empty
+    seg_codes: Optional[np.ndarray] = None,     # (S, G, C)
+    seg_gids: Optional[np.ndarray] = None,      # (S, G) int32
+    seg_live: Optional[np.ndarray] = None,      # (S, G) bool
     segments: Sequence = (),   # (vectors, codes, gids, live, post_docs,
                                #  post_codes, n_rows, tombstones) each
     n_appended: int = 0,
@@ -119,14 +120,25 @@ def sharded_from_numpy(
     seal_threshold: Optional[int] = DEFAULT_SEAL_THRESHOLD,
     seg_base: int = 0,
     active_tombstones: int = 0,
-    device="cuda",
+    mesh=None,
+    device=None,
 ) -> ShardedVectorIndex:
-    """Port a one-shard :class:`ShardedVectorIndex` on ``device`` from the
-    numpy leaves of a JAX ``ShardedVectorIndex`` and its host counters;
-    its segments come along when given.  Raises ``ValueError`` for more
-    than one shard."""
-    if vectors.shape[0] != 1:
-        raise ValueError(f"one shard only, got {vectors.shape[0]}")
+    """Port a :class:`ShardedVectorIndex` from the numpy leaves of a JAX
+    ``ShardedVectorIndex`` and its host counters, on ``mesh`` (or, on
+    ``device``, the one-group mesh of the leaves' S shards); its segments
+    come along when given.  Raises ``ValueError`` when the leaves' shard
+    count is not the mesh's."""
+    ns = vectors.shape[0]
+    if mesh is None:
+        mesh = make_shard_mesh(ns, device="cuda" if device is None
+                               else device)
+    else:
+        mesh = resolve_mesh(mesh, device)
+    if mesh.n_shards != ns or np.shape(offsets) != (ns,):
+        raise ValueError(f"leaves of {ns} shards (offsets "
+                         f"{np.shape(offsets)}) on a mesh of "
+                         f"{mesh.n_shards} shards")
+    device = mesh.device
     codes_t = _put(codes, device)
     if codes_t.dtype != encoder.code_dtype:
         raise TypeError(f"codes are {codes_t.dtype}, encoder "
@@ -134,7 +146,7 @@ def sharded_from_numpy(
     f32, i32 = torch.float32, torch.int32
     if seg_vectors is None:
         active = ShardedVectorIndex._empty_active(
-            vectors.shape[2], codes.shape[2], codes_t.dtype, device)
+            ns, vectors.shape[2], codes.shape[2], codes_t.dtype, device)
     else:
         active = {"seg_vectors": _put(seg_vectors, device, f32),
                   "seg_codes": _put(seg_codes, device, codes_t.dtype),
@@ -156,4 +168,4 @@ def sharded_from_numpy(
         n_appended=int(n_appended),
         shard_tombstones=tuple(int(x) for x in shard_tombstones),
         seal_threshold=seal_threshold, seg_base=int(seg_base),
-        active_tombstones=int(active_tombstones), **active)
+        active_tombstones=int(active_tombstones), mesh=mesh, **active)

@@ -43,16 +43,17 @@ snapshot`)                       model: the index splits into
                                  GC deletes only blobs NO retained
                                  manifest references (never the
                                  fallback's), under the store lock.
-                                 ``restore`` rebuilds the index on
-                                 ``device`` from a writer of ANY shard
-                                 count -- ES snapshot/restore into a
-                                 differently sized cluster -- by host
-                                 re-placement and one copy per leaf.
+                                 ``restore`` rebuilds the index on a
+                                 mesh of S shards x R groups from a
+                                 writer of ANY shard count -- ES
+                                 snapshot/restore into a differently
+                                 sized cluster -- by host re-placement
+                                 and one copy per leaf.
 :func:`recover`                  peer-less shard recovery: open the
 (:mod:`~repro_torch.store.       newest commit, truncate the translog's
 recovery`)                       torn tail, replay ops past the commit's
                                  seqno through the live ingest code paths
-                                 on ``device`` -- the recovered index is
+                                 on the mesh -- the recovered index is
                                  bit-identical to the lost one.
 :class:`Store` /                 the shard data path + the write-through
 :class:`DurableIndex`            discipline: apply in memory, translog
@@ -64,8 +65,10 @@ durable`)                        an acked op survives the process, and a
                                  swaps as the commit metadata.
 ===============================  ==========================================
 
-Entry points take ``device`` (``"cuda"`` unless the caller asks for
-``"cpu"``) where the JAX package's take a mesh.
+Entry points take ``mesh=`` (a
+:class:`repro_torch.launch.mesh.ShardMesh`) where the JAX package's take a
+mesh, or ``device=`` alone for one shard (``"cuda"`` unless the caller
+asks for ``"cpu"``).
 """
 
 from repro_torch.store.durable import DurableIndex, Store

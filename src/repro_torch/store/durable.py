@@ -122,23 +122,25 @@ class Store:
         # existence check only -- no point streaming a full-corpus CRC
         return latest_commit(self.path, validate=False) is not None
 
-    def recover_index(self, device="cuda"):
-        """Crash-recover on ``device`` -> (raw index, seqno), serialized
+    def recover_index(self, device=None, *, mesh=None):
+        """Crash-recover on ``mesh`` (or at one shard on ``device``, the
+        card when neither is given) -> (raw index, seqno), serialized
         against concurrent commits (whose translog trim would otherwise
         unlink generation files out from under the replay scan)."""
         t0 = time.monotonic()
         with self._lock:
-            out = recover(self.path, device)
+            out = recover(self.path, device, mesh=mesh)
         self.metrics.counter("store.recoveries").inc()
         self.metrics.histogram("store.recovery.duration_s").observe(
             time.monotonic() - t0)
         return out
 
-    def recover(self, device="cuda") -> "Tuple[DurableIndex, int]":
-        """Crash-recover on ``device`` -> (write-through wrapped index,
-        seqno).  The wrapper's ``translog_seq`` resumes at the recovered
+    def recover(self, device=None, *,
+                mesh=None) -> "Tuple[DurableIndex, int]":
+        """Crash-recover on ``mesh`` or ``device`` -> (write-through
+        wrapped index, seqno).  The wrapper's ``translog_seq`` resumes at the recovered
         position, so the next ingest logs at the right offset."""
-        index, seq = self.recover_index(device)
+        index, seq = self.recover_index(device, mesh=mesh)
         return DurableIndex(index, self, seq=seq), seq
 
     def open_index(self, index, *, allow_existing: bool = False,

@@ -8,11 +8,12 @@ store directory:
 1. :func:`repro_torch.store.snapshot.latest_commit` picks the newest
    commit whose manifest and blob checksums verify (falling back to
    earlier generations past a torn newest commit), and
-   :func:`~repro_torch.store.snapshot.restore` rebuilds it on ``device``;
+   :func:`~repro_torch.store.snapshot.restore` rebuilds it on the mesh
+   (or at one shard on ``device``);
 2. :func:`repro_torch.store.translog.read_ops` replays records with
    ``seq > commit.seq`` -- torn tails are truncated, checksummed records
    are applied through the SAME ``add_documents``/``delete`` code paths
-   the live ingest ran, on the same device.  Replay re-runs the identical
+   the live ingest ran, on the same layout.  Replay re-runs the identical
    normalize/encode on the identical logged inputs -- and re-SEALS
    append segments at identical boundaries, because sealing is a pure
    function of the op history -- so the recovered index is bit-identical
@@ -51,9 +52,11 @@ def _clock(device) -> float:
     return time.monotonic()
 
 
-def recover(store_dir: str, device="cuda", stats: Optional[dict] = None,
-            ) -> Tuple[ShardedVectorIndex, int]:
-    """Rebuild the index from disk on ``device`` -> (index, last seqno).
+def recover(store_dir: str, device=None, stats: Optional[dict] = None, *,
+            mesh=None) -> Tuple[ShardedVectorIndex, int]:
+    """Rebuild the index from disk on ``mesh`` (S shards x R replica
+    groups), or at one shard on ``device`` (the card when neither is
+    given) -> (index, last seqno).
 
     The commit may come from a writer with any shard count (see
     :func:`repro_torch.store.snapshot.restore`); the returned seqno is
@@ -66,8 +69,8 @@ def recover(store_dir: str, device="cuda", stats: Optional[dict] = None,
     if commit is None:
         raise NoCommitError(f"no valid commit point in {store_dir!r}")
     t1 = time.monotonic()
-    index = restore(commit, device)
-    t2 = _clock(device) if stats is not None else 0.0
+    index = restore(commit, device, mesh=mesh)
+    t2 = _clock(index.device) if stats is not None else 0.0
     seq, ops, rows = commit.seq, 0, 0
     for rec_seq, op, payload in read_ops(store_dir, after_seq=seq,
                                          truncate_torn=True):
@@ -82,6 +85,6 @@ def recover(store_dir: str, device="cuda", stats: Optional[dict] = None,
         seq, ops = rec_seq, ops + 1
     if stats is not None:
         stats.update(validate_s=t1 - t0, restore_s=t2 - t1,
-                     replay_s=_clock(device) - t2, replay_ops=ops,
+                     replay_s=_clock(index.device) - t2, replay_ops=ops,
                      replay_rows=rows)
     return index, seq

@@ -45,15 +45,18 @@ is never deleted, however old.  The :class:`~repro_torch.store.durable.
 Store` serializes commit and recovery on one lock, so a restore in
 progress never has a referenced blob unlinked under it.
 
-:func:`restore` rebuilds a :class:`ShardedVectorIndex` at this package's
-one shard on ``device``.  From a commit written at one shard every stored
-leaf reloads verbatim; from a writer with more shards (the JAX package on
-an S-device mesh) rows re-place by the rules ingest and merge use: active
-rows by their append offset (``gid - n_docs - seg_base``), sealed rows by
-gid rank, and ``shard_tombstones`` collapses to the writer's total.  The
-posting tables of the base and of each segment are rebuilt with the live
-index's own stable sort, so they are bit-identical to the committed
-index's.  Derived caches (the int8 tables, ``max_df``) are not stored:
+:func:`restore` rebuilds a :class:`ShardedVectorIndex` on a mesh of S
+shards x R replica groups (or at one shard on ``device``).  The base is
+stored as the flat rows ``[0, n_docs)`` and splits into S contiguous
+shards.  From a writer with S shards every stored leaf of the active
+buffer and the segments reloads verbatim; from a writer with another
+count (the JAX package on its own mesh, or this package at another
+layout) rows re-place by the rules ingest and merge use: active rows by
+their append offset (``gid - n_docs - seg_base``) round-robin, sealed rows
+by gid rank round-robin, and ``shard_tombstones`` spreads the writer's
+total evenly, as the JAX package spreads it.  The posting tables of the
+base and of each segment are rebuilt per shard with the live index's own
+stable sort, so they are bit-identical to the committed index's.  Derived caches (the int8 tables, ``max_df``) are not stored:
 each is rebuilt at first use.
 """
 
@@ -77,7 +80,8 @@ from repro_torch.core.encoding import (CombinedEncoder, Encoder,
                                        IntervalEncoder, RoundingEncoder)
 from repro_torch.core.search import _SENTINEL
 from repro_torch.dist.shard_index import (Segment, ShardedVectorIndex,
-                                          _postings)
+                                          _offsets, _partition, _postings,
+                                          resolve_mesh)
 
 from .translog import _fsync_dir
 
@@ -536,33 +540,45 @@ def latest_commit(store_dir: str, *,
 
 
 # ---------------------------------------------------------------- restore
-def _replace_rows(part: dict, slot: torch.Tensor, width: int, nf: int,
-                  n_cols: int, sentinel: int) -> tuple:
-    """(1, width, .) leaves holding the used rows of a host blob ``part``
-    (gid >= 0, in blob order) at ``slot``; spare slots are sentinel-coded,
-    gid -1, dead."""
+def _replace_rows(part: dict, rank: torch.Tensor, ns: int, width: int,
+                  nf: int, n_cols: int, sentinel: int) -> tuple:
+    """(S, width, .) leaves holding the used rows of a host blob ``part``
+    (gid >= 0, in blob order), the row of rank ``r`` in slot ``r // S`` of
+    shard ``r % S``; spare slots are sentinel-coded, gid -1, dead."""
     rows = part["gids"].reshape(-1) >= 0
     cdtype = part["codes"].dtype
-    mv = torch.zeros((1, width, nf))
-    mc = torch.full((1, width, n_cols), sentinel, dtype=cdtype)
-    mg = torch.full((1, width), -1, dtype=torch.int32)
-    ml = torch.zeros((1, width), dtype=torch.bool)
-    mv[0, slot] = part["vectors"].reshape(-1, nf)[rows]
-    mc[0, slot] = part["codes"].reshape(-1, n_cols)[rows]
-    mg[0, slot] = part["gids"].reshape(-1)[rows]
-    ml[0, slot] = part["live"].reshape(-1)[rows]
+    mv = torch.zeros((ns, width, nf))
+    mc = torch.full((ns, width, n_cols), sentinel, dtype=cdtype)
+    mg = torch.full((ns, width), -1, dtype=torch.int32)
+    ml = torch.zeros((ns, width), dtype=torch.bool)
+    sh, sl = rank % ns, rank // ns
+    mv[sh, sl] = part["vectors"].reshape(-1, nf)[rows]
+    mc[sh, sl] = part["codes"].reshape(-1, n_cols)[rows]
+    mg[sh, sl] = part["gids"].reshape(-1)[rows]
+    ml[sh, sl] = part["live"].reshape(-1)[rows]
     return mv, mc, mg, ml
 
 
-def restore(commit: CommitPoint, device="cuda") -> ShardedVectorIndex:
-    """Rebuild the index of ``commit`` at one shard on ``device``.
+def _pad_rows(t: torch.Tensor, pad: int, value) -> torch.Tensor:
+    if not pad:
+        return t
+    return torch.cat([t, t.new_full((pad,) + tuple(t.shape[1:]), value)])
 
-    From a one-shard writer every stored leaf reloads verbatim, so each is
-    bit-identical to the committed index's.  From a writer with more
-    shards, rows re-place on the host by the rules ingest and merge use
-    (active rows by append offset, sealed rows by gid rank) and each leaf
-    is copied to ``device`` once.  Posting tables (base + per-segment) are
-    rebuilt on ``device`` by the live index's own stable sort."""
+
+def restore(commit: CommitPoint, device=None, *,
+            mesh=None) -> ShardedVectorIndex:
+    """Rebuild the index of ``commit`` on ``mesh`` (S shards x R replica
+    groups), or at one shard on ``device`` (the card when neither is
+    given).
+
+    From a writer of S shards every stored leaf reloads verbatim, so each
+    is bit-identical to the committed index's.  From a writer of another
+    shard count, rows re-place on the host by the rules ingest and merge
+    use (active rows by append offset, sealed rows by gid rank) and each
+    leaf is copied to the device once.  Posting tables (base + per-segment)
+    are rebuilt per shard by the live index's own stable sort."""
+    mesh = resolve_mesh(mesh, device)
+    device = mesh.device
     meta = commit.meta
     store_dir = commit.data_path
     files = meta["files"]
@@ -577,15 +593,19 @@ def restore(commit: CommitPoint, device="cuda") -> ShardedVectorIndex:
     n_act = n_app - seg_base
     nf, C = int(meta["n_features"]), int(meta["code_columns"])
     encoder = encoder_from_meta(meta["encoder"])
-    same_shards = int(meta["writer_shards"]) == 1
+    ns = mesh.n_shards
+    dp, pad = _partition(n_docs, ns)
+    same_shards = int(meta["writer_shards"]) == ns
 
-    # one shard: the base is the blob's rows, no padding
-    vectors = blob(files["base_vectors"])["vectors"].reshape(1, n_docs, nf)
+    # the base: the blob's rows split into contiguous shards, the last
+    # padded with zero rows, sentinel codes and live=False
+    vectors = _pad_rows(blob(files["base_vectors"])["vectors"], pad, 0.0)
     base_state = blob(files["base_state"])
-    codes = base_state["codes"].reshape(1, n_docs, C)
-    live = base_state["live"].reshape(1, n_docs)
-    cdtype = codes.dtype
+    cdtype = base_state["codes"].dtype
     sentinel = _SENTINEL[cdtype]
+    codes = _pad_rows(base_state["codes"], pad, sentinel).view(ns, dp, C)
+    live = _pad_rows(base_state["live"], pad, False).view(ns, dp)
+    vectors = vectors.view(ns, dp, nf)
     pdocs, pcodes = _postings(codes)
 
     # ----- active append buffer
@@ -595,14 +615,14 @@ def restore(commit: CommitPoint, device="cuda") -> ShardedVectorIndex:
     elif n_act:
         # a fresh geometric ladder, as one add_documents from empty
         # would allocate; the j-th doc appended since the last seal sits
-        # in slot j
+        # in slot j // S of shard j % S
         act = blob(files["active"], "cpu")
         gids = act["gids"].reshape(-1)
-        slot = gids[gids >= 0].long() - n_docs - seg_base
+        j = gids[gids >= 0].long() - n_docs - seg_base
         active = [t.to(device) for t in _replace_rows(
-            act, slot, max(n_act, 8), nf, C, sentinel)]
+            act, j, ns, max(-(-n_act // ns), 8), nf, C, sentinel)]
     else:
-        e = ShardedVectorIndex._empty_active(nf, C, cdtype, device)
+        e = ShardedVectorIndex._empty_active(ns, nf, C, cdtype, device)
         active = [e[k] for k in ("seg_vectors", "seg_codes", "seg_gids",
                                  "seg_live")]
 
@@ -617,24 +637,28 @@ def restore(commit: CommitPoint, device="cuda") -> ShardedVectorIndex:
             # (contiguous gids) and merging (id-order re-pack) produce
             part = blob(e, "cpu")
             gids = part["gids"].reshape(-1)
-            slot = torch.argsort(torch.argsort(gids[gids >= 0],
+            rank = torch.argsort(torch.argsort(gids[gids >= 0],
                                                stable=True))
             leaves = [t.to(device) for t in _replace_rows(
-                part, slot, int(e["n_rows"]), nf, C, sentinel)]
+                part, rank, ns, -(-int(e["n_rows"]) // ns), nf, C,
+                sentinel)]
         segments.append(Segment(*leaves, *_postings(leaves[1]),
                                 n_rows=int(e["n_rows"]),
                                 tombstones=int(e["tombstones"])))
 
-    # advisory per-shard deletion history: one shard holds the total
-    stones = [sum(int(t) for t in meta["shard_tombstones"])]
+    # advisory per-shard deletion history: the writer's own, or its total
+    # spread evenly over another shard count
+    stones = [int(t) for t in meta["shard_tombstones"]]
+    if not same_shards:
+        total = sum(stones)
+        stones = [total // ns + (i < total % ns) for i in range(ns)]
     if not any(stones):
         stones = []                         # the fresh-index spelling
 
     seal = meta["seal_threshold"]
     return ShardedVectorIndex(
         vectors=vectors, codes=codes, post_docs=pdocs, post_codes=pcodes,
-        offsets=torch.zeros((1,), dtype=torch.int32, device=device),
-        live=live,
+        offsets=_offsets(ns, dp, device), live=live,
         seg_vectors=active[0], seg_codes=active[1], seg_gids=active[2],
         seg_live=active[3],
         segments=tuple(segments),
@@ -646,4 +670,5 @@ def restore(commit: CommitPoint, device="cuda") -> ShardedVectorIndex:
         seal_threshold=None if seal is None else int(seal),
         seg_base=seg_base,
         active_tombstones=int(meta["active_tombstones"]),
+        mesh=mesh,
     )

@@ -877,3 +877,79 @@ def test_cpu_commit_restores_on_card(gen, tmp_path):
     assert on_card.device.type == "cuda"
     _assert_same_index(on_card, restore(commit, device="cpu"), "card vs cpu")
     _assert_same_index(on_card, idx, "card vs source")
+
+
+# ------------------------------------- S shards x R replica groups on the card
+def _shard_mesh_index(gen, n_docs, layout, n=48):
+    from repro_torch.core import VectorIndex
+    from repro_torch.launch import make_shard_mesh
+
+    V = torch.randn((n_docs, n), generator=gen, device="cuda")
+    flat = VectorIndex.build(V, device="cuda")
+    return flat, flat.shard(make_shard_mesh(*layout))
+
+
+@pytest.mark.parametrize("engine", ["codes_pallas", "fused", "fused_int8"])
+@pytest.mark.parametrize("n_docs", [4096, 4099])
+def test_sharded_four_by_two_equals_one_shard_on_card(gen, engine, n_docs):
+    """4 shards x 2 groups at page >= n_docs, both transports, any single
+    live group, on the card: the one-shard index's answer bit for bit, each
+    kernel launched once per shard and batch row-block."""
+    flat, sidx = _shard_mesh_index(gen, n_docs, (4, 2))
+    one = flat.shard()
+    Q = torch.cat([flat.vectors[:5], torch.randn(
+        (6, flat.n_features), generator=gen, device="cuda")])
+    want = one.search(Q, k=10, page=2 * n_docs, engine=engine)
+    assert sidx.vectors.data_ptr() == flat.vectors.data_ptr() \
+        or n_docs % 4
+    for merge in ("gather", "stream"):
+        for groups in (None, (0,), (1,)):
+            before = (tops.launches, tops.quant_launches, cm_ops.launches)
+            got = sidx.search(Q, k=10, page=2 * n_docs, engine=engine,
+                              merge=merge, live_groups=groups)
+            assert torch.equal(got[0], want[0]), (merge, groups)
+            assert torch.equal(got[1], want[1]), (merge, groups)
+            blocks = 2 if groups is None else 1
+            n = {"fused": tops.launches - before[0],
+                 "fused_int8": tops.quant_launches - before[1],
+                 "codes_pallas": cm_ops.launches - before[2]}[engine]
+            per = (cm_kernel.KERNELS_PER_CALL if engine == "codes_pallas"
+                   else tkernel.KERNELS_PER_CALL)
+            assert n == 4 * blocks * per, (engine, n)
+    assert torch.equal(got[0][:5, 0].long(), torch.arange(5, device="cuda"))
+
+
+def test_sharded_kernels_vs_plain_on_a_shard(gen):
+    """Each kernel of the sharded path held to its plain version on shard
+    1's slice of a 4-shard index, with the tombstones of a delete:
+    fused_phase1 bit-equal to its reference (ids where finite),
+    fused_phase1_quant to the split reference's stable top page, and
+    code_match to ref.match_scores."""
+    from repro_torch.core.postings import idf_weights
+
+    _, sidx = _shard_mesh_index(gen, 8192, (4, 1))
+    sidx = sidx.delete(list(range(2048, 4096, 7)))
+    # shard 1's rows 1..6: ids 2049..2054, none of them deleted
+    q = trerank.normalize(sidx.vectors[1, 1:7] + 0.01 * torch.randn(
+        (6, sidx.n_features), generator=gen, device="cuda"))
+    qcodes = sidx.encoder.encode(q)
+    w = idf_weights(sidx.token_df(q), sidx.n_ids)
+    codes, live = sidx.codes[1], sidx.live[1]
+    assert not bool(live.all())
+    s, i = tops.fused_phase1(codes, qcodes, w, 320, live=live)
+    ws, wi = tref.fused_phase1_ref(codes, qcodes, w, 320, live=live)
+    fin = torch.isfinite(ws)
+    assert torch.equal(s, ws) and torch.equal(i[fin], wi[fin])
+    got = cm_ops.code_match(codes, qcodes, w)
+    assert torch.equal(got, tref.match_scores(codes, qcodes, w))
+    c8, sc, zp = (t[1] for t in sidx._quant_base())
+    s, i = tops.fused_phase1_quant(c8, sc, zp, q, 320, live=live)
+    split = tref.quant_split_scores(c8, sc, zp, q, q.sum(dim=-1))
+    top_s, top_i = trerank.stable_topk(
+        split.masked_fill(~live[None, :], float("-inf")), 320)
+    fin = torch.isfinite(top_s)
+    assert torch.equal(s, top_s)
+    assert torch.equal(i.long()[fin], top_i[fin])
+    # the shard's page goes global by its offset
+    ids, _ = sidx.search(q, k=1, page=320, engine="fused")
+    assert ids[:, 0].tolist() == list(range(2049, 2055))

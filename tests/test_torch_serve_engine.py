@@ -530,7 +530,7 @@ def test_sharded_from_numpy_round_trips_jax_leaves():
         a = port.search(Q, k=6, page=50, engine=engine)
         b = back.search(Q, k=6, page=50, engine=engine)
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), engine
-    with pytest.raises(ValueError, match="one shard"):
+    with pytest.raises(ValueError, match="leaves of 2 shards"):
         interop.sharded_from_numpy(
             np.zeros((2, 3, N_FEAT), np.float32), *(np.zeros(1),) * 5,
             RoundingEncoder(2), 6, device="cpu")

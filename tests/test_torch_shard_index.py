@@ -128,14 +128,15 @@ def _page_scores(sidx, Q, engine, page):
     """{(query, gid): the page's exact cosine} over the live docs of the
     phase-1 page of size ``page``."""
     from repro_torch.core.rerank import normalize
+    from repro_torch.dist.shard_index import _gather_merge
 
     q = normalize(torch.from_numpy(Q))
     qcodes = sidx.encoder.encode(q)
     mask = torch.ones(qcodes.shape, dtype=torch.bool)
     page_loc = min(page, sidx.n_ids, sidx.docs_per_shard + sidx.seg_capacity
                    + sum(s.width for s in sidx.segments))
-    gid, s2, _ = sidx._query_phase(q, qcodes, mask, engine, "idf",
-                                   sidx.docs_per_shard, page_loc)
+    gid, s2, _ = _gather_merge(sidx._shard_pages(
+        q, qcodes, mask, engine, "idf", sidx.docs_per_shard, page_loc))
     return {(i, int(g)): float(v) for i in range(len(Q))
             for g, v in zip(gid[i].tolist(), s2[i].tolist())
             if v != float("-inf")}

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases CG     # the observability plane only
     python3 chip_smoke.py --phases CH     # the durability plane only
     python3 chip_smoke.py --phases CI     # shards and replica groups only
+    python3 chip_smoke.py --phases CIJ    # the cluster control plane only
 
 It builds the hand-written kernels from the sources in this checkout (one
 nvcc per library, all started together), holds each against its plain
@@ -16,8 +17,9 @@ paper's scale -- a 4,181,504 x 400 Wikipedia-shaped index
 paper's quality pipeline on the card, takes that index through the
 segment lifecycle (ingest, seal, delete, merge, compact), serves it
 with the observability plane on and off, commits, kills and recovers it
-through the durability plane, and splits it into 4 doc-shards x 1 and
-x 2 replica groups.
+through the durability plane, splits it into 4 doc-shards x 1 and
+x 2 replica groups, and serves those groups through the cluster control
+plane (routing, failover, health, restore and background merges).
 
 Phases, each printing one JSON line (D and G one per engine, then a
 summary):
@@ -160,7 +162,56 @@ summary):
      medians beside phase C's and D's, launches a batch by kernel, one
      ``fused_int8`` batch traced on 4 x 1 and 4 x 2 (host time, device
      busy time, idle share: one shard's is D's and G's), peak memory and
-     the card's name and power limit in its line.
+     the card's name and power limit in its line;
+  J  the cluster control plane on phase C's index (run after I, which it
+     needs: its answers are phase I's; C's flat posting tables are freed
+     first): ShardedVectorIndex.from_index onto 4 x 2 as I builds it.
+     1. ClusterEngine serving ``fused_int8`` and ``fused`` (batch 32,
+     max_wait_s 0.005, page 320, k 10, trim 0.05) on 4 x 2 (two groups),
+     4 x 1 (one group) and 4 x 2 with group 1 marked down, by 1, 4 and 16
+     client threads, each one stream id submitting the 128 queries
+     open-loop: every answer bit-equal to phase I's 4 x 2 answer for the
+     row, rank 1 for >= 0.95 of the sources, submitted = completed = the
+     requests issued = the groups' completions, each kernel launched once
+     per shard of each dispatch; QPS, p50 / p99 submit-to-done latency,
+     spills and each group's completions; one ``fused_int8`` batch per
+     group under 2-group load traced on every thread (each group's
+     searches in its ``repro.cluster.group<g>`` range, each kernel
+     launched inside an op-scope record, so a device event belongs to the
+     group whose thread made its runtime call; checked: no more than 5% of
+     the device time to no group): host time, device busy time and idle
+     share, each group's device time.
+     2. Failover on the 2-group ``fused_int8`` cluster: a failure injected
+     into group 0 a quarter of the way through a 16-stream run (every
+     answer bit-equal, one ``down`` transition), heal and re-admission by
+     ``MaintenanceDaemon.probe_once``, a drain of group 1 with 64
+     requests in flight (they finish there, 32 new ones go to group 0),
+     every group failing one request (the future carries the error, the
+     rollback readmits both); cluster_health green -> yellow -> green ->
+     yellow -> green, its ledger reconciled with the counters, each
+     ``format_health_line`` printed.
+     3. Writes at full width: ClusterEngine(s42, store=Store(<build/...>,
+     "request")) writing the baseline commit (free room checked first),
+     8 x 4,096 seeded rows and 2,048 deletes (1,024 base rows, a quarter
+     of the third generation) between served batches, the bytes each
+     group owns after them; the three kernels held to their plain
+     versions on group 1's shard 1 slice (the tombstoned base and the
+     generation the deletes hit) as in F and I; ``restore_group(1)`` from
+     disk (every leaf torch.equal to group 0's, four engines' answers
+     bit-equal, restores_completed 1, its peak memory); then
+     MaintenanceDaemon(TieredMergePolicy(merge_factor=4)) folding the 8
+     generations in three passes (two delete rewrites, four tier merges)
+     under 4-stream traffic: no request fails and every answer is the
+     pre-merge one, each swap answers as an explicit merge_segments of
+     its snapshot, each group 0 pass lands a commit.
+     4. The demoted full compact on I's depth cut (65,536 rows) at 4 x 2:
+     1,024 rows added, 16,384 base rows deleted, the daemon of
+     ClusterEngine(auto_compact=0.2) compacting both groups under traffic
+     (no deleted id served): n_appended, the tombstone ratio, the
+     segments and the active buffer 0, answers bit-equal to an explicit
+     compact.  Add, delete, restore, merge and commit seconds, launches
+     by kernel, peak memory and the card's name and power limit in its
+     line.
 Then the ``kernels`` line (launches summed over the phases' main paths,
 and by phase; each library's largest ptxas stack frame
 of a kernel: 0 bytes for the code-match scorers, checked; both rerank
@@ -197,6 +248,7 @@ N_QUERIES = 128
 PAGE = 320
 K = 10
 NOISE = 0.01
+SERVE_MAX_WAIT_S = 1.0             # phases C-I: see make_engine
 ONEHOT_DOCS = 65_536               # onehot's (d, C*201) table, cut to size
 F_NEW = 65_536                     # phase F: docs appended in batches that
 F_BATCH = 4_096                    # each seal (16 generations), then a
@@ -211,6 +263,12 @@ I_DEPTH = 65_536                   # phase I: rows served at page >= n_ids,
 I_BATCH = 1_024                    # F's history at a sixteenth of its size
 I_TAIL = 50
 G_ENGINES = ("fused", "fused_int8", "codes_pallas", "postings", "codes")
+J_ENGINES = ("fused_int8", "fused")
+J_STREAMS = (1, 4, 16)             # phase J: client streams of 128 requests
+J_ADDS = 8                         # 8 x 4,096 rows through the cluster, and
+J_DELETE_BASE = 1_024              # 2,048 deletes: base rows and a quarter
+J_DELETE_SEALED = 1_024            # of one sealed generation
+J_COMPACT_DELETES = 16_384         # a quarter of I's depth cut: past 0.2
 E_DOCS = 262_144                   # phase E corpus, cut from 4,181,352
 E_VOCAB = 100_000                  # gensim make_wiki: keep_n=100000
 E_TOPICS = 400
@@ -777,12 +835,17 @@ def serve_check(index, queries, src, results, ctx) -> dict:
 
 
 def make_engine(index, **engine_kw):
+    """The engine phases C-I serve through.  They submit whole batches of
+    BATCH and count launches and dispatch nodes a batch, so the wait for
+    a batch to fill is long: a full batch dispatches on its last request
+    either way, and a host stall while it is submitted cannot cut it in
+    two (phase J serves at the 5 ms wait and counts dispatches)."""
     from repro_torch.core import TrimFilter
     from repro_torch.serve import BatchedSearchEngine
 
-    return BatchedSearchEngine(index, batch_size=BATCH, max_wait_s=0.005,
-                               k=K, page=PAGE, trim=TrimFilter(0.05),
-                               **engine_kw)
+    return BatchedSearchEngine(index, batch_size=BATCH,
+                               max_wait_s=SERVE_MAX_WAIT_S, k=K, page=PAGE,
+                               trim=TrimFilter(0.05), **engine_kw)
 
 
 def serve_engine(index, queries, ctx, reset_peak=True, profile=False,
@@ -809,6 +872,19 @@ def serve_engine(index, queries, ctx, reset_peak=True, profile=False,
     finally:
         engine.close()
     return results, batch_s, torch.cuda.max_memory_allocated()
+
+
+def union_us(spans) -> float:
+    """Length of the union of sorted (start, end) spans: the device's
+    busy time."""
+    busy, lo, hi = 0.0, None, None
+    for s, e in spans:
+        if hi is None or s > hi:
+            busy += 0.0 if hi is None else hi - lo
+            lo, hi = s, e
+        else:
+            hi = max(hi, e)
+    return busy + (0.0 if hi is None else hi - lo)
 
 
 def trace_batch(fn, enclose=None) -> dict:
@@ -859,15 +935,10 @@ def trace_batch(fn, enclose=None) -> dict:
         enclosed = {"range": enclose, "device_events": len(spans),
                     "range_us": r.end - r.start, "lead_us": lead,
                     "tail_us": tail}
-    busy, lo, hi, by_name = 0.0, None, None, {}
+    by_name = {}
     for s, e, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (e - s)
-        if hi is None or s > hi:
-            busy += 0.0 if hi is None else hi - lo
-            lo, hi = s, e
-        else:
-            hi = max(hi, e)
-    busy += 0.0 if hi is None else hi - lo
+    busy = union_us([(s, e) for s, e, _ in spans])
     check(busy > 0, "the trace holds no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
     out = {"host_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
@@ -1441,7 +1512,7 @@ def phase_g(index, queries, src) -> tuple:
            "codes_pallas": {"code_match": cm_kernel.KERNELS_PER_CALL},
            "postings": {}, "codes": {}}
     t_phase = time.monotonic()
-    rows, launches = {}, {}
+    rows, launches, answers_4x2 = {}, {}, {}
     for name in G_ENGINES:
         qs = queries[:BATCH] if name == "codes" else queries
         n_b = len(qs) // BATCH
@@ -2240,7 +2311,8 @@ def i_serve(index, s4, s42, queries, src) -> tuple:
     """Each engine of G_ENGINES served through BatchedSearchEngine on the
     one-shard index, on 4 x 1, on 4 x 2 and on 4 x 2 with the stream
     transport, with the checks of phase I step 2; -> ({engine: row},
-    the kernels' launches in the sharded runs)."""
+    the kernels' launches in the sharded runs, {engine: the 4 x 2 answers
+    (ids, scores)})."""
     from repro_torch.core import TrimFilter
     from repro_torch.kernels.code_match import kernel as cm_kernel
     from repro_torch.kernels.fused_phase1 import kernel as fp_kernel
@@ -2249,7 +2321,7 @@ def i_serve(index, s4, s42, queries, src) -> tuple:
            "fused_int8": {"fused_phase1_quant": fp_kernel.KERNELS_PER_CALL},
            "codes_pallas": {"code_match": cm_kernel.KERNELS_PER_CALL},
            "postings": {}, "codes": {}}
-    rows, launches = {}, {}
+    rows, launches, answers_4x2 = {}, {}, {}
     for name in G_ENGINES:
         qs = queries[:BATCH] if name == "codes" else queries
         n_b = len(qs) // BATCH
@@ -2279,7 +2351,7 @@ def i_serve(index, s4, s42, queries, src) -> tuple:
             if label == "4x2":
                 row.update(serve_check(index, qs, src[:len(qs)], res,
                                        f"I {name} 4x2"))
-        ids, scores = answers["4x2"]
+        ids, scores = answers_4x2[name] = answers["4x2"]
         for other in ("4x1", "4x2 stream"):
             check(np.array_equal(ids, answers[other][0])
                   and np.array_equal(scores, answers[other][1]),
@@ -2305,7 +2377,7 @@ def i_serve(index, s4, s42, queries, src) -> tuple:
         row["bit_equal"] = True
         rows[name] = row
         progress(f"I {name}: {row['batch_latency_s_median']}")
-    return rows, launches
+    return rows, launches, answers_4x2
 
 
 def i_depth(index, queries) -> dict:
@@ -2480,7 +2552,8 @@ def phase_i(index, queries, src, smi, one_shard_medians=None) -> tuple:
     4 doc-shards x 1 and x 2 replica groups viewing its tensors, served,
     held to one shard, its kernels held to their plain versions on a
     shard, the lifecycle and the store at 4 shards; -> (the phase line,
-    the kernels' launches in its main-path runs)."""
+    the kernels' launches in its main-path runs, {engine: the 4 x 2
+    answers})."""
     from repro_torch.core import TrimFilter
     from repro_torch.dist import ShardedVectorIndex
     from repro_torch.launch import make_shard_mesh
@@ -2516,7 +2589,7 @@ def phase_i(index, queries, src, smi, one_shard_medians=None) -> tuple:
     progress(f"I: 4 x {index.n_docs // 4} shards, per-shard postings in "
              f"{postings_s:.2f} s")
 
-    rows, launches = i_serve(index, s4, s42, queries, src)
+    rows, launches, answers = i_serve(index, s4, s42, queries, src)
     # one fused_int8 batch traced on each layout (one shard: phases D and
     # G): S (and R) times the launches and host steps of a batch, against
     # the device's busy time
@@ -2561,6 +2634,787 @@ def phase_i(index, queries, src, smi, one_shard_medians=None) -> tuple:
                 for st in hist["stages"]},
             "store": store, "launches": launches,
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "phase_s": time.monotonic() - t_phase}
+    return line, launches, answers
+
+
+def j_cluster(index, engine, metrics, **kw):
+    """A ClusterEngine at phase J's serving settings."""
+    from repro_torch.cluster import ClusterEngine
+    from repro_torch.core import TrimFilter
+
+    return ClusterEngine(index, batch_size=BATCH, max_wait_s=0.005, k=K,
+                         page=PAGE, trim=TrimFilter(0.05), engine=engine,
+                         metrics=metrics, **kw)
+
+
+def j_drive(cluster, queries, n_streams, timeout=600.0) -> tuple:
+    """N client threads, each one stream id submitting every query
+    open-loop (thread ``s`` starting at row 8 s), then waiting for its
+    answers -- the reference's ``benchmarks/cluster_scale.py`` ``_drive``;
+    -> (wall seconds, {(stream, row): (ids, scores)}, submit-to-done
+    seconds of every request)."""
+    import threading
+
+    results, latencies, errors = {}, [], []
+    n = len(queries)
+
+    def client(sid):
+        try:
+            futs = []
+            for qi in np.roll(np.arange(n), -8 * sid):
+                t_sub = time.perf_counter()
+                f = cluster.submit(queries[qi], stream=sid)
+                f.add_done_callback(
+                    lambda _f, t_sub=t_sub: latencies.append(
+                        time.perf_counter() - t_sub))
+                futs.append((int(qi), f))
+            for qi, f in futs:
+                results[(sid, qi)] = f.result(timeout=timeout)
+        except Exception as exc:  # noqa: BLE001 - raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(sid,))
+               for sid in range(n_streams)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    # done-callbacks run in the worker after result() unblocks
+    deadline = time.perf_counter() + 5.0
+    while (len(latencies) < n_streams * n
+           and time.perf_counter() < deadline):
+        time.sleep(0.001)
+    check(len(latencies) == n_streams * n, f"{len(latencies)} latencies "
+          f"for {n_streams * n} requests")
+    return wall, results, latencies
+
+
+def j_hold_answers(results, want, ctx) -> None:
+    """Every answer of a drive bit-equal to ``want`` (ids, scores by
+    row)."""
+    for (sid, qi), (ids, scores) in results.items():
+        check(np.array_equal(ids, want[0][qi])
+              and np.array_equal(scores, want[1][qi]),
+              f"{ctx}: stream {sid} row {qi} differs from phase I's answer")
+
+
+def j_reconcile(cl, issued, ctx) -> dict:
+    """submitted = completed = issued, nothing failed, and the groups'
+    completions add up to it; -> the cluster's stats."""
+    st = cl.stats()
+    req = st["requests"]
+    check(req["submitted"] == req["completed"] == issued
+          and req["failed"] == 0
+          and sum(req["group_completed"].values()) == issued,
+          f"{ctx}: requests {req}, {issued} issued")
+    return st
+
+
+def j_dispatches(reg, engine, n_groups) -> int:
+    return sum(reg.value("engine.kernel_path", engine=engine, group=g)
+               for g in range(n_groups))
+
+
+def j_hold_launches(got, dispatches, engine, ctx) -> None:
+    """One launch of the engine's kernel per shard of each dispatch (4
+    shards, no generations), and no other kernel."""
+    from repro_torch.kernels.fused_phase1 import kernel as fp_kernel
+
+    name = "fused_phase1_quant" if engine == "fused_int8" else "fused_phase1"
+    want = {k: 0 for k in got}
+    want[name] = dispatches * 4 * fp_kernel.KERNELS_PER_CALL
+    check(got == want, f"{ctx}: launches {got}, want {want}")
+
+
+def take_launches(into: dict) -> dict:
+    """Add the kernels' counts since the last reset into ``into``, reset
+    them; -> the counts taken."""
+    got = read_launches()
+    for k, v in got.items():
+        into[k] = into.get(k, 0) + v
+    reset_launches()
+    return got
+
+
+def j_serve(s42, s41, queries, src, i_answers, launches) -> dict:
+    """Phase J step 1: fused_int8 and fused served through ClusterEngine
+    on 4 x 2 (two groups), 4 x 1 (one group) and 4 x 2 with group 1
+    marked down, by 1, 4 and 16 client streams of 128 open-loop requests;
+    every answer bit-equal to phase I's, the counters reconciled, each
+    kernel launched once per shard of each dispatch; -> {engine: {layout:
+    {streams: row}}}."""
+    from repro_torch.obs import MetricsRegistry
+
+    out = {}
+    for engine in J_ENGINES:
+        out[engine] = {}
+        for layout, idx, down in (("4x2", s42, None), ("4x1", s41, None),
+                                  ("4x2 group 1 down", s42, 1)):
+            rows = {}
+            for n in J_STREAMS:
+                reg = MetricsRegistry()
+                cl = j_cluster(idx, engine, reg)
+                try:
+                    if down is not None:
+                        cl.mark_down(down)
+                    reset_launches()
+                    wall, res, lat = j_drive(cl, queries, n)
+                    got = take_launches(launches)
+                    ctx = f"J {engine} {layout} x{n} streams"
+                    issued = n * len(queries)
+                    st = j_reconcile(cl, issued, ctx)
+                    j_hold_launches(got, j_dispatches(reg, engine,
+                                                      cl.n_groups),
+                                    engine, ctx)
+                finally:
+                    cl.close()
+                j_hold_answers(res, i_answers[engine], ctx)
+                rank1 = float(np.mean([ids[0] == src[qi] for (_, qi), (
+                    ids, _) in res.items()]))
+                check(rank1 >= 0.95, f"{ctx}: rank 1 for {rank1:.3f}")
+                done = st["requests"]["group_completed"]
+                if down is not None:
+                    check(done[down] == 0, f"{ctx}: group {down} served "
+                          f"{done[down]} while down")
+                lat = np.sort(np.asarray(lat))
+                rows[n] = {
+                    "qps": issued / wall, "wall_s": wall,
+                    "latency_s_p50": float(lat[len(lat) // 2]),
+                    "latency_s_p99": float(lat[int(0.99 * (len(lat) - 1))]),
+                    "spills": st["routing"]["spills"],
+                    "group_completed": done,
+                    "dispatches": j_dispatches(reg, engine, cl.n_groups),
+                    "dispatch_s_mean": {
+                        g: s["dispatch_latency_s"]["mean"]
+                        for g, s in st["groups"].items()},
+                    "occupancy_p50": {g: s["batches"]["p50"]
+                                      for g, s in st["groups"].items()},
+                    "rank1_share": rank1}
+                progress(f"{ctx}: {rows[n]['qps']:.0f} QPS, p50 "
+                         f"{rows[n]['latency_s_p50'] * 1e3:.1f} ms, p99 "
+                         f"{rows[n]['latency_s_p99'] * 1e3:.1f} ms, "
+                         f"{rows[n]['spills']} spills, groups {done}")
+            out[engine][layout] = rows
+    return out
+
+
+def trace_groups(s42, queries) -> dict:
+    """One fused_int8 batch per group under 2-group load, traced on every
+    thread: two streams of 32 requests pinned to the two groups, served
+    at once.  Each group's searches run in its ``repro.cluster.group<g>``
+    range (a tracer that annotates) on its batcher's thread; a device
+    event is the group's whose runtime call (the CUDA API event with the
+    event's correlation id) ran on that thread; -> host time, device busy
+    time and idle share of the whole, each group's ranges, their host
+    milliseconds and the group's device milliseconds, and the device
+    milliseconds no group launched."""
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import MetricsRegistry, Tracer
+
+    cl = j_cluster(s42, "fused_int8", MetricsRegistry(),
+                   tracer=Tracer(sample=1.0 / 16, annotate=True))
+    qs = queries[:2 * BATCH]
+
+    def two_batches():
+        futs = [cl.submit(q, stream="a") for q in qs[:BATCH]]
+        futs += [cl.submit(q, stream="b") for q in qs[BATCH:]]
+        return [f.result(timeout=600) for f in futs]
+
+    try:
+        two_batches()                       # pins a and b, warm
+        check(cl._streams == {"a": 0, "b": 1},
+              f"J trace: streams pinned {dict(cl._streams)}")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     experimental_config=_ExperimentalConfig(
+                         profile_all_threads=True)) as prof:
+            t = time.monotonic()
+            two_batches()
+            torch.cuda.synchronize()
+            wall_us = (time.monotonic() - t) * 1e6
+    finally:
+        cl.close()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    names = {f"repro.cluster.group{g}": g for g in range(2)}
+    events = prof.events()
+    groups = {g: {"ranges": 0, "range_ms": 0.0, "device_ms": 0.0,
+                  "device_events": 0} for g in range(2)}
+    thread_group = {}
+    for e in events:
+        if e.device_type == cpu and e.name in names:
+            g = names[e.name]
+            thread_group[e.thread] = g
+            groups[g]["ranges"] += 1
+            groups[g]["range_ms"] += (e.time_range.end
+                                      - e.time_range.start) / 1e3
+    # CUDA API calls carry the id of the device event they start
+    launched_by = {e.id: e.thread for e in events
+                   if e.device_type == cpu and e.name.startswith("cu")}
+    spans, other_ms = [], 0.0
+    for e in events:
+        if e.device_type != cuda or e.name in names:
+            continue
+        s_, e_ = e.time_range.start, e.time_range.end
+        spans.append((s_, e_))
+        g = thread_group.get(launched_by.get(e.id))
+        if g is None:
+            other_ms += (e_ - s_) / 1e3
+        else:
+            groups[g]["device_ms"] += (e_ - s_) / 1e3
+            groups[g]["device_events"] += 1
+    busy = union_us(sorted(spans))
+    return {"host_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / wall_us,
+            "device_event_ms": sum(e_ - s_ for s_, e_ in spans) / 1e3,
+            "unattributed_ms": other_ms, "threads": len(thread_group),
+            "groups": groups}
+
+
+def j_trace(s42, queries) -> dict:
+    """:func:`trace_groups`, checked: both groups' ranges on their own
+    threads, each with device time, and no more than 5% of the device
+    time launched outside them."""
+    out = trace_groups(s42, queries)
+    check(out["device_busy_ms"] > 0, "J trace: no device time")
+    check(out["threads"] == 2
+          and all(r["device_ms"] > 0 for r in out["groups"].values())
+          and out["unattributed_ms"] <= 0.05 * out["device_event_ms"],
+          f"J trace: device time not attributed to the groups: {out}")
+    return out
+
+
+def j_health_ledger(h) -> None:
+    """The ledger reconciles with the counters one for one, and replaying
+    it lands on the reported down set."""
+    events = [e["event"] for e in h["transitions"]]
+    c = h["counters"]
+    check(events.count("down") == c["down_transitions"]
+          and events.count("up") == c["mark_ups"]
+          and events.count("readmit") == c["readmits"],
+          f"J health: ledger {events} against counters {c}")
+    down = set()
+    for e in h["transitions"]:
+        if e["event"] == "down":
+            down.add(e["group"])
+        elif e["event"] in ("up", "readmit"):
+            down.discard(e["group"])
+    check(tuple(sorted(down)) == tuple(h["down"]),
+          f"J health: the ledger replays to {down}, health says {h['down']}")
+    gens = [e["generation"] for e in h["transitions"]]
+    check(gens == sorted(gens) and (not gens or gens[-1] == h["generation"]),
+          f"J health: generations {gens}, at {h['generation']}")
+
+
+def j_failover(s42, queries, i_answers, launches) -> dict:
+    """Phase J step 2 on the 2-group fused_int8 cluster: a group failure
+    injected during a 16-stream run, its heal and re-admission by the
+    canary prober, a drain with requests in flight, and a full outage
+    with its rollback -- every answer bit-equal to phase I's, health
+    green -> yellow -> green, its ledger reconciled; -> the step's
+    numbers."""
+    import threading
+
+    from repro_torch.cluster import MaintenanceDaemon
+    from repro_torch.obs import MetricsRegistry, format_health_line
+
+    want = i_answers["fused_int8"]
+    reg = MetricsRegistry()
+    cl = j_cluster(s42, "fused_int8", reg)
+    statuses, lines = [], []
+
+    def health(what):
+        h = cl.cluster_health()
+        statuses.append(h["status"])
+        lines.append(format_health_line(h))
+        progress(f"J {what}: {lines[-1]}")
+        return h
+
+    out = {}
+    issued = 0
+    try:
+        reset_launches()
+        health("healthy")
+        # 1. a failure injected a quarter of the way through a 16-stream run
+        drive = {}
+        n = 16 * len(queries)
+        runner = threading.Thread(target=lambda: drive.update(
+            zip(("wall", "res", "lat"), j_drive(cl, queries, 16))))
+        runner.start()
+        deadline = time.monotonic() + 300
+        while reg.value("cluster.requests.completed") < n // 4:
+            check(time.monotonic() < deadline, "J: the run never got going")
+            time.sleep(0.001)
+        cl.inject_failure(0)
+        runner.join()
+        check("res" in drive, "J: the run under a failure raised")
+        issued += n
+        j_hold_answers(drive["res"], want, "J failover")
+        h = health("group 0 failed")
+        check(h["status"] == "yellow" and h["down"] == (0,)
+              and [e["event"] for e in h["transitions"]] == ["down"],
+              f"J: after the injected failure {h}")
+        out["failover"] = {
+            "resubmits": reg.value("cluster.failover.resubmits"),
+            "group_completed": cl.stats()["requests"]["group_completed"],
+            "qps": n / drive["wall"]}
+        check(out["failover"]["resubmits"] >= 1, "J: nothing failed over")
+        # 2. heal, and the canary prober re-admits
+        cl.heal(0)
+        daemon = MaintenanceDaemon(cl.batchers, health=cl.health, probe=True,
+                                   merge_policy=None, metrics=reg)
+        t = time.monotonic()
+        check(daemon.probe_once() == 1, "J: the prober did not re-admit")
+        out["probe_s"] = time.monotonic() - t
+        check(health("probed")["status"] == "green", "J: not green")
+        # 3. a drain with requests in flight: they finish, new work moves
+        s1 = next((s for s, g in cl._streams.items() if g == 1), None)
+        check(s1 is not None, f"J: no stream pinned to group 1: "
+              f"{dict(cl._streams)}")
+        before = dict(cl.stats()["requests"]["group_completed"])
+        inflight = [(qi, cl.submit(queries[qi], stream=s1))
+                    for qi in range(2 * BATCH)]
+        check(cl.mark_down(1), "J: the drain changed nothing")
+        moved = [(qi, cl.submit(queries[qi], stream=s1))
+                 for qi in range(2 * BATCH, 3 * BATCH)]
+        drained = health("group 1 drained")
+        for qi, f in inflight + moved:
+            ids, scores = f.result(timeout=600)
+            check(np.array_equal(ids, want[0][qi])
+                  and np.array_equal(scores, want[1][qi]),
+                  f"J drain: row {qi} differs")
+        issued += 3 * BATCH
+        after = cl.stats()["requests"]["group_completed"]
+        out["drain"] = {"in_flight": 2 * BATCH, "rerouted": BATCH,
+                        "group_completed_delta": {
+                            g: after[g] - before[g] for g in after}}
+        check(out["drain"]["group_completed_delta"] == {
+            0: BATCH, 1: 2 * BATCH}, f"J drain: {out['drain']}")
+        check(drained["status"] == "yellow" and drained["drained"] == (1,),
+              f"J drain: {drained}")
+        check(daemon.probe_once() == 0, "J: the prober undid a drain")
+        check(cl.mark_up(1), "J: mark_up changed nothing")
+        health("undrained")
+        # 4. every group fails the same request: the error surfaces and
+        #    the rollback readmits both
+        for g in range(2):
+            cl.inject_failure(g, RuntimeError(f"J outage {g}"))
+        fut = cl.submit(queries[0], stream="outage")
+        err = fut.exception(timeout=600)
+        issued += 1
+        check(err is not None and "J outage" in str(err),
+              f"J outage: the future carries {err!r}")
+        for g in range(2):
+            cl.heal(g)
+        h = health("after the outage")
+        check(h["status"] == "green" and h["down"] == (),
+              f"J outage: not rolled back {h}")
+        ids, scores = cl.search(queries[1], stream="outage", timeout=600)
+        check(np.array_equal(ids, want[0][1])
+              and np.array_equal(scores, want[1][1]), "J: after the outage")
+        issued += 1
+        j_health_ledger(h)
+        st = cl.stats()
+        req = st["requests"]
+        check(req["submitted"] == issued and req["failed"] == 1
+              and req["completed"] == issued - 1
+              and sum(req["group_completed"].values()) == issued - 1,
+              f"J failover: requests {req}, {issued} issued")
+        got = take_launches(launches)
+        j_hold_launches(got, j_dispatches(reg, "fused_int8", 2),
+                        "fused_int8", "J failover")
+        out.update(statuses=statuses, health_lines=lines,
+                   transitions=[e["event"] for e in h["transitions"]],
+                   counters=h["counters"], requests=req,
+                   routing=st["routing"])
+    finally:
+        cl.close()
+    check(statuses == ["green", "yellow", "green", "yellow", "green",
+                       "green"], f"J: health went {statuses}")
+    return out
+
+
+def own_bytes(idx, shared) -> int:
+    """Bytes of ``idx``'s tensors that ``shared`` (an index) does not
+    hold: what a group's writes have made its own."""
+    def leaves(i):
+        out = [getattr(i, n) for n in (
+            "vectors", "codes", "post_docs", "post_codes", "live",
+            "seg_vectors", "seg_codes", "seg_gids", "seg_live")]
+        for s in i.segments:
+            out += [s.vectors, s.codes, s.gids, s.live, s.post_docs,
+                    s.post_codes]
+        return out
+
+    seen = {t.untyped_storage().data_ptr() for t in leaves(shared)}
+    total, counted = 0, set()
+    for t in leaves(idx):
+        p = t.untyped_storage().data_ptr()
+        if p not in seen and p not in counted:
+            counted.add(p)
+            total += t.untyped_storage().nbytes()
+    return total
+
+
+def j_writes(s42, queries, src, launches, errs) -> dict:
+    """Phase J step 3 at full width: a cluster with a store (group 0 the
+    write-through primary, a baseline commit), 8 x 4,096 rows and 2,048
+    deletes between served batches, the kernels held on group 1's shard 1
+    slice, ``restore_group(1)`` from disk held leaf for leaf and answer
+    for answer to group 0, then the merge daemon folding the 8
+    generations under 4-stream traffic, each swap held to an explicit
+    merge and each commit landing; -> the step's numbers."""
+    import shutil
+    import tempfile
+
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.store import Store
+
+    root = pathlib.Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_cluster_", dir=root)
+    out = {}
+    n = s42.n_docs
+    try:
+        fs, free = filesystem(store_dir)
+        cb = s42.codes.shape[-1] * s42.codes.element_size()
+        # the baseline, two base-state blobs after the deletes (the
+        # fallback commit's and the newest), the segments, 2 GiB of slack
+        need = (N_FEATURES * 4 + cb + 1) * n + 2 * (cb + 1) * n + (2 << 30)
+        check(free >= need, f"J: {free} bytes free under {store_dir}, "
+              f"{need} needed")
+        out.update(filesystem=fs, free_bytes=free, bytes_needed=need)
+        reg = MetricsRegistry()
+        store = Store(store_dir, durability="request", metrics=reg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.monotonic()
+        cl = j_cluster(s42, "fused_int8", reg, store=store)
+        out["baseline_commit_s"] = time.monotonic() - t
+        out["baseline_commit_bytes"] = reg.value("store.commit.bytes_written")
+        progress(f"J: baseline commit in {out['baseline_commit_s']:.2f} s")
+        try:
+            out.update(j_write_history(cl, s42, store, reg, queries, src,
+                                       launches, errs))
+        finally:
+            cl.close()
+            store.close()
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+    return out
+
+
+def j_serve_batch(cl, queries, lo, stream) -> list:
+    return [f.result(timeout=600) for f in
+            [cl.submit(q, stream=stream) for q in queries[lo:lo + BATCH]]]
+
+
+def j_write_history(cl, s42, store, reg, queries, src, launches,
+                    errs) -> dict:
+    """The body of :func:`j_writes` on its cluster and store."""
+    import threading
+
+    from repro_torch.cluster import MaintenanceDaemon, TieredMergePolicy
+    from repro_torch.core import TrimFilter
+    from repro_torch.core.rerank import normalize
+    from repro_torch.store import latest_commit
+
+    n = s42.n_docs
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(9)
+    new = normalize(torch.randn((J_ADDS * F_BATCH, N_FEATURES),
+                                generator=g, device="cuda"))
+    rng = np.random.default_rng(9)
+    victims = np.concatenate([
+        rng.choice(np.setdiff1d(np.arange(n), src), J_DELETE_BASE,
+                   replace=False),
+        n + 2 * F_BATCH + rng.choice(F_BATCH, J_DELETE_SEALED,
+                                     replace=False)])
+    add_s = []
+    for b in range(J_ADDS):
+        j_serve_batch(cl, queries, (b % 4) * BATCH, b % 2)
+        t = time.monotonic()
+        first = cl.add_documents(new[b * F_BATCH:(b + 1) * F_BATCH])
+        torch.cuda.synchronize()
+        add_s.append(time.monotonic() - t)
+        check(first == n + b * F_BATCH, f"J: add {b} first id {first}")
+    j_serve_batch(cl, queries, 0, 0)
+    t = time.monotonic()
+    cl.delete(victims)
+    torch.cuda.synchronize()
+    out["delete_s"] = time.monotonic() - t
+    out.update(add_s=add_s, add_s_median=median_after_first(add_s))
+    groups = [cl.group_index(0).inner, cl.group_index(1)]
+    for gi, idx in enumerate(groups):
+        check(idx.n_segments == J_ADDS and idx.n_tombstones == len(victims)
+              and idx.segments[2].deleted_ratio == J_DELETE_SEALED / F_BATCH,
+              f"J: group {gi} has {idx.n_segments} segments, "
+              f"{idx.n_tombstones} tombstones")
+    out["group_own_bytes"] = [own_bytes(idx, s42) for idx in groups]
+    out["peak_before_restore"] = torch.cuda.max_memory_allocated()
+    progress(f"J: 8 adds (median {out['add_s_median']:.4f} s), deletes in "
+             f"{out['delete_s']:.3f} s; groups own "
+             f"{out['group_own_bytes']} bytes, peak "
+             f"{out['peak_before_restore']}")
+    take_launches(launches)
+
+    # the kernels on group 1's shard 1 after the deletes: the tombstoned
+    # base slice and the slice of the generation the deletes hit
+    g1 = groups[1]
+    q, qcodes, w = served_weights(g1, queries[:BATCH])
+    b8, bsc, bzp = g1._quant_base()
+    hold_table(g1.codes[1], g1.live[1], (b8[1], bsc[1], bzp[1]), q, qcodes,
+               w, "J group 1 shard 1 base", errs,
+               ("fused_phase1", "code_match"))
+    seg = g1.segments[2]
+    hold_table(seg.codes[1], seg.live[1], [t[1] for t in seg.quantized()],
+               q, qcodes, w, "J group 1 shard 1 generation 2", errs,
+               ("code_match",))
+    del q, qcodes, w, g1, groups
+
+    # restore group 1 from disk while the cluster serves on group 0
+    qs = torch.from_numpy(queries[:BATCH])
+    cl.inject_failure(1)
+    cl.mark_down(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.monotonic()
+    seq = cl.restore_group(1)
+    torch.cuda.synchronize()
+    out["restore_s"] = time.monotonic() - t
+    out["peak_during_restore"] = torch.cuda.max_memory_allocated()
+    check(seq == J_ADDS + 1 and cl.health.is_up(1),
+          f"J: restored at seq {seq}")
+    check(cl.cluster_health()["restores_completed"] == 1,
+          "J: restores_completed is not 1")
+    g0, g1 = cl.group_index(0).inner, cl.group_index(1)
+    check(g1.vectors.data_ptr() != g0.vectors.data_ptr(),
+          "J: the restored group shares group 0's vectors")
+    h_same_leaves(g0, g1, "J restore_group(1)")
+    for name in F_ENGINES:
+        kw = dict(k=K, page=PAGE, trim=TrimFilter(0.05), engine=name)
+        a, b = g0.search(qs, **kw), g1.search(qs, **kw)
+        check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+              f"J {name}: restored group 1 and group 0 answers differ")
+    del g0, g1
+    progress(f"J: restore_group(1) in {out['restore_s']:.2f} s, peak "
+             f"{out['peak_during_restore']}")
+    take_launches(launches)
+
+    # the merge daemon under 4-stream traffic
+    pre = {}
+    for lo in range(0, len(queries), BATCH):
+        for i, r in enumerate(j_serve_batch(cl, queries, lo, lo % 2)):
+            pre[lo + i] = r
+    daemon = MaintenanceDaemon(cl.batchers, threshold=0.2, health=cl.health,
+                               store=store, metrics=reg,
+                               merge_policy=TieredMergePolicy(merge_factor=4))
+    stop = threading.Event()
+    errors, served = [], [0]
+
+    def client(sid):
+        try:
+            while not stop.is_set():
+                lo = (served[0] % 4) * BATCH
+                for i, r in enumerate(j_serve_batch(cl, queries, lo,
+                                                    f"m{sid}")):
+                    check(np.array_equal(r[0], pre[lo + i][0])
+                          and np.array_equal(r[1], pre[lo + i][1]),
+                          f"J merge traffic: row {lo + i} changed")
+                served[0] += 1
+        except Exception as exc:  # noqa: BLE001 - raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(s,)) for s in range(4)]
+    for t_ in threads:
+        t_.start()
+    polls = []
+    try:
+        while True:
+            snaps = [b.index for b in cl.batchers]
+            n_ev = len(daemon.merge_events)
+            commits = daemon.commits
+            gen = latest_commit(store.path, validate=False).generation
+            t = time.monotonic()
+            applied = daemon.poll_once()
+            dt = time.monotonic() - t
+            if not applied:
+                break
+            evs = daemon.merge_events[n_ev:]
+            for ev in evs:
+                gi = ev["group"]
+                explicit = snaps[gi].merge_segments(ev["start"], ev["count"])
+                cur = cl.batchers[gi].index
+                for name in ("fused_int8", "fused"):
+                    kw = dict(k=K, page=PAGE, trim=TrimFilter(0.05),
+                              engine=name)
+                    a, b = explicit.search(qs, **kw), cur.search(qs, **kw)
+                    check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+                          f"J merge {ev}: {name} answers differ from an "
+                          "explicit merge_segments")
+            if any(ev["group"] == 0 for ev in evs):
+                check(daemon.commits == commits + 1,
+                      f"J: {daemon.commits - commits} commits after a merge")
+                last = latest_commit(store.path, validate=False)
+                check(last.generation == gen + 1 and last.seq
+                      == cl.batchers[0].index.translog_seq,
+                      "J: the commit after the merge did not land")
+            polls.append({"s": dt, "events": [
+                {k: ev[k] for k in ("group", "start", "count", "reason",
+                                    "reclaimed", "n_segments",
+                                    "duration_s")} for ev in evs]})
+            progress(f"J: maintenance pass in {dt:.2f} s: {polls[-1]}")
+    finally:
+        stop.set()
+        for t_ in threads:
+            t_.join()
+    if errors:
+        raise errors[0]
+    check(not daemon.failures, f"J: maintenance failures {daemon.failures}")
+    reasons = [ev["reason"] for ev in daemon.merge_events]
+    check(len(polls) == 3 and reasons.count("deletes") == 2
+          and reasons.count("tier") == 4 and daemon.commits == 3,
+          f"J: merges {reasons}, {daemon.commits} commits")
+    for gi in range(2):
+        idx = cl.group_index(gi)
+        check(idx.n_segments == 2 and idx.segment_rows
+              == J_ADDS * F_BATCH - J_DELETE_SEALED,
+              f"J: group {gi} left {idx.n_segments} segments")
+    take_launches(launches)
+    st = store.stats()
+    out.update(merge_passes=polls, merge_traffic_batches=served[0],
+               commits=st["commits"], commit_s=reg.histogram(
+                   "store.commit.duration_s").snapshot()["sum"],
+               commit_bytes_written=st["commit_bytes"]["written_total"],
+               store_seq=st["commit"]["seq"],
+               peak_after_restore=torch.cuda.max_memory_allocated())
+    return out
+
+
+def j_compact(index, queries) -> dict:
+    """Phase J step 4 on phase I's depth cut (the first 65,536 rows) at 4
+    x 2: 1,024 rows added, a quarter of the base deleted, the daemon
+    compacting every group in the background under traffic; each group
+    then holds no appended rows and no tombstones, and answers as an
+    explicit compact of the same history; -> the step's numbers."""
+    from repro_torch.core import TrimFilter, VectorIndex
+    from repro_torch.core.postings import build_postings
+    from repro_torch.core.rerank import normalize
+    from repro_torch.launch import make_shard_mesh
+    from repro_torch.obs import MetricsRegistry
+
+    small = VectorIndex(index.vectors[:I_DEPTH], index.codes[:I_DEPTH],
+                        build_postings(index.codes[:I_DEPTH]),
+                        index.encoder, index.index_best)
+    s = small.shard(make_shard_mesh(4, 2), seal_threshold=F_SEAL)
+    g = torch.Generator(device="cuda").manual_seed(10)
+    new = normalize(torch.randn((4 * F_SEAL, N_FEATURES), generator=g,
+                                device="cuda"))
+    victims = np.random.default_rng(10).choice(I_DEPTH, J_COMPACT_DELETES,
+                                               replace=False)
+    explicit = s
+    for b in range(4):
+        explicit = explicit.add_documents(new[b * F_SEAL:(b + 1) * F_SEAL])
+    explicit = explicit.delete(victims).compact()
+    qs = queries[:BATCH]
+    reg = MetricsRegistry()
+    t0 = time.monotonic()
+    cl = j_cluster(s, "fused_int8", reg, auto_compact=0.2,
+                   compact_interval_s=0.01)
+    try:
+        for b in range(4):
+            cl.add_documents(new[b * F_SEAL:(b + 1) * F_SEAL])
+        cl.delete(victims)
+        deadline = time.monotonic() + 300
+        batches = 0
+        while cl.maintenance.compactions < 2:
+            check(time.monotonic() < deadline, "J: the daemon never "
+                  "compacted")
+            for ids, _ in [f.result(timeout=600) for f in
+                           [cl.submit(q, stream=batches % 2) for q in qs]]:
+                check(not np.isin(ids, victims).any(),
+                      "J compact: a deleted id was served")
+            batches += 1
+        kw = dict(k=K, page=PAGE, trim=TrimFilter(0.05), engine="fused_int8")
+        want = explicit.search(torch.from_numpy(qs), **kw)
+        for gi in range(2):
+            idx = cl.group_index(gi)
+            check(idx.n_appended == 0 and idx.tombstone_ratio == 0.0
+                  and idx.n_segments == 0 and idx.seg_capacity == 0,
+                  f"J compact: group {gi} holds {idx.n_appended} appended "
+                  f"rows, tombstone ratio {idx.tombstone_ratio}")
+            got = idx.search(torch.from_numpy(qs), **kw)
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                               want[1]),
+                  f"J compact: group {gi} answers differ from an explicit "
+                  "compact")
+        ev = cl.maintenance.events
+        out = {"n_docs": I_DEPTH, "appended": 4 * F_SEAL,
+               "deleted": J_COMPACT_DELETES,
+               "tombstone_ratio_at_trigger": [e["tombstone_ratio"]
+                                              for e in ev],
+               "compact_s": [e["duration_s"] for e in ev],
+               "merges_first": cl.maintenance.merges,
+               "batches_served": batches, "s": time.monotonic() - t0}
+    finally:
+        cl.close()
+    return out
+
+
+def phase_j(index, queries, src, smi, i_answers, i_medians) -> tuple:
+    """The cluster control plane on phase C's index at 4 x 2 (run after
+    I): serving by streams and layouts, failover, writes, restore and
+    merges at full width, the demoted compact at I's depth; -> (the
+    phase line, the kernels' launches in its main-path runs)."""
+    import gc
+
+    from repro_torch.dist import ShardedVectorIndex
+    from repro_torch.launch import make_shard_mesh
+
+    t_phase = time.monotonic()
+    src = np.asarray(src)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    s42 = ShardedVectorIndex.from_index(index, mesh=make_shard_mesh(4, 2),
+                                        seal_threshold=F_SEAL)
+    s41 = s42.replica_group(0)
+    launches = {}
+    reset_launches()
+    serving = j_serve(s42, s41, queries, src, i_answers, launches)
+    trace = j_trace(s42, queries)
+    take_launches(launches)
+    progress(f"J trace: {trace}")
+    failover = j_failover(s42, queries, i_answers, launches)
+    # the failed searches' tracebacks tie that closed cluster in reference
+    # cycles: collect them before the writes need the memory
+    gc.collect()
+    errs = {"fused_phase1": 0.0, "fused_phase1_quant": 0.0,
+            "code_match": 0.0}
+    writes = j_writes(s42, queries, src, launches, errs)
+    del s41, s42
+    torch.cuda.empty_cache()
+    compact = j_compact(index, queries)
+    take_launches(launches)
+    line = {"phase": "J", "device": smi, "n_docs": index.n_docs,
+            "layout": "4x2", "held_bytes_at_start": held,
+            "serving": serving,
+            "phase_i_batch_latency_s_median": i_medians,
+            "trace_fused_int8_two_groups": trace, "failover": failover,
+            "writes": writes, "compact_depth": compact,
+            "kernels_vs_plain_group_1_shard_1": errs,
+            "kernels_max_abs_err": errs, "launches": launches,
+            "max_memory_allocated": max(
+                torch.cuda.max_memory_allocated(),
+                writes["peak_before_restore"],
+                writes["peak_during_restore"]),
             "phase_s": time.monotonic() - t_phase}
     return line, launches
 
@@ -2714,8 +3568,11 @@ def phase_e() -> tuple:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="ABCDEFGHI")
+    ap.add_argument("--phases", default="ABCDEFGHIJ")
     args = ap.parse_args(argv)
+    if "J" in args.phases and not {"C", "I"} <= set(args.phases):
+        ap.error("phase J serves phase C's index and holds its answers to "
+                 "phase I's: run it as --phases CIJ")
 
     src = pathlib.Path(__file__).resolve().parent / "src"
     if not (src / "repro_torch").is_dir():
@@ -2826,11 +3683,21 @@ def main(argv=None) -> int:
             one_shard = {"fused": c["batch_latency_s_median"]}
             if d_summary is not None:
                 one_shard.update(d_summary["batch_latency_s_median"])
-            line, by_phase["I"] = phase_i(index, queries, src, smi,
-                                          one_shard)
+            line, by_phase["I"], i_answers = phase_i(index, queries, src,
+                                                     smi, one_shard)
             emit(line)
             for name, err in line["kernels_max_abs_err"].items():
                 a_err[name] = max(a_err.get(name, 0.0), err)
+            if "J" in args.phases:
+                # no phase after J reads C's flat posting tables (8.36 GB)
+                index.postings = None
+                torch.cuda.empty_cache()
+                line, by_phase["J"] = phase_j(
+                    index, queries, src, smi, i_answers,
+                    line["batch_latency_s_median"])
+                emit(line)
+                for name, err in line["kernels_max_abs_err"].items():
+                    a_err[name] = max(a_err.get(name, 0.0), err)
         del index
         torch.cuda.empty_cache()
     if "E" in args.phases:

@@ -31,8 +31,9 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 __all__ = ["NVCC_FLAGS", "build_dir", "load_library", "build_listeners",
-           "row_stride", "mma_row_stride", "launch_sizes", "smem_optin",
-           "check_code_inputs", "THREADS", "STAGE_BYTES", "MAX_COLUMNS"]
+           "launch_record", "row_stride", "mma_row_stride", "launch_sizes",
+           "smem_optin", "check_code_inputs", "THREADS", "STAGE_BYTES",
+           "MAX_COLUMNS"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -99,6 +100,16 @@ def load_library(name: str, sources: Sequence[pathlib.Path]) -> ctypes.CDLL:
                 fn(name, seconds)
         _libs[name] = ctypes.CDLL(str(so))
         return _libs[name]
+
+
+def launch_record(name: str):
+    """An op-scope ``torch.profiler`` record to launch a kernel in.  The
+    profiler keeps the CUDA runtime call of a launch made from a library
+    of its own only while an op is open around it (the compiler's Triton
+    launches open the same record), so inside one each kernel's device
+    time belongs to the op, range and thread that launched it.  With no
+    profiler running it costs a check."""
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 def check_code_inputs(what: str, doc_codes, qcodes, col_weights) -> None:

@@ -61,9 +61,10 @@ def bucketize_cuda(x: torch.Tensor, mode: str, param: float,
     if B >= 2 ** 31 or n >= 2 ** 31:
         raise ValueError(f"shape {tuple(x.shape)} does not fit int32")
     out = torch.empty((B, n), dtype=out_dtype, device=x.device)
-    err = getattr(library(), _ENTRY[out_dtype])(
-        x.data_ptr(), out.data_ptr(), B, n, MODES[mode], float(param),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    fn = getattr(library(), _ENTRY[out_dtype])
+    with _build.launch_record("bucketize"):
+        err = fn(x.data_ptr(), out.data_ptr(), B, n, MODES[mode],
+                 float(param), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"bucketize kernel launch failed: CUDA error "
                            f"{err}")

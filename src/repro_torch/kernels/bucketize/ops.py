@@ -9,10 +9,13 @@ CPU tensor goes to the plain version (:func:`.ref.bucketize_ref`).
 ``launches`` counts the CUDA kernels this wrapper launched: one per
 encoder half (two for a ``CombinedEncoder``).  Calls made straight to
 :func:`.kernel.bucketize_cuda`, as a comparison with the plain version
-does, are not counted.
+does, are not counted.  The count is guarded by a lock: batchers on
+several threads launch at once.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -24,6 +27,7 @@ from . import kernel, ref
 __all__ = ["bucketize", "encode", "launches"]
 
 launches = 0
+_lock = threading.Lock()
 
 
 def bucketize(x: torch.Tensor, mode: str, param: float,
@@ -32,7 +36,8 @@ def bucketize(x: torch.Tensor, mode: str, param: float,
     global launches
     if x.is_cuda:
         out = kernel.bucketize_cuda(x, mode, param, out_dtype)
-        launches += kernel.KERNELS_PER_CALL
+        with _lock:
+            launches += kernel.KERNELS_PER_CALL
         return out
     return ref.bucketize_ref(x, mode, param, out_dtype)
 

@@ -66,10 +66,12 @@ def code_match_cuda(
     chunk = -(-n_sub // splits) * sub
     splits = -(-d // chunk)
     out = torch.empty((Q, d), dtype=torch.float32, device=dev)
-    err = getattr(lib, _ENTRY[doc_codes.dtype])(
-        doc_codes.data_ptr(), qcodes.data_ptr(), col_weights.data_ptr(),
-        d, C, Q, block_q, sub, stride, chunk, splits, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    fn = getattr(lib, _ENTRY[doc_codes.dtype])
+    with _build.launch_record("code_match"):
+        err = fn(doc_codes.data_ptr(), qcodes.data_ptr(),
+                 col_weights.data_ptr(), d, C, Q, block_q, sub, stride,
+                 chunk, splits, out.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"code_match kernel launch failed: CUDA error "
                            f"{err}")

@@ -8,10 +8,13 @@ the (Q, block, C) select stays near ``_CPU_ELEMENTS`` elements.
 
 ``launches`` counts the CUDA kernels this wrapper launched, one per call
 on the card.  Calls made straight to :func:`.kernel.code_match_cuda`, as a
-comparison with the plain version does, are not counted.
+comparison with the plain version does, are not counted.  The count is
+guarded by a lock: batchers on several threads launch at once.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -20,6 +23,7 @@ from . import kernel, ref
 __all__ = ["code_match", "launches"]
 
 launches = 0
+_lock = threading.Lock()
 
 _CPU_ELEMENTS = 1 << 24
 
@@ -33,7 +37,8 @@ def code_match(
     global launches
     if doc_codes.is_cuda:
         out = kernel.code_match_cuda(doc_codes, qcodes, col_weights)
-        launches += kernel.KERNELS_PER_CALL
+        with _lock:
+            launches += kernel.KERNELS_PER_CALL
         return out
     Q, C = qcodes.shape
     block = max(1, _CPU_ELEMENTS // max(1, Q * C))

@@ -234,13 +234,14 @@ def fused_phase1_cuda(
                                                                plan)
     fn = getattr(lib, _ENTRY[doc_codes.dtype])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _raise_on(fn(doc_codes.data_ptr(), qcodes.data_ptr(),
+    with _build.launch_record("fused_phase1"):
+        err = fn(doc_codes.data_ptr(), qcodes.data_ptr(),
                  col_weights.data_ptr(), _ptr(live),
                  d, C, Q, page, plan.block_q, plan.tile, plan.sub,
                  plan.stride, plan.chunk, plan.splits,
                  part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
-                 out_i.data_ptr(), _ptr(fold_ws), _ptr(merge_ws), stream),
-              "fused_phase1")
+                 out_i.data_ptr(), _ptr(fold_ws), _ptr(merge_ws), stream)
+    _raise_on(err, "fused_phase1")
     return out_s, out_i
 
 
@@ -296,11 +297,13 @@ def fused_phase1_quant_cuda(
     part_s, part_i, out_s, out_i, fold_ws, merge_ws = _outputs(dev, Q, page,
                                                                plan)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _raise_on(lib.fused_phase1_quant(
-        codes8.data_ptr(), scale.data_ptr(), zero.data_ptr(),
-        queries.data_ptr(), qsum.data_ptr(), _ptr(live),
-        d, n, Q, page, plan.block_q, plan.tile, plan.sub, plan.stride,
-        plan.chunk, plan.splits, part_s.data_ptr(), part_i.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(), _ptr(fold_ws), _ptr(merge_ws),
-        stream), "fused_phase1_quant")
+    with _build.launch_record("fused_phase1_quant"):
+        err = lib.fused_phase1_quant(
+            codes8.data_ptr(), scale.data_ptr(), zero.data_ptr(),
+            queries.data_ptr(), qsum.data_ptr(), _ptr(live),
+            d, n, Q, page, plan.block_q, plan.tile, plan.sub, plan.stride,
+            plan.chunk, plan.splits, part_s.data_ptr(), part_i.data_ptr(),
+            out_s.data_ptr(), out_i.data_ptr(), _ptr(fold_ws),
+            _ptr(merge_ws), stream)
+    _raise_on(err, "fused_phase1_quant")
     return out_s, out_i

@@ -21,11 +21,13 @@ launched: each call on the card launches two, ``score_fold_kernel`` and
 ``merge_splits_kernel`` (:data:`.kernel.KERNELS_PER_CALL`).  Calls made
 straight to :mod:`.kernel`, as a comparison with the plain version does,
 are not counted.  A run resets them to 0 to show that a path went through
-the kernels.
+the kernels.  The counts are guarded by a lock: batchers on several
+threads launch at once.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -37,6 +39,7 @@ __all__ = ["fused_phase1", "fused_phase1_quant", "launches",
 
 launches = 0
 quant_launches = 0
+_lock = threading.Lock()
 
 _CPU_BLOCK_D = 512
 
@@ -56,7 +59,8 @@ def fused_phase1(
     if doc_codes.is_cuda:
         out = kernel.fused_phase1_cuda(doc_codes, qcodes, col_weights, page,
                                        live)
-        launches += kernel.KERNELS_PER_CALL
+        with _lock:
+            launches += kernel.KERNELS_PER_CALL
         return out
     s, i = ref.fused_phase1_stream(doc_codes, qcodes, col_weights, page,
                                    live, block=_CPU_BLOCK_D)
@@ -80,7 +84,8 @@ def fused_phase1_quant(
     if codes8.is_cuda:
         out = kernel.fused_phase1_quant_cuda(codes8, scale, zero, queries,
                                              page, live)
-        quant_launches += kernel.KERNELS_PER_CALL
+        with _lock:
+            quant_launches += kernel.KERNELS_PER_CALL
         return out
     s, i = ref.fused_phase1_quant_stream(codes8, scale, zero, queries, page,
                                          live, block=_CPU_BLOCK_D)

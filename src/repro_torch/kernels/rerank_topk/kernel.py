@@ -226,15 +226,16 @@ def launch(table: torch.Tensor, ids: torch.Tensor, queries: torch.Tensor,
     Q, P = ids.shape
     out = torch.empty((Q, P), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if plan.body == "bulk":
-        err = lib.rerank_scores_bulk(
-            table.data_ptr(), ids.data_ptr(), queries.data_ptr(), d, Q, P, n,
-            plan.rows, plan.stages, plan.blocks, plan.smem, out.data_ptr(),
-            stream)
-    else:
-        err = lib.rerank_scores(table.data_ptr(), ids.data_ptr(),
-                                queries.data_ptr(), d, Q, P, n,
-                                out.data_ptr(), stream)
+    with _build.launch_record("rerank_topk"):
+        if plan.body == "bulk":
+            err = lib.rerank_scores_bulk(
+                table.data_ptr(), ids.data_ptr(), queries.data_ptr(), d, Q,
+                P, n, plan.rows, plan.stages, plan.blocks, plan.smem,
+                out.data_ptr(), stream)
+        else:
+            err = lib.rerank_scores(table.data_ptr(), ids.data_ptr(),
+                                    queries.data_ptr(), d, Q, P, n,
+                                    out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"rerank kernel launch failed: CUDA error {err}")
     return out, plan

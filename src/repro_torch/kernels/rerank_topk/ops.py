@@ -17,11 +17,13 @@ the CUDA kernels this wrapper launched, one per call on the card, and
 ``launches_by_body`` the same launches by the body the launch plan chose
 (``"bulk"`` or ``"simple"``, :mod:`.kernel`); calls made straight to
 :func:`.kernel.rerank_scores_cuda`, as a comparison with the plain version
-does, are not counted.
+does, are not counted.  Both counts are guarded by one lock: batchers on
+several threads launch at once.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Tuple
 
 import torch
@@ -35,13 +37,15 @@ __all__ = ["rerank_scores", "candidate_scores", "rerank_topk", "launches",
 
 launches = 0
 launches_by_body = dict.fromkeys(kernel.BODIES, 0)
+_lock = threading.Lock()
 
 
 def _launch(table, ids, queries):
     global launches
     out, plan = kernel.launch(table, ids, queries)
-    launches += kernel.KERNELS_PER_CALL
-    launches_by_body[plan.body] += 1
+    with _lock:
+        launches += kernel.KERNELS_PER_CALL
+        launches_by_body[plan.body] += 1
     return out
 
 

@@ -20,11 +20,13 @@ answers are bit-identical with the plane on or off.  The JAX package's
 * :mod:`~repro_torch.obs.compile_watch` -- counts and attributes the
   ``nvcc`` builds of the kernel libraries, the port's recompiles;
 * :mod:`~repro_torch.obs.stats` -- ``BatchedSearchEngine.stats()``
-  (ES ``_cat/thread_pool``), the index's ``_cat/segments`` view and
-  ``Store.stats()`` (ES ``_stats/translog``).
+  (ES ``_cat/thread_pool``), the index's ``_cat/segments`` view,
+  ``Store.stats()`` (ES ``_stats/translog``) and the cluster rollups
+  ``ClusterEngine.stats()`` / ``cluster_health()`` (ES ``_cluster/stats``
+  and ``_cluster/health``).
 
 The device part (byte accounting, cost model, node stats, diagnostics)
-and the cluster rollups are not ported yet.
+is not ported yet.
 """
 
 from .compile_watch import CompileWatch, active_watch, watch_region
@@ -34,15 +36,17 @@ from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                       default_registry)
 from .profile import ProfileNode, format_profile_tree, profile_from_trace
 from .slowlog import SlowLog, start_request_trace
-from .stats import (engine_stats, format_segments_line, format_stats_line,
-                    index_stats, store_stats)
+from .stats import (cluster_health, cluster_stats, engine_stats,
+                    format_health_line, format_segments_line,
+                    format_stats_line, index_stats, store_stats)
 from .tracing import NULL_TRACE, Span, Trace, Tracer, annotation
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "default_registry",
     "Span", "Trace", "Tracer", "NULL_TRACE", "annotation",
-    "index_stats", "engine_stats", "store_stats",
-    "format_stats_line", "format_segments_line",
+    "index_stats", "engine_stats", "store_stats", "cluster_stats",
+    "cluster_health", "format_stats_line", "format_segments_line",
+    "format_health_line",
     "ProfileNode", "format_profile_tree", "profile_from_trace",
     "SlowLog", "start_request_trace",
     "CompileWatch", "active_watch", "watch_region",

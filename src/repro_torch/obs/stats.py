@@ -2,11 +2,18 @@
 
 One function per serving layer, each returning a plain nested dict (JSON-
 ready, the shape ES returns from ``GET <index>/_stats`` / ``_cat``
-endpoints).  ``BatchedSearchEngine.stats()`` exposes them, but the
-assembly lives here so the serving class carries no formatting code and
-the obs package owns the schema -- the JAX package's schema, key for key,
-but for the static-cost rollup of its compile section (XLA's cost model
-has no counterpart here yet).
+endpoints).  ``BatchedSearchEngine.stats()``, ``ClusterEngine.stats()``
+and ``Store.stats()`` expose them, but the assembly lives here so the
+serving classes carry no formatting code and the obs package owns the
+schema -- the JAX package's schema, key for key, but for the static-cost
+rollup of its compile section (XLA's cost model has no counterpart here
+yet) and the device part (``node_stats``, not ported yet).
+
+Counter reconciliation is part of the schema contract: queries issued ==
+``cluster.requests.completed`` == sum over groups of
+``cluster.requests.group_completed``; one injected group failure == one
+``failover.resubmits`` increment (sequential traffic) == one
+``health.down_transitions`` + one readmit once healed.
 
 What maps where:
 
@@ -19,6 +26,15 @@ What maps where:
   batcher: queue depth, in-flight, batch occupancy, queue-wait and
   dispatch-latency histograms, request, ingest and kernel-path counters,
   and the slow-log and build-watch sections.
+* :func:`cluster_stats` -- the cluster-level rollup (``_cluster/stats``
+  + ``_cat/shards``) of a :class:`repro_torch.cluster.ClusterEngine`:
+  per-group engine stats + health state, routing counters (spills,
+  failover resubmits, per-group completions), health-transition
+  counters, maintenance + store sections when wired.
+* :func:`cluster_health` -- ES ``_cluster/health``: the green / yellow /
+  red verdict with queue depths, restores, pending maintenance and the
+  transition ledger it reconciles against;
+  :func:`format_health_line` renders it ``_cat/health``-style.
 * :func:`store_stats` -- ES ``_stats/translog`` for one
   :class:`repro_torch.store.Store`: translog seqno, generation and
   on-disk bytes, the newest commit, commit and recovery counts and
@@ -33,8 +49,9 @@ import math
 import os
 from typing import Optional
 
-__all__ = ["index_stats", "engine_stats", "store_stats",
-           "format_stats_line", "format_segments_line"]
+__all__ = ["index_stats", "engine_stats", "cluster_stats", "store_stats",
+           "cluster_health", "format_stats_line", "format_segments_line",
+           "format_health_line"]
 
 
 def _hist(registry, name: str, **labels) -> dict:
@@ -153,6 +170,137 @@ def engine_stats(engine) -> dict:
     if watch is not None:
         out["compile"] = _compile_stats(watch)
     return out
+
+
+def _maintenance_stats(daemon) -> dict:
+    return {
+        "compactions": daemon.compactions,
+        "merges": daemon.merges,
+        "merges_by_group": daemon.metrics.series("maintenance.merges"),
+        "reclaimed_by_group": daemon.metrics.series(
+            "maintenance.merge.reclaimed"),
+        "commits": daemon.commits,
+        "failures": len(daemon.failures),
+        "probe_readmits": len(daemon.probe_events),
+        "compact_duration_s": _hist(daemon.metrics,
+                                    "maintenance.compact.duration_s"),
+        "merge_duration_s": _hist(daemon.metrics,
+                                  "maintenance.merge.duration_s"),
+    }
+
+
+def cluster_stats(cluster) -> dict:
+    """The cluster rollup.  ``groups`` is keyed by group id and carries
+    each batcher's engine stats plus its health state (``up`` /
+    ``down`` / ``drained`` -- ES STARTED/UNASSIGNED/excluded)."""
+    reg = cluster.metrics
+    health = cluster.health.snapshot()
+    down, drained = set(health["down"]), set(health["drained"])
+    groups = {}
+    for g, b in enumerate(cluster.batchers):
+        state = ("drained" if g in drained
+                 else "down" if g in down else "up")
+        groups[g] = {"health": state, **engine_stats(b)}
+    out = {
+        "n_groups": cluster.n_groups,
+        "groups": groups,
+        "requests": {
+            "submitted": reg.value("cluster.requests.submitted"),
+            "completed": reg.value("cluster.requests.completed"),
+            "failed": reg.value("cluster.requests.failed"),
+            "group_completed": {
+                g: reg.value("cluster.requests.group_completed", group=g)
+                for g in range(cluster.n_groups)},
+        },
+        "routing": {
+            "spills": reg.value("cluster.routing.spills"),
+            "failover_resubmits": reg.value("cluster.failover.resubmits"),
+        },
+        "health": {
+            **health,
+            "down_transitions": reg.total("health.down_transitions"),
+            "readmits": reg.total("health.readmits"),
+            "mark_ups": reg.total("health.mark_ups"),
+        },
+    }
+    slowlog = getattr(cluster, "slowlog", None)
+    if slowlog is not None:
+        out["slowlog"] = slowlog.stats()
+    watch = getattr(cluster, "compile_watch", None)
+    if watch is not None:
+        out["compile"] = _compile_stats(watch)
+    if cluster.maintenance is not None:
+        out["maintenance"] = _maintenance_stats(cluster.maintenance)
+    if cluster.store is not None:
+        out["store"] = store_stats(cluster.store)
+    return out
+
+
+def cluster_health(cluster) -> dict:
+    """ES ``GET _cluster/health``: one green/yellow/red verdict derived
+    from the HealthMap, plus everything an operator triages with --
+    queue depths, in-flight restores, pending maintenance plans, and
+    the transition ledger the verdict must reconcile against.
+
+    Status derivation (the ES shard-allocation analogy, per replica
+    group): **green** = every group routable; **yellow** = some groups
+    down but at least one copy still serving (reduced redundancy, full
+    availability -- exactly ES yellow); **red** = no routable group.
+
+    Reconciliation contract (pinned by tests/test_torch_cluster.py):
+    the ledger's ``down`` events equal the ``health.down_transitions``
+    counter total one-for-one (likewise ``up``/``readmit``), and
+    replaying the ledger lands on the reported down-set -- the verdict
+    can never drift from the events that produced it."""
+    reg = cluster.metrics
+    h = cluster.health.snapshot()
+    down = set(h["down"])
+    up_groups = h["n_groups"] - len(down)
+    status = ("green" if not down
+              else "yellow" if up_groups else "red")
+    queue_depths = {}
+    for g, b in enumerate(cluster.batchers):
+        with b._lock:
+            queue_depths[g] = len(b._queue) + b._inflight
+    maint = (cluster.maintenance.pending_plans()
+             if cluster.maintenance is not None else [])
+    return {
+        "status": status,
+        "n_groups": h["n_groups"],
+        "up_groups": up_groups,
+        "down": h["down"],
+        "drained": h["drained"],
+        "generation": h["generation"],
+        "queue_depths": queue_depths,
+        "pending_requests": sum(queue_depths.values()),
+        "in_flight_restores": getattr(cluster, "restores_in_flight", 0),
+        "restores_completed": reg.total("cluster.restores"),
+        "pending_maintenance": maint,
+        "transitions": list(cluster.health.transitions()),
+        "counters": {
+            "down_transitions": reg.total("health.down_transitions"),
+            "readmits": reg.total("health.readmits"),
+            "mark_ups": reg.total("health.mark_ups"),
+        },
+    }
+
+
+def format_health_line(health: dict) -> str:
+    """One ``_cat/health``-style line from a :func:`cluster_health`
+    dict: status, routable groups, pending work, restore/maintenance
+    activity, cluster-state generation."""
+    parts = [f"health {health['status']} "
+             f"groups={health['up_groups']}/{health['n_groups']}up"]
+    if health["down"]:
+        parts.append("down=" + ",".join(str(g) for g in health["down"]))
+    if health["drained"]:
+        parts.append("drained="
+                     + ",".join(str(g) for g in health["drained"]))
+    parts.append(f"pending={health['pending_requests']}")
+    parts.append(f"restores={health['in_flight_restores']}")
+    parts.append(f"maint={len(health['pending_maintenance'])}")
+    parts.append(f"gen={health['generation']}")
+    return " ".join(parts)
 
 
 def store_stats(store) -> dict:

@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases CH     # the durability plane only
     python3 chip_smoke.py --phases CI     # shards and replica groups only
     python3 chip_smoke.py --phases CIJ    # the cluster control plane only
+    python3 chip_smoke.py --phases K      # the launcher runs only
 
 It builds the hand-written kernels from the sources in this checkout (one
 nvcc per library, all started together), holds each against its plain
@@ -18,8 +19,10 @@ paper's quality pipeline on the card, takes that index through the
 segment lifecycle (ingest, seal, delete, merge, compact), serves it
 with the observability plane on and off, commits, kills and recovers it
 through the durability plane, splits it into 4 doc-shards x 1 and
-x 2 replica groups, and serves those groups through the cluster control
-plane (routing, failover, health, restore and background merges).
+x 2 replica groups, serves those groups through the cluster control
+plane (routing, failover, health, restore and background merges) and
+reads their device bytes, cost rows and diagnostics bundle, and runs
+the port's serving launcher as an operator would.
 
 Phases, each printing one JSON line (D and G one per engine, then a
 summary):
@@ -212,7 +215,44 @@ summary):
      compact.  Add, delete, restore, merge and commit seconds, launches
      by kernel, peak memory and the card's name and power limit in its
      line.
+     Device accounting in step 3: ``device_bytes`` of a group before the
+     writes (its storage bytes at most ``torch.cuda.memory_allocated``,
+     checked at every read) and the bytes each group owns after the
+     deletes (``repro_torch.obs.device.resident_storages``: the rebuilt
+     base and 8 segments, their count checked, and the int8 tables
+     apart); after the merges one ``codes`` and one ``fused`` batch on
+     group 0 beside the cluster's ``fused_int8``, under the cluster's
+     CompileWatch, then each group's ``device_bytes``, ``node_stats``
+     (storages counted once, checked), a diagnostics bundle written under
+     build/ and accepted by ``tools/validate_diag_bundle_torch.py``, no
+     building region without a cost row, and the fused-vs-composed byte
+     claim of ``artifacts/BENCH_kernel_scale.json`` holding live;
+  K  the port's launcher, ``python -m repro_torch.launch.serve``, as
+     four processes of its own (K_RUNS), each of which must exit 0
+     with its own assertions: K1 ``fused_int8`` on 262,144 docs x 400
+     (phase E's cut) at 4 x 2 through the cluster, 4,096 docs ingested,
+     group 0 failed and healed (bit-identical, health green -> yellow ->
+     green), a store killed and recovered (bit-identical), stats every
+     second, every request profiled and slow-logged, metrics to build/,
+     diagnostics bundles at the failover, the kill and the exit
+     (accepted by the validator); K2 ``fused`` on 65,536 docs, 4 x 2,
+     ``stream``, the background compaction; K3 ``codes`` on 65,536 docs
+     at 4 x 1 with ``--fail-on-recompile --profile --slow-threshold 0``;
+     K4 ``codes_pallas`` on K3's corpus with ``--fail-on-recompile``,
+     its kernels built into an empty directory (its first pass builds
+     ``code_match`` in a serving region: counted, with a cost row, and
+     no build after the steady state, read from its exit bundle).  K2,
+     K3 (plain torch) and K4 serve the same ids, bit for bit (the digest
+     each run prints).  K2-K4 run while K1 generates its corpus, and
+     meanwhile each kernel is held to its plain version at the runs'
+     shapes (shard 1 of 64,512 rows and of K1's 1,024 ingested rows for
+     ``fused_phase1_quant``, of 16,384 rows before and after 19,660
+     deletes and compacted for ``fused_phase1`` and ``code_match``, Q 32,
+     page 320, the served live masks).  P@10, ms a query,
+     kill-and-recover seconds, bundle count and the kernels each run
+     launched (its last line) in the K line.
 Then the ``kernels`` line (launches summed over the phases' main paths,
+phase K's as its runs printed them,
 and by phase; each library's largest ptxas stack frame
 of a kernel: 0 bytes for the code-match scorers, checked; both rerank
 bodies' registers and spill bytes, 0 for the bulk body, checked), the card's
@@ -235,11 +275,6 @@ import time
 
 import numpy as np
 import torch
-
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
-CUDA_CORE_OPS_PER_S = 33.5e12      # 67 TFLOP/s fp32 non-tensor / 2 per FMA
-INT8_TC_OPS_PER_S = 1979e12        # dense int8 tensor cores (data sheet)
-OPS_PER_ELEMENT = 3                # compare, select, add per (q, doc, col)
 
 N_DOCS = 4_181_504                 # English Wikipedia 4,181,352, padded x512
 N_FEATURES = 400
@@ -269,6 +304,7 @@ J_ADDS = 8                         # 8 x 4,096 rows through the cluster, and
 J_DELETE_BASE = 1_024              # 2,048 deletes: base rows and a quarter
 J_DELETE_SEALED = 1_024            # of one sealed generation
 J_COMPACT_DELETES = 16_384         # a quarter of I's depth cut: past 0.2
+K_TIMEOUT_S = 600                  # phase K: each launcher run's limit
 E_DOCS = 262_144                   # phase E corpus, cut from 4,181,352
 E_VOCAB = 100_000                  # gensim make_wiki: keep_n=100000
 E_TOPICS = 400
@@ -324,58 +360,15 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def fused_bound_ms(d: int, Q: int, C: int, page: int, code_bytes: int,
-                   live: bool) -> tuple:
-    """Least time for fused_phase1 on these inputs: each input read once,
-    each output written once, over the HBM rate; Q*d*C elements at
-    OPS_PER_ELEMENT CUDA-core instructions each over the issue rate."""
-    nbytes = (d * C * code_bytes + Q * C * (code_bytes + 4)
-              + (d if live else 0) + Q * page * 8)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = OPS_PER_ELEMENT * Q * d * C / CUDA_CORE_OPS_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def code_match_bound_ms(d: int, Q: int, C: int, code_bytes: int) -> tuple:
-    """Least time for code_match: the codes and queries read once, the
-    (Q, d) f32 matrix written once; Q*d*C elements at OPS_PER_ELEMENT
-    CUDA-core instructions each."""
-    nbytes = d * C * code_bytes + Q * C * (code_bytes + 4) + Q * d * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = OPS_PER_ELEMENT * Q * d * C / CUDA_CORE_OPS_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def quant_bound_ms(d: int, Q: int, n: int, page: int, live: bool) -> tuple:
-    """Least time for fused_phase1_quant on the int8 tensor cores: the int8
-    rows, scale, zero and queries read once, the page written once, over
-    the HBM rate; 2*Q*d*K*3 int8 operations (the queries as three int8
-    pieces, K = n padded to whole 32-code steps) over the int8 tensor-core
-    rate."""
-    nbytes = d * n + 8 * d + (d if live else 0) + Q * n * 4 + Q * page * 8
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * Q * d * (-(-n // 32) * 32) * 3 / INT8_TC_OPS_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def bucketize_bound_ms(B: int, n: int, code_bytes: int) -> tuple:
-    """Least time for bucketize: each f32 element read once, its code
-    written once; a few operations an element, far below the bytes."""
-    t_bytes = B * n * (4 + code_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = 4 * B * n / CUDA_CORE_OPS_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
 def rerank_bound_ms(ids: torch.Tensor, n: int) -> tuple:
     """Least time for rerank_scores on these ids: each distinct candidate
-    row read once, the ids and queries read once, the scores written once;
-    one FMA per (query, candidate, feature)."""
+    row read once (a count this run's data gives), the rest as
+    :func:`repro_torch.obs.cost.rerank_work` counts it."""
+    from repro_torch.obs import cost
+
     Q, P = ids.shape
-    rows = int(torch.unique(ids).numel())
-    nbytes = rows * n * 4 + Q * P * 4 + Q * n * 4 + Q * P * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = Q * P * n / CUDA_CORE_OPS_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return cost.bound_ms(cost.rerank_work(Q, P, n,
+                                          int(torch.unique(ids).numel())))
 
 
 def host_ms(fn) -> float:
@@ -503,6 +496,7 @@ def assert_fused_parity(got, want, d, ctx) -> float:
 def phase_a(gen) -> dict:
     from repro_torch.kernels.fused_phase1 import kernel as fp_kernel
     from repro_torch.kernels.fused_phase1 import ref as fp_ref
+    from repro_torch.obs import cost
 
     shapes = [(131072, 8, 400, 320, torch.int8, None),
               (5001, 9, 23, 33, torch.int16, None),
@@ -567,7 +561,8 @@ def phase_a(gen) -> dict:
     plain_ms = cuda_ms(lambda: fp_ref.fused_phase1_ref(D, Qc, W, page), 3)
     kernel_ms = cuda_ms(lambda: fp_kernel.fused_phase1_cuda(D, Qc, W, page),
                         5)
-    bound, by = fused_bound_ms(d, Q, C, page, 1, False)
+    bound, by = cost.bound_ms(cost.fused_phase1_work(d, Q, C, page, 1,
+                                                     False))
     return {"phase": "A", "kernel": "fused_phase1", "shapes": rows,
             "max_abs_err": worst,
             "first_shape": {"kernel_ms": kernel_ms, "plain_ms": plain_ms,
@@ -983,23 +978,12 @@ def reset_launches() -> None:
     rk_ops.launches_by_body.update(dict.fromkeys(rk_ops.launches_by_body, 0))
 
 
-def read_launches() -> dict:
-    from repro_torch.kernels.bucketize import ops as bk_ops
-    from repro_torch.kernels.code_match import ops as cm_ops
-    from repro_torch.kernels.fused_phase1 import ops as fp_ops
-    from repro_torch.kernels.rerank_topk import ops as rk_ops
-
-    return {"fused_phase1": fp_ops.launches,
-            "fused_phase1_quant": fp_ops.quant_launches,
-            "code_match": cm_ops.launches, "bucketize": bk_ops.launches,
-            "rerank_topk": rk_ops.launches}
-
-
 def phase_c(gen) -> tuple:
     from repro_torch.core import RoundingEncoder, TrimFilter, VectorIndex
     from repro_torch.kernels.fused_phase1 import kernel as fp_kernel
     from repro_torch.kernels.fused_phase1 import ops as fp_ops
     from repro_torch.kernels.fused_phase1 import ref as fp_ref
+    from repro_torch.obs import cost
 
     n_docs = N_DOCS
     torch.cuda.reset_peak_memory_stats()
@@ -1053,8 +1037,8 @@ def phase_c(gen) -> tuple:
              "plain)")
     kernel_ms = cuda_ms(
         lambda: fp_kernel.fused_phase1_cuda(index.codes, qcodes, w, PAGE), 3)
-    bound, by = fused_bound_ms(n_docs, BATCH, index.codes.shape[1], PAGE, 1,
-                               False)
+    bound, by = cost.bound_ms(cost.fused_phase1_work(
+        n_docs, BATCH, index.codes.shape[1], PAGE, 1, False))
     return {"phase": "C", "n_docs": n_docs, "n_features": N_FEATURES,
             "build_s": build_s,
             "batch_latency_s_median": median_after_first(batch_s),
@@ -1195,9 +1179,11 @@ def phase_d(gen, index, queries, src, raw_state) -> tuple:
     import inspect
 
     from repro_torch.core import TrimFilter, VectorIndex
+    from repro_torch.kernels import launch_counts
     from repro_torch.kernels.code_match import kernel as cm_kernel
     from repro_torch.kernels.fused_phase1 import kernel as fp_kernel
     from repro_torch.kernels.fused_phase1 import ref as fp_ref
+    from repro_torch.obs import cost
     from repro_torch.serve import BatchedSearchEngine
 
     check(inspect.signature(BatchedSearchEngine).parameters["engine"]
@@ -1218,7 +1204,7 @@ def phase_d(gen, index, queries, src, raw_state) -> tuple:
         kw = {} if name == "codes" else {"engine": name}
         reset_launches()
         results, batch_s, peak = serve_engine(index, queries, name, **kw)
-        got = read_launches()
+        got = launch_counts()
         for kname, n in want_launches[name].items():
             check(got[kname] >= n, f"{name}: {kname} launched {got[kname]} "
                   f"CUDA kernels for {per_batch} batches, want {n}")
@@ -1320,8 +1306,8 @@ def phase_d(gen, index, queries, src, raw_state) -> tuple:
     cm_plain_ms = host_ms(lambda: code_match_plain(index.codes, qcodes, w))
     cm_ms = cuda_ms(lambda: cm_kernel.code_match_cuda(index.codes, qcodes,
                                                       w), 3)
-    cm_bound, cm_by = code_match_bound_ms(index.n_docs, BATCH,
-                                          index.codes.shape[1], 1)
+    cm_bound, cm_by = cost.bound_ms(cost.code_match_work(
+        index.n_docs, BATCH, index.codes.shape[1], 1))
     qt = index.quantized
     got = fp_kernel.fused_phase1_quant_cuda(qt.codes, qt.scale, qt.zero, q,
                                             PAGE)
@@ -1333,8 +1319,8 @@ def phase_d(gen, index, queries, src, raw_state) -> tuple:
         qt.codes, qt.scale, qt.zero, q, PAGE))
     qn_ms = cuda_ms(lambda: fp_kernel.fused_phase1_quant_cuda(
         qt.codes, qt.scale, qt.zero, q, PAGE), 3)
-    qn_bound, qn_by = quant_bound_ms(index.n_docs, BATCH, N_FEATURES, PAGE,
-                                     False)
+    qn_bound, qn_by = cost.bound_ms(cost.quant_work(
+        index.n_docs, BATCH, N_FEATURES, PAGE, False))
     # bucketize at full size: the raw rows phase C's index was built from
     from repro_torch.core.rerank import normalize
     from repro_torch.kernels.bucketize import kernel as bk_kernel
@@ -1351,7 +1337,7 @@ def phase_d(gen, index, queries, src, raw_state) -> tuple:
     reset_launches()
     codes = bk_ops.encode(raw, index.encoder)
     torch.cuda.synchronize()
-    bk_launches = read_launches()["bucketize"]
+    bk_launches = launch_counts()["bucketize"]
     check(bk_launches == bk_kernel.KERNELS_PER_CALL,
           f"bucketize launched {bk_launches} CUDA kernels, want 1")
     bk_err = assert_codes(codes, index.codes, "bucketize 4,181,504 rows")
@@ -1367,8 +1353,8 @@ def phase_d(gen, index, queries, src, raw_state) -> tuple:
             bk_ref.bucketize_ref(raw[lo:lo + (1 << 18)], "round", scale, dt)
 
     bk_plain_ms = cuda_ms(bk_plain, 2)
-    bk_bound, bk_by = bucketize_bound_ms(index.n_docs, N_FEATURES,
-                                         index.codes.element_size())
+    bk_bound, bk_by = cost.bound_ms(cost.bucketize_work(
+        index.n_docs, N_FEATURES, index.codes.element_size()))
     del raw
     bucketize = {"B": index.n_docs, "n": N_FEATURES, "launches": bk_launches,
                  "codes_differing": bk_differ, "max_abs_err": bk_err,
@@ -1380,7 +1366,7 @@ def phase_d(gen, index, queries, src, raw_state) -> tuple:
     reset_launches()
     _, cand = fp_ops.fused_phase1(index.codes, qcodes, w, PAGE)
     served = rerank_case(index, q, cand, "rerank page 320", cold_sets=8)
-    rk_launches = read_launches()["rerank_topk"]
+    rk_launches = launch_counts()["rerank_topk"]
     by_body = dict(rk_ops.launches_by_body)
     check(rk_launches >= 1, "rerank_topk launched no CUDA kernel")
     check(by_body["bulk"] >= 1, f"the bulk body did not run at n = "
@@ -1503,6 +1489,7 @@ def phase_g(index, queries, src) -> tuple:
     its kernels) with their synchronise calls reconciled; -> (summary
     line, the kernels' launches)."""
     from repro_torch.core import TrimFilter
+    from repro_torch.kernels import launch_counts
     from repro_torch.kernels.code_match import kernel as cm_kernel
     from repro_torch.kernels.fused_phase1 import kernel as fp_kernel
     from repro_torch.obs import MetricsRegistry
@@ -1527,7 +1514,7 @@ def phase_g(index, queries, src) -> tuple:
             index, qs, f"G {name} full", profile=True,
             after_first=plane["compile_watch"].mark_steady, engine=name,
             **plane)
-        got = read_launches()
+        got = launch_counts()
         for kname, c in got.items():
             want = 3 * n_b * per[name].get(kname, 0)
             check(c == want, f"G {name}: {kname} launched {c} CUDA kernels, "
@@ -1627,6 +1614,7 @@ def f_stage(idx, base, new, queries, src, dead, stage, launches,
     node carrying ``base``, ``gen0``... and ``active`` whose candidates
     add up; -> ({engine: (ids, scores)}, {engine: row of numbers})."""
     from repro_torch.core.rerank import normalize
+    from repro_torch.kernels import launch_counts
     from repro_torch.kernels.code_match import kernel as cm_kernel
     from repro_torch.kernels.fused_phase1 import kernel as fp_kernel
 
@@ -1653,7 +1641,7 @@ def f_stage(idx, base, new, queries, src, dead, stage, launches,
             idx, queries, f"{stage} {name}", reset_peak=False,
             profile=plane, after_first=obs["compile_watch"].mark_steady
             if plane else None, engine=name, **obs)
-        got = read_launches()
+        got = launch_counts()
         for kname, n in got.items():
             launches[kname] = launches.get(kname, 0) + n
             check(n == want[name].get(kname, 0) * n_batches,
@@ -1858,6 +1846,7 @@ def f_history(index, seal_threshold, new, queries, src, victims,
     numbers)."""
     from repro_torch.core import TrimFilter
     from repro_torch.dist import ShardedVectorIndex
+    from repro_torch.kernels import launch_counts
     from repro_torch.serve import BatchedSearchEngine
 
     sidx = ShardedVectorIndex.from_index(index, seal_threshold=seal_threshold,
@@ -1890,7 +1879,7 @@ def f_history(index, seal_threshold, new, queries, src, victims,
             add_s.append(time.monotonic() - t)
             check(first == index.n_docs + b * F_BATCH,
                   f"ingest batch {b}: first id {first}")
-        for kname, n in read_launches().items():
+        for kname, n in launch_counts().items():
             launches[kname] = launches.get(kname, 0) + n
         idx = eng.index
         check(idx.n_segments == (16 if seal_threshold else 0)
@@ -2314,6 +2303,7 @@ def i_serve(index, s4, s42, queries, src) -> tuple:
     the kernels' launches in the sharded runs, {engine: the 4 x 2 answers
     (ids, scores)})."""
     from repro_torch.core import TrimFilter
+    from repro_torch.kernels import launch_counts
     from repro_torch.kernels.code_match import kernel as cm_kernel
     from repro_torch.kernels.fused_phase1 import kernel as fp_kernel
 
@@ -2336,7 +2326,7 @@ def i_serve(index, s4, s42, queries, src) -> tuple:
             res, batch_s, _ = serve_engine(idx, qs, f"I {name} {label}",
                                            reset_peak=False, engine=name,
                                            merge=merge)
-            got = read_launches()
+            got = launch_counts()
             calls = n_b * idx.n_shards * idx.n_replicas
             for kname, c in got.items():
                 want = calls * per[name].get(kname, 0)
@@ -2734,7 +2724,9 @@ def j_hold_launches(got, dispatches, engine, ctx) -> None:
 def take_launches(into: dict) -> dict:
     """Add the kernels' counts since the last reset into ``into``, reset
     them; -> the counts taken."""
-    got = read_launches()
+    from repro_torch.kernels import launch_counts
+
+    got = launch_counts()
     for k, v in got.items():
         into[k] = into.get(k, 0) + v
     reset_launches()
@@ -3042,25 +3034,25 @@ def j_failover(s42, queries, i_answers, launches) -> dict:
 
 
 def own_bytes(idx, shared) -> int:
-    """Bytes of ``idx``'s tensors that ``shared`` (an index) does not
-    hold: what a group's writes have made its own."""
-    def leaves(i):
-        out = [getattr(i, n) for n in (
-            "vectors", "codes", "post_docs", "post_codes", "live",
-            "seg_vectors", "seg_codes", "seg_gids", "seg_live")]
-        for s in i.segments:
-            out += [s.vectors, s.codes, s.gids, s.live, s.post_docs,
-                    s.post_codes]
-        return out
+    """Bytes of the storages behind ``idx``'s leaves, its derived int8
+    tables left out, that ``shared`` (an index) does not hold: what a
+    group's writes have made its own
+    (:func:`repro_torch.obs.device.resident_storages`)."""
+    from repro_torch.obs.device import resident_storages
 
-    seen = {t.untyped_storage().data_ptr() for t in leaves(shared)}
-    total, counted = 0, set()
-    for t in leaves(idx):
-        p = t.untyped_storage().data_ptr()
-        if p not in seen and p not in counted:
-            counted.add(p)
-            total += t.untyped_storage().nbytes()
-    return total
+    held = resident_storages(shared)
+    mine = resident_storages(idx, skip_sections=("quant",))
+    return sum(b for k, (_, b) in mine.items() if k not in held)
+
+
+def j_own_bytes_expected(n: int, C: int) -> int:
+    """A group's own bytes after phase J's writes: its rebuilt base codes,
+    live mask and 4-shard posting tables (codes int8, ids int32), and
+    J_ADDS sealed segments of F_BATCH rows (vectors, codes, gids, live and
+    their posting tables)."""
+    base = n * (C + 1) + C * n * (4 + 1)
+    segment = F_BATCH * (N_FEATURES * 4 + C + 4 + 1) + C * F_BATCH * (4 + 1)
+    return base + J_ADDS * segment
 
 
 def j_writes(s42, queries, src, launches, errs) -> dict:
@@ -3074,7 +3066,7 @@ def j_writes(s42, queries, src, launches, errs) -> dict:
     import shutil
     import tempfile
 
-    from repro_torch.obs import MetricsRegistry
+    from repro_torch.obs import CompileWatch, MetricsRegistry
     from repro_torch.store import Store
 
     root = pathlib.Path(__file__).resolve().parent / "build"
@@ -3092,22 +3084,114 @@ def j_writes(s42, queries, src, launches, errs) -> dict:
               f"{need} needed")
         out.update(filesystem=fs, free_bytes=free, bytes_needed=need)
         reg = MetricsRegistry()
+        watch = CompileWatch(metrics=reg)
         store = Store(store_dir, durability="request", metrics=reg)
+        out["group_device_bytes_before_writes"] = j_device_bytes(
+            s42.replica_group(0))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t = time.monotonic()
-        cl = j_cluster(s42, "fused_int8", reg, store=store)
+        cl = j_cluster(s42, "fused_int8", reg, store=store,
+                       compile_watch=watch)
         out["baseline_commit_s"] = time.monotonic() - t
         out["baseline_commit_bytes"] = reg.value("store.commit.bytes_written")
         progress(f"J: baseline commit in {out['baseline_commit_s']:.2f} s")
         try:
             out.update(j_write_history(cl, s42, store, reg, queries, src,
                                        launches, errs))
+            out["diagnostics"] = j_diagnostics(cl, watch, queries, root)
         finally:
             cl.close()
             store.close()
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
+    return out
+
+
+def j_device_bytes(idx) -> dict:
+    """``device_bytes`` of one group, its leaf table left out: total,
+    sections, storage bytes on the card and the reconciliation with the
+    allocator (index storage <= allocated, checked)."""
+    from repro_torch.obs import device_bytes
+
+    dev = device_bytes(idx)
+    rec = dev["reconciliation"]
+    check(rec["accounted_bytes"] == sum(dev["per_device"].values())
+          <= rec["process_live_bytes"],
+          f"J: device bytes do not reconcile with the allocator: {rec}")
+    return {k: dev[k] for k in ("total_bytes", "sections", "per_device",
+                                "n_leaves", "aliased_leaves",
+                                "reconciliation")}
+
+
+def j_diagnostics(cl, watch, queries, root) -> dict:
+    """The device side of the obs plane on the written cluster: each
+    group's ``device_bytes``, ``node_stats``, a diagnostics bundle
+    written under ``root`` and accepted by
+    ``tools/validate_diag_bundle_torch.py``, and the cost rows of the
+    cluster's watch -- no building region without a row, and the fused
+    phase 1's bytes under the composed one's as
+    ``artifacts/BENCH_kernel_scale.json`` claims (one ``codes`` and one
+    ``fused`` batch served on group 0 beside the cluster's
+    ``fused_int8``)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import TrimFilter
+    from repro_torch.obs import (MetricsRegistry, missing_cost_regions,
+                                 node_stats, resident_storages,
+                                 verify_kernel_claim, write_diagnostics)
+    from repro_torch.serve.engine import BatchedSearchEngine
+
+    here = pathlib.Path(__file__).resolve().parent
+    for name in ("codes", "fused"):
+        eng = BatchedSearchEngine(
+            cl.batchers[0].index, batch_size=BATCH, max_wait_s=0.005, k=K,
+            page=PAGE, trim=TrimFilter(0.05), engine=name,
+            metrics=MetricsRegistry(), compile_watch=watch)
+        try:
+            [f.result(timeout=600) for f in
+             [eng.submit(q) for q in queries[:BATCH]]]
+        finally:
+            eng.close()
+    out = {"groups": [j_device_bytes(cl.group_index(g))
+                      for g in range(cl.n_groups)]}
+    ns = node_stats(cl)
+    union = {}
+    for g in range(cl.n_groups):
+        union.update(resident_storages(cl.group_index(g)))
+    node = ns["nodes"]["cuda:0"]
+    check(node["index_bytes"] == sum(b for _, b in union.values())
+          <= torch.cuda.memory_allocated(),
+          f"J: node_stats index bytes {node['index_bytes']}")
+    out["node_stats"] = {
+        k: ns[k] for k in ("n_devices", "total_index_bytes",
+                           "device_resident_bytes")}
+    out["node_stats"]["index_bytes_by_group"] = node["index_bytes_by_group"]
+    diag = tempfile.mkdtemp(prefix="chip_smoke_diag_", dir=root)
+    try:
+        t = time.monotonic()
+        path = write_diagnostics(cl, diag, reason="exit")
+        out["bundle_s"] = time.monotonic() - t
+        out["bundle_bytes"] = os.path.getsize(path)
+        run = subprocess.run(
+            [sys.executable, str(here / "tools" /
+                                 "validate_diag_bundle_torch.py"), diag],
+            capture_output=True, text=True, timeout=120)
+        check(run.returncode == 0, "J: the diagnostics bundle is refused: "
+              f"{run.stdout}{run.stderr}")
+    finally:
+        shutil.rmtree(diag, ignore_errors=True)
+    # every library was built before phase A, so J's watch counted no
+    # build and this holds whatever the rows: phase K's K4 builds in a
+    # serving region, and there the check can fail
+    missing = missing_cost_regions(watch)
+    check(missing == [], f"J: building regions without a cost row {missing}")
+    claim = verify_kernel_claim(
+        watch, str(here / "artifacts" / "BENCH_kernel_scale.json"))
+    out.update(cost_rows=watch.costs.stats()["n_rows"],
+               kernel_claim=claim)
+    progress(f"J diagnostics: {out}")
     return out
 
 
@@ -3158,6 +3242,9 @@ def j_write_history(cl, s42, store, reg, queries, src, launches,
               f"J: group {gi} has {idx.n_segments} segments, "
               f"{idx.n_tombstones} tombstones")
     out["group_own_bytes"] = [own_bytes(idx, s42) for idx in groups]
+    want = j_own_bytes_expected(n, s42.codes.shape[-1])
+    check(out["group_own_bytes"] == [want, want],
+          f"J: groups own {out['group_own_bytes']} bytes, {want} expected")
     out["peak_before_restore"] = torch.cuda.max_memory_allocated()
     progress(f"J: 8 adds (median {out['add_s_median']:.4f} s), deletes in "
              f"{out['delete_s']:.3f} s; groups own "
@@ -3419,6 +3506,266 @@ def phase_j(index, queries, src, smi, i_answers, i_medians) -> tuple:
     return line, launches
 
 
+# phase K: the launcher runs, each (name, arguments, the kernel its engine
+# launches, whether it builds the kernels into a directory of its own);
+# K1 takes the corpus cut of phase E, K2-K4 a quarter of it, one corpus
+K_RUNS = (
+    ("K1", ["--docs", str(E_DOCS), "--features", str(N_FEATURES),
+            "--queries", "256", "--batch-size", "32", "--engine",
+            "fused_int8", "--shards", "4", "--replicas", "2", "--ingest",
+            "4096", "--cluster", "--fail-shard", "0", "--store",
+            "build/k_store", "--kill-and-recover", "--stats-interval", "1",
+            "--profile", "--slow-threshold", "0", "--metrics-file",
+            "build/k_metrics.jsonl", "--diagnostics-on-exit",
+            "build/k_diag"], "fused_phase1_quant", False),
+    ("K2", ["--docs", str(E_DOCS // 4), "--features", str(N_FEATURES),
+            "--engine", "fused", "--shards", "4", "--replicas", "2",
+            "--merge", "stream", "--cluster", "--auto-compact", "0.2"],
+     "fused_phase1", False),
+    ("K3", ["--docs", str(E_DOCS // 4), "--features", str(N_FEATURES),
+            "--shards", "4", "--cluster", "--fail-on-recompile",
+            "--profile", "--slow-threshold", "0"], None, False),
+    ("K4", ["--docs", str(E_DOCS // 4), "--features", str(N_FEATURES),
+            "--engine", "codes_pallas", "--shards", "4", "--cluster",
+            "--fail-on-recompile", "--diagnostics-on-exit", "build/k4_diag"],
+     "code_match", True),
+)
+K_DELETES = 19_660        # what K2's --auto-compact 0.2 deletes of 65,536
+
+
+def k_number(pattern: str, text: str):
+    """The number ``pattern``'s group captures in a run's output, or None
+    where the run printed no such line."""
+    m = re.search(pattern, text, re.M)
+    return None if m is None else float(m.group(1))
+
+
+def k_result(name, argv, kernel, out: str, rc: int, seconds: float) -> dict:
+    """One launcher run's checks and numbers from its output ``out``."""
+    check(rc == 0, f"{name}: the launcher exited {rc}; its last lines:\n"
+          + "\n".join(out.splitlines()[-30:]))
+    got = json.loads(re.search(r"^kernel launches: (\{.*\})$", out,
+                               re.M).group(1))
+    check(kernel is None or got[kernel] > 0,
+          f"{name}: {kernel} was not launched: {got}")
+    return {"args": " ".join(argv), "s": seconds,
+            "p10": k_number(r"P@10 vs brute force: ([0-9.]+)", out),
+            "ids_sha256": re.search(r"^served ids sha256: ([0-9a-f]{64})$",
+                                    out, re.M).group(1),
+            "ms_per_query": k_number(r"\(([0-9.]+) ms/query effective",
+                                     out),
+            "kill_and_recover_s": k_number(
+                r"^kill-and-recover: .* in ([0-9.]+)s", out),
+            "recovered_p10": k_number(r"\(P@10 ([0-9.]+)\)$", out),
+            "post_compact_p10": k_number(
+                r"post-compact P@10 vs live gold: ([0-9.]+)", out),
+            "warmup_builds": k_number(
+                r"^compile watch: ([0-9]+) compile\(s\) during warmup", out),
+            "no_steady_builds": ("recompile watch: zero steady-state "
+                                 "recompiles") in out,
+            "launches": got}
+
+
+def k_validate(directory, n_bundles: int, ctx) -> list:
+    """``tools/validate_diag_bundle_torch.py`` on ``directory``, which
+    must hold ``n_bundles`` bundles; -> the bundles, parsed."""
+    here = pathlib.Path(__file__).resolve().parent
+    bundles = sorted(directory.glob("diagnostics-*.json"))
+    run = subprocess.run(
+        [sys.executable, str(here / "tools" / "validate_diag_bundle_torch.py"),
+         str(directory)], capture_output=True, text=True, timeout=120)
+    check(run.returncode == 0 and len(bundles) == n_bundles,
+          f"{ctx}: {len(bundles)} bundles, validator: "
+          f"{run.stdout}{run.stderr}")
+    return [json.loads(b.read_text()) for b in bundles]
+
+
+def k_built_regions(bundle, ctx) -> dict:
+    """The build and cost sections of K4's exit bundle, whose first pass
+    built ``code_match`` into an empty directory: at least one build
+    counted in a serving region, none after steady state, and every
+    region that built owns a cost row (``missing_cost_regions`` on the
+    bundle's sections); -> {region: builds}."""
+    built = dict(bundle["compile"]["by_function"])
+    built.pop("<unattributed>", None)
+    rows = {r["region"] for r in bundle["cost"]["rows"]}
+    check(sum(built.values()) >= 1, f"{ctx}: no build counted in a region "
+          f"{bundle['compile']}")
+    check(bundle["compile"]["compiles_steady_state"] == 0,
+          f"{ctx}: steady-state builds {bundle['compile']}")
+    missing = sorted(set(built) - rows)
+    check(missing == [], f"{ctx}: building regions without a cost row "
+          f"{missing}")
+    return built
+
+
+def k_holds() -> dict:
+    """The kernels of phase K held to their plain versions on shard 1 of
+    indexes at the launcher runs' shapes, from seeded random vectors of
+    400 features under the launcher's encoder, at Q 32 (the first 32
+    vectors, as the launcher draws its queries from the corpus) and page
+    320 with the live masks served (``hold_table``): K1's 4 x 2 layout of 258,048
+    rows (64,512 a shard) and its 4,096 ingested rows (1,024 a shard),
+    ``fused_phase1_quant``; K2 and K4's 4 x 2 layout of 65,536 rows
+    (16,384 a shard), ``fused_phase1``, ``code_match`` and
+    ``fused_phase1_quant`` before and after K2's 19,660 deletes, then
+    ``fused_phase1`` on the compacted base; -> the tables held and the
+    largest |error| of each kernel."""
+    from repro_torch.core import (CombinedEncoder, IntervalEncoder,
+                                  RoundingEncoder)
+    from repro_torch.dist import ShardedVectorIndex
+    from repro_torch.launch import make_shard_mesh
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    enc = CombinedEncoder(RoundingEncoder(1), IntervalEncoder(0.1))
+    errs = {"fused_phase1": 0.0, "fused_phase1_quant": 0.0,
+            "code_match": 0.0}
+    held = []
+
+    def hold(idx, name, table, scorers, queries):
+        if table == "base":
+            codes, live = idx.codes[1], idx.live[1]
+            quant = [t[1] for t in idx._quant_base()]
+        else:
+            seg = idx.segments[0]
+            codes, live, quant = (seg.codes[1], seg.live[1],
+                                  [t[1] for t in seg.quantized()])
+        where = (f"K {name} shard 1 {table} ({codes.shape[0]} rows, "
+                 f"{int((~live).sum())} dead)")
+        q, qcodes, w = served_weights(idx, queries)
+        hold_table(codes, live, quant, q, qcodes, w, where, errs, scorers)
+        held.append(where)
+
+    n1 = E_DOCS - 4096
+    vecs = torch.randn((E_DOCS, N_FEATURES), generator=gen, device="cuda")
+    idx = ShardedVectorIndex.build_sharded(vecs[:n1], encoder=enc,
+                                           mesh=make_shard_mesh(4, 2))
+    idx = idx.add_documents(vecs[n1:])
+    check(idx.docs_per_shard == n1 // 4 and idx.n_segments == 1,
+          f"K1 shape: {idx.docs_per_shard} a shard, {idx.n_segments} "
+          "segments")
+    queries = vecs[:BATCH].cpu().numpy()
+    hold(idx, "K1", "base", (), queries)
+    hold(idx, "K1", "generation 0", (), queries)
+    del idx, vecs
+    vecs = torch.randn((E_DOCS // 4, N_FEATURES), generator=gen,
+                       device="cuda")
+    idx = ShardedVectorIndex.build_sharded(vecs, encoder=enc,
+                                           mesh=make_shard_mesh(4, 2))
+    queries = vecs[:BATCH].cpu().numpy()
+    hold(idx, "K2/K4", "base", ("fused_phase1", "code_match"), queries)
+    victims = BATCH + torch.randperm(E_DOCS // 4 - BATCH, generator=gen,
+                                     device="cuda")[:K_DELETES]
+    idx = idx.delete(victims.cpu().numpy())
+    hold(idx, "K2 deleted", "base", ("fused_phase1", "code_match"), queries)
+    idx = idx.compact()
+    hold(idx, "K2 compacted", "base", ("fused_phase1",), queries)
+    del idx, vecs
+    torch.cuda.empty_cache()
+    return {"tables": held, "max_abs_err": errs}
+
+
+def phase_k(smi) -> tuple:
+    """The port's launcher on the card: ``python -m
+    repro_torch.launch.serve`` run as the four K_RUNS, each a process of
+    its own that must exit 0 (its own assertions: failover and recovery
+    bit-identical, counters, trees and slow log reconciled, no
+    steady-state build), K1's and K4's diagnostics bundles accepted by
+    ``tools/validate_diag_bundle_torch.py``.  K2 (``fused``), K3
+    (``codes``, plain torch) and K4 (``codes_pallas``) serve one corpus
+    and its queries: their first passes' served ids must be the same,
+    bit for bit.  K4 builds its kernels into an empty directory, so its
+    first pass builds ``code_match`` inside a serving region: the build
+    watch must count it, no build may follow the steady state, and the
+    region must own a cost row.  K1 starts first and the others run one
+    after the other while its corpus (a host loop on one core) is
+    generated; meanwhile :func:`k_holds` holds each kernel to its plain
+    version at the runs' shapes; -> (the phase line, the kernels'
+    launches the runs printed, summed)."""
+    import shutil
+
+    here = pathlib.Path(__file__).resolve().parent
+    build = here / "build"
+    build.mkdir(exist_ok=True)
+    for stale in ("k_store", "k_diag", "k4_diag", "k4_kernels"):
+        shutil.rmtree(build / stale, ignore_errors=True)
+    (build / "k_metrics.jsonl").unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(here / "src"))
+    t_phase = time.monotonic()
+    runs, launches, started = {}, {}, {}
+
+    def start(name, argv, kernel, own_build):
+        log = open(build / f"phase_{name}.log", "w")
+        run_env = (dict(env, REPRO_TORCH_BUILD_DIR=str(build / "k4_kernels"))
+                   if own_build else env)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", *argv],
+            cwd=here, env=run_env, stdout=log, stderr=subprocess.STDOUT,
+            text=True)
+        started[name] = (proc, log, time.monotonic())
+
+    def finish(name, argv, kernel, own_build):
+        proc, log, t = started[name]
+        try:
+            rc = proc.wait(timeout=max(1.0, K_TIMEOUT_S
+                                       - (time.monotonic() - t)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        finally:
+            log.close()
+        runs[name] = k_result(name, argv, kernel,
+                              (build / f"phase_{name}.log").read_text(), rc,
+                              time.monotonic() - t)
+        for k, v in runs[name]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        progress(f"{name}: {runs[name]}")
+
+    try:
+        start(*K_RUNS[0])
+        start(*K_RUNS[1])
+        t = time.monotonic()
+        holds = k_holds()
+        holds["s"] = time.monotonic() - t
+        progress(f"K holds: {holds}")
+        finish(*K_RUNS[1])
+        for run in K_RUNS[2:]:
+            start(*run)
+            finish(*run)
+        finish(*K_RUNS[0])
+        runs["K1"]["bundles"] = len(k_validate(build / "k_diag", 3, "K1"))
+        k4_bundle, = k_validate(build / "k4_diag", 1, "K4")
+        runs["K4"]["built_regions"] = k_built_regions(k4_bundle, "K4")
+    finally:
+        for proc, log, _ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(build / "k_store", ignore_errors=True)
+        shutil.rmtree(build / "k4_kernels", ignore_errors=True)
+    # one corpus, one set of queries: the kernels' engines serve what the
+    # plain composed engine serves, at either layout and transport
+    same = {name: runs[name]["ids_sha256"] for name in ("K2", "K3", "K4")}
+    check(len(set(same.values())) == 1,
+          f"K: the first passes' served ids differ: {same}")
+    check(runs["K2"]["p10"] == runs["K3"]["p10"] == runs["K4"]["p10"],
+          "K: P@10 differ at one set of served ids")
+    check(runs["K1"]["recovered_p10"] == runs["K1"]["p10"],
+          f"K1: P@10 {runs['K1']['p10']}, recovered "
+          f"{runs['K1']['recovered_p10']}")
+    check(runs["K4"]["warmup_builds"] >= 1 and runs["K4"]["no_steady_builds"],
+          f"K4: {runs['K4']['warmup_builds']} builds during warm-up")
+    line = {"phase": "K", "device": smi,
+            "cut": (f"K1 {E_DOCS:,} of 4,181,352 docs, K2-K4 "
+                    f"{E_DOCS // 4:,}, width {N_FEATURES} features: the "
+                    "corpus generator is a host loop"),
+            "runs": {name: runs[name] for name, *_ in K_RUNS},
+            "holds": holds, "kernels_max_abs_err": holds["max_abs_err"],
+            "launches": launches, "phase_s": time.monotonic() - t_phase}
+    return line, launches
+
+
 def quality(ids, sims, gold_ids, gold_sims) -> dict:
     from repro_torch.core import avg_diff, ndcg_k, precision_at_k
 
@@ -3434,6 +3781,7 @@ def phase_e() -> tuple:
                                   RoundingEncoder, TrimFilter, VectorIndex,
                                   avg_diff, precision_at_k)
     from repro_torch.data import make_corpus
+    from repro_torch.kernels import launch_counts
     from repro_torch.kernels.bucketize import ops as bk_ops
     from repro_torch.kernels.fused_phase1 import ops as fp_ops
     from repro_torch.lsa import build_lsa
@@ -3539,7 +3887,7 @@ def phase_e() -> tuple:
     q, qcodes, w = index.encode_queries(Q, trim, None, "idf")
     _, cand = fp_ops.fused_phase1(index.codes, qcodes, w, PAGE)
     rerank = rerank_case(index, q, cand, "phase E rerank")
-    got = read_launches()
+    got = launch_counts()
     check(got["bucketize"] == 2 and got["rerank_topk"] >= 1
           and got["fused_phase1"] >= 4,
           f"phase E launches {got}")
@@ -3568,7 +3916,7 @@ def phase_e() -> tuple:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="ABCDEFGHIJ")
+    ap.add_argument("--phases", default="ABCDEFGHIJK")
     args = ap.parse_args(argv)
     if "J" in args.phases and not {"C", "I"} <= set(args.phases):
         ap.error("phase J serves phase C's index and holds its answers to "
@@ -3706,6 +4054,11 @@ def main(argv=None) -> int:
         for name in ("bucketize", "rerank_topk"):
             a_err[name] = max(a_err.get(name, 0.0),
                               line[name]["max_abs_err"])
+    if "K" in args.phases:
+        line, by_phase["K"] = phase_k(smi)
+        emit(line)
+        for name, err in line["kernels_max_abs_err"].items():
+            a_err[name] = max(a_err.get(name, 0.0), err)
     ck = c["kernel"] if c else (a["first_shape"] if a else {})
     entries = [{
         "name": "fused_phase1", "route": "cuda",

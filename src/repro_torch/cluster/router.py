@@ -315,7 +315,8 @@ class ClusterEngine:
         self._c_group_completed = [
             self.metrics.counter("cluster.requests.group_completed", group=g)
             for g in range(len(groups))]
-        self.spill_threshold = max(1, int(spill_factor * batch_size))
+        self.spill_threshold = max(1, int(  # host-seam: host arithmetic
+            spill_factor * batch_size))
         # LRU-capped pin map: stream ids are caller-supplied (users,
         # connections), so an uncapped map is an unbounded leak in a
         # long-lived service.  Evicting a cold pin is benign -- every
@@ -386,6 +387,13 @@ class ClusterEngine:
         from repro_torch.obs.stats import cluster_health
 
         return cluster_health(self)
+
+    def node_stats(self) -> dict:
+        """ES ``GET _nodes/stats``: per-device index residency across
+        every replica group (see :func:`repro_torch.obs.stats.node_stats`)."""
+        from repro_torch.obs.stats import node_stats
+
+        return node_stats(self)
 
     # ------------------------------------------------------------- routing
     def _pick(self, stream, exclude=(), trace=NULL_TRACE) -> int:

@@ -45,6 +45,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.obs import cost
+
 from .codes import score_codes, score_onehot
 from .encoding import Encoder, RoundingEncoder
 from .filtering import (BestFilter, TrimFilter, expand_mask, feature_mask,
@@ -118,6 +120,9 @@ def phase1_engine_scores(
             weighting="count",   # the weights are folded into col_weights
             col_weights=col_weights)
     if engine == "codes":
+        cost.record_kernel("score_codes", cost.codes_work(
+            codes.shape[0], qcodes.shape[0], qcodes.shape[1],
+            codes.element_size()))
         return score_codes(codes, qcodes, col_weights)
     if engine == "codes_pallas":
         from repro_torch.kernels.code_match import ops as cm_ops
@@ -188,6 +193,18 @@ class VectorIndex:
             cached = quantize_table(self.vectors)
             self.__dict__["_quant_cache"] = cached
         return cached
+
+    def resident_leaves(self):
+        """``(path, section, tensor)`` of the tables this index holds,
+        under the paths the JAX package's tree walk gives its flat index
+        (the lazy int8 table left out, as that walk leaves it out)."""
+        yield "[<flat index 0>]", "index", self.vectors
+        yield "[<flat index 1>]", "index", self.codes
+        if self.postings is not None:
+            yield ("[<flat index 2>].post_docs", "index",
+                   self.postings.post_docs)
+            yield ("[<flat index 2>].post_codes", "index",
+                   self.postings.post_codes)
 
     # ---------------------------------------------------------- query encode
     def encode_queries(

@@ -100,6 +100,7 @@ from repro_torch.core.rerank import (check_fp32_matmul, normalize,
 from repro_torch.core.search import (_SENTINEL, FUSED_ENGINES, VectorIndex,
                                      encode_table, phase1_engine_scores,
                                      profile_phase)
+from repro_torch.obs.compile_watch import watch_region
 
 __all__ = ["ShardedVectorIndex", "Segment", "DEFAULT_SEAL_THRESHOLD"]
 
@@ -361,6 +362,39 @@ class ShardedVectorIndex:
                 out.__dict__[key] = self.__dict__[key]
         return out
 
+    # -------------------------------------------------------- obs: residency
+    def resident_leaves(self):
+        """``(path, section, tensor)`` for every tensor this index holds,
+        under the JAX package's paths -- the seam
+        :func:`repro_torch.obs.device.device_bytes` walks.  It includes
+        the lazily derived quant tables (``_quant_base_cache``,
+        ``_quant_active_cache``, each segment's ``_quant_cache``), which
+        are real residents but not dataclass fields."""
+        yield "vectors", "base", self.vectors
+        yield "codes", "base", self.codes
+        yield "post_docs", "base", self.post_docs
+        yield "post_codes", "base", self.post_codes
+        yield "offsets", "base", self.offsets
+        yield "live", "base", self.live
+        yield "seg_vectors", "active", self.seg_vectors
+        yield "seg_codes", "active", self.seg_codes
+        yield "seg_gids", "active", self.seg_gids
+        yield "seg_live", "active", self.seg_live
+        for i, seg in enumerate(self.segments):
+            for nm in ("vectors", "codes", "gids", "live",
+                       "post_docs", "post_codes"):
+                yield f"segments[{i}].{nm}", "segments", getattr(seg, nm)
+            q = seg.__dict__.get("_quant_cache")
+            if q is not None:
+                for nm, t in zip(("codes", "scale", "zero"), q):
+                    yield f"segments[{i}].quant.{nm}", "quant", t
+        for key, prefix in (("_quant_base_cache", "quant.base"),
+                            ("_quant_active_cache", "quant.active")):
+            q = self.__dict__.get(key)
+            if q is not None:
+                for nm, t in zip(("codes", "scale", "zero"), q):
+                    yield f"{prefix}.{nm}", "quant", t
+
     # ------------------------------------------------------------- replicas
     def replica_group(self, g: int) -> "ShardedVectorIndex":
         """Replica group ``g`` as a one-group index over the same tensors
@@ -446,10 +480,11 @@ class ShardedVectorIndex:
             lv = torch.cat([lv, torch.zeros((pad,), dtype=torch.bool,
                                             device=dev)])
         v.masked_fill_(~lv[:, None], 0.0)
-        codes = encode_table(v, encoder, index_best)
-        codes.masked_fill_(~lv[:, None], _SENTINEL[codes.dtype])
-        codes = codes.view(ns, dp, -1)
-        pdocs, pcodes = _postings(codes)
+        with watch_region("build.program", sig=(ns, dp, n_feat)):
+            codes = encode_table(v, encoder, index_best)
+            codes.masked_fill_(~lv[:, None], _SENTINEL[codes.dtype])
+            codes = codes.view(ns, dp, -1)
+            pdocs, pcodes = _postings(codes)
         return cls(vectors=v.view(ns, dp, n_feat), codes=codes,
                    post_docs=pdocs, post_codes=pcodes,
                    offsets=_offsets(ns, dp, dev), live=lv.view(ns, dp),
@@ -485,7 +520,8 @@ class ShardedVectorIndex:
             pdocs = index.postings.post_docs[None]
             pcodes = index.postings.post_codes[None]
         else:
-            pdocs, pcodes = _postings(codes)
+            with watch_region("build.postings", sig=tuple(codes.shape)):
+                pdocs, pcodes = _postings(codes)
         live = (torch.arange(dp, device=dev)[None, :]
                 < (n - torch.arange(ns, device=dev) * dp)[:, None])
         out = cls(vectors=vectors.view(ns, dp, n_feat), codes=codes,
@@ -570,10 +606,12 @@ class ShardedVectorIndex:
                                       for t in (svec, scod, sgid, sliv))
         sh = torch.as_tensor(shard_of, device=self.device)
         sl = torch.as_tensor(slot_of, device=self.device)
-        svec[sh, sl] = v
-        scod[sh, sl] = codes.to(scod.dtype)
-        sgid[sh, sl] = gids
-        sliv[sh, sl] = True
+        with watch_region("ingest.append",
+                          sig=(m, int(svec.shape[1]), need > G)):
+            svec[sh, sl] = v
+            scod[sh, sl] = codes.to(scod.dtype)
+            sgid[sh, sl] = gids
+            sliv[sh, sl] = True
         out = dataclasses.replace(
             self, seg_vectors=svec, seg_codes=scod, seg_gids=sgid,
             seg_live=sliv, n_appended=self.n_appended + m)
@@ -592,7 +630,8 @@ class ShardedVectorIndex:
         w = int(self._seg_slots_used(n_act, self.n_shards).max())
         svec, scod, sgid, sliv = (t[:, :w].clone() for t in (
             self.seg_vectors, self.seg_codes, self.seg_gids, self.seg_live))
-        pdocs, pcodes = _postings(scod)
+        with watch_region("ingest.seal", sig=(w, self.n_shards)):
+            pdocs, pcodes = _postings(scod)
         seg = Segment(svec, scod, sgid, sliv, pdocs, pcodes, n_rows=n_act,
                       tombstones=self.active_tombstones)
         out = dataclasses.replace(
@@ -765,9 +804,11 @@ class ShardedVectorIndex:
         ml[sh, sl_] = True
         dev = self.device
         dcod = torch.from_numpy(mc).to(dev)
+        with watch_region("merge.postings", sig=(w, ns)):
+            pdocs, pcodes = _postings(dcod)
         merged = Segment(torch.from_numpy(mv).to(dev), dcod,
                          torch.from_numpy(mg).to(dev),
-                         torch.from_numpy(ml).to(dev), *_postings(dcod),
+                         torch.from_numpy(ml).to(dev), pdocs, pcodes,
                          n_rows=n_live, tombstones=0)
         return dataclasses.replace(
             self, segments=before + (merged,) + after,
@@ -814,7 +855,8 @@ class ShardedVectorIndex:
         if live_groups is None:
             groups = tuple(range(R))
         else:
-            groups = tuple(sorted({int(g) for g in live_groups}))
+            groups = tuple(sorted({int(g)  # host-seam: caller's numbers
+                                   for g in live_groups}))
             if not groups or groups[0] < 0 or groups[-1] >= R:
                 raise ValueError(
                     f"live_groups must be a non-empty subset of [0, {R}), "
@@ -845,26 +887,32 @@ class ShardedVectorIndex:
         # every group holds this index's tensors: block j's query phase
         # runs on them for group groups[j]
         blocks = []
-        for j in range(U):
-            rows = slice(j * B, (j + 1) * B)
-            pages = self._shard_pages(q[rows], qcodes[rows], mask[rows],
-                                      engine, weighting, L, page_loc)
-            blocks.append(_stream_merge(pages, k) if merge == "stream"
-                          else _gather_merge(pages))
+        with watch_region(
+                "search.query_phase",
+                sig=(tuple(q.shape), engine, weighting, page_loc, L,
+                     k if merge == "stream" else 0, merge,
+                     len(self.segments), self.seg_capacity > 0)):
+            for j in range(U):
+                rows = slice(j * B, (j + 1) * B)
+                pages = self._shard_pages(q[rows], qcodes[rows], mask[rows],
+                                          engine, weighting, L, page_loc)
+                blocks.append(_stream_merge(pages, k) if merge == "stream"
+                              else _gather_merge(pages))
         # pad rows leave before the rescore, whose (Q, k, n) shape they
         # would change
         gid, s2, cvec = (torch.cat(t)[:n_q] for t in zip(*blocks))
         q = q[:n_q]
+        generations = len(self.segments) + (
+            1 if self.n_appended and self.seg_capacity else 0)
         if profile is None:
-            return _merge_phase(gid, s2, cvec, q, k)
+            return _merge_phase(gid, s2, cvec, q, k, generations=generations)
         profile_phase(profile, "phase1", t_prof, self.device, engine=engine,
                       kernel=engine if engine in FUSED_ENGINES
                       else "composed", page=page, page_loc=page_loc, k=k,
                       merge=merge)
         self._count_candidates(profile.children[-1], gid, n_q, groups, B)
         return _merge_phase(gid, s2, cvec, q, k, profile=profile,
-                            generations=len(self.segments) + int(
-                                bool(self.n_appended and self.seg_capacity)))
+                            generations=generations)
 
     def _count_candidates(self, node, gid, n_q, groups, B) -> None:
         """The phase1 node's children, as the reference makes them: the
@@ -1067,15 +1115,18 @@ def _merge_phase(gid, s2, cvec, q, k, profile=None, generations=0):
     score is -inf report (id=-1, score=-inf).  With a ``profile`` the two
     steps are its ``merge_select`` and ``rescore`` children."""
     t_prof = time.monotonic() if profile is not None else 0.0
-    top_s, pos = stable_topk(s2, k)
-    top_ids, _, hits = _take(pos, gid, s2, cvec)
-    top_ids = top_ids.masked_fill(torch.isneginf(top_s), -1)
+    with watch_region("search.merge_select",
+                      sig=(tuple(gid.shape), k, generations)):
+        top_s, pos = stable_topk(s2, k)
+        top_ids, _, hits = _take(pos, gid, s2, cvec)
+        top_ids = top_ids.masked_fill(torch.isneginf(top_s), -1)
     if profile is not None:
         t_prof = profile_phase(profile, "merge_select", t_prof, q.device,
                                k=k, generations=generations)
     check_fp32_matmul(hits)
-    scores = torch.einsum("qkn,qn->qk", hits, q)
-    scores = scores.masked_fill(top_ids < 0, _NEG_INF)
+    with watch_region("search.rescore", sig=(tuple(q.shape), k)):
+        scores = torch.einsum("qkn,qn->qk", hits, q)
+        scores = scores.masked_fill(top_ids < 0, _NEG_INF)
     short = k - top_ids.shape[1]
     if short > 0:          # fewer slots than k once merges reclaimed rows
         top_ids = torch.nn.functional.pad(top_ids, (0, short), value=-1)

@@ -23,3 +23,19 @@ are reached through their wrappers, ``rerank_topk.ops.rerank_topk`` and
 code-match cell scorer both code-match kernels use.  ``_build`` compiles
 the CUDA sources with ``nvcc`` at first use.
 """
+
+__all__ = ["launch_counts"]
+
+
+def launch_counts() -> dict:
+    """The CUDA kernels each wrapper has launched in this process, by
+    kernel: what a run reads to show that its path went through them."""
+    from .bucketize import ops as bk_ops
+    from .code_match import ops as cm_ops
+    from .fused_phase1 import ops as fp_ops
+    from .rerank_topk import ops as rk_ops
+
+    return {"fused_phase1": fp_ops.launches,
+            "fused_phase1_quant": fp_ops.quant_launches,
+            "code_match": cm_ops.launches, "bucketize": bk_ops.launches,
+            "rerank_topk": rk_ops.launches}

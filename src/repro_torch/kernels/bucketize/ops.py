@@ -10,7 +10,8 @@ CPU tensor goes to the plain version (:func:`.ref.bucketize_ref`).
 encoder half (two for a ``CombinedEncoder``).  Calls made straight to
 :func:`.kernel.bucketize_cuda`, as a comparison with the plain version
 does, are not counted.  The count is guarded by a lock: batchers on
-several threads launch at once.
+several threads launch at once.  Each call, on either path, first files
+its work as a cost row (:func:`repro_torch.obs.cost.record_kernel`).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from repro_torch.core.encoding import (CombinedEncoder, Encoder,
                                        IntervalEncoder, RoundingEncoder)
+from repro_torch.obs import cost
 
 from . import kernel, ref
 
@@ -34,6 +36,8 @@ def bucketize(x: torch.Tensor, mode: str, param: float,
               out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
     """Fused normalize + quantize of (B, n) rows under one mode."""
     global launches
+    cost.record_kernel("bucketize", cost.bucketize_work(
+        x.shape[0], x.shape[-1], out_dtype.itemsize))
     if x.is_cuda:
         out = kernel.bucketize_cuda(x, mode, param, out_dtype)
         with _lock:

@@ -9,7 +9,9 @@ the (Q, block, C) select stays near ``_CPU_ELEMENTS`` elements.
 ``launches`` counts the CUDA kernels this wrapper launched, one per call
 on the card.  Calls made straight to :func:`.kernel.code_match_cuda`, as a
 comparison with the plain version does, are not counted.  The count is
-guarded by a lock: batchers on several threads launch at once.
+guarded by a lock: batchers on several threads launch at once.  Each call,
+on either path, first files its work as a cost row
+(:func:`repro_torch.obs.cost.record_kernel`).
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from __future__ import annotations
 import threading
 
 import torch
+
+from repro_torch.obs import cost
 
 from . import kernel, ref
 
@@ -35,6 +39,9 @@ def code_match(
 ) -> torch.Tensor:
     """(Q, d) f32 weighted code-equality scores."""
     global launches
+    cost.record_kernel("code_match", cost.code_match_work(
+        doc_codes.shape[0], qcodes.shape[0], qcodes.shape[1],
+        doc_codes.element_size()))
     if doc_codes.is_cuda:
         out = kernel.code_match_cuda(doc_codes, qcodes, col_weights)
         with _lock:

@@ -22,7 +22,8 @@ launched: each call on the card launches two, ``score_fold_kernel`` and
 straight to :mod:`.kernel`, as a comparison with the plain version does,
 are not counted.  A run resets them to 0 to show that a path went through
 the kernels.  The counts are guarded by a lock: batchers on several
-threads launch at once.
+threads launch at once.  Each call, on either path, first files its work
+as a cost row (:func:`repro_torch.obs.cost.record_kernel`).
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ import threading
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.obs import cost
 
 from . import kernel, ref
 
@@ -54,8 +57,11 @@ def fused_phase1(
     """Fused fp32 phase-1 -> (scores (Q, page) f32, ids (Q, page) int32),
     with ``page`` clamped to the doc count."""
     global launches
-    d = doc_codes.shape[0]
+    d, C = doc_codes.shape
     page = int(min(page, d))
+    cost.record_kernel("fused_phase1", cost.fused_phase1_work(
+        d, qcodes.shape[0], C, page, doc_codes.element_size(),
+        live is not None))
     if doc_codes.is_cuda:
         out = kernel.fused_phase1_cuda(doc_codes, qcodes, col_weights, page,
                                        live)
@@ -79,8 +85,10 @@ def fused_phase1_quant(
     with ``page`` clamped to the doc count.  Candidate selection only:
     callers rescore the page against the exact fp32 vectors."""
     global quant_launches
-    d = codes8.shape[0]
+    d, n = codes8.shape
     page = int(min(page, d))
+    cost.record_kernel("fused_phase1_quant", cost.quant_work(
+        d, queries.shape[0], n, page, live is not None))
     if codes8.is_cuda:
         out = kernel.fused_phase1_quant_cuda(codes8, scale, zero, queries,
                                              page, live)

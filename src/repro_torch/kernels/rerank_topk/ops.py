@@ -18,7 +18,9 @@ the CUDA kernels this wrapper launched, one per call on the card, and
 (``"bulk"`` or ``"simple"``, :mod:`.kernel`); calls made straight to
 :func:`.kernel.rerank_scores_cuda`, as a comparison with the plain version
 does, are not counted.  Both counts are guarded by one lock: batchers on
-several threads launch at once.
+several threads launch at once.  Each scoring call, on either path, first
+files its work as a cost row (:func:`repro_torch.obs.cost.record_kernel`),
+counting every one of the Q * P candidate rows: the wrapper reads no ids.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.rerank import exact_scores, stable_topk
+from repro_torch.obs import cost
 
 from . import kernel, ref
 
@@ -52,11 +55,14 @@ def _launch(table, ids, queries):
 def rerank_scores(cand_vecs: torch.Tensor,
                   queries: torch.Tensor) -> torch.Tensor:
     """(Q, P, n) gathered candidates, (Q, n) queries -> (Q, P) scores."""
-    if not cand_vecs.is_cuda:
-        return ref.rerank_scores_ref(cand_vecs, queries)
-    if not cand_vecs.is_contiguous() or cand_vecs.dim() != 3:
+    if cand_vecs.dim() != 3:
         raise ValueError("cand_vecs must be a contiguous (Q, P, n) tensor")
     Q, P, n = cand_vecs.shape
+    cost.record_kernel("rerank_topk", cost.rerank_work(Q, P, n, Q * P))
+    if not cand_vecs.is_cuda:
+        return ref.rerank_scores_ref(cand_vecs, queries)
+    if not cand_vecs.is_contiguous():
+        raise ValueError("cand_vecs must be a contiguous (Q, P, n) tensor")
     ids = torch.arange(Q * P, dtype=torch.int32,
                        device=cand_vecs.device).view(Q, P)
     return _launch(cand_vecs.view(Q * P, n), ids, queries)
@@ -66,6 +72,9 @@ def candidate_scores(vectors: torch.Tensor, cand_ids: torch.Tensor,
                      queries: torch.Tensor) -> torch.Tensor:
     """(d, n) table, (Q, P) ids, (Q, n) queries -> (Q, P) scores of the
     rows ``vectors[cand_ids]``, never gathered on the card."""
+    Q, P = cand_ids.shape
+    cost.record_kernel("rerank_topk", cost.rerank_work(
+        Q, P, vectors.shape[-1], Q * P))
     if vectors.is_cuda:
         if cand_ids.dtype != torch.int32 or not cand_ids.is_contiguous():
             cand_ids = cand_ids.to(torch.int32).contiguous()

@@ -1,11 +1,12 @@
 """repro_torch.obs -- metrics, per-query tracing, profile trees, slow log,
-Prometheus export, build watch and ES-style stats.
+Prometheus export, build watch, ES-style stats, device byte accounting,
+analytic cost rows and the diagnostics bundle.
 
 The monitoring half of the paper's pitch, threaded through the serving
 engine and both indexes at host-side seams only: instrumentation records
 timestamps *around* the search dispatch, never inside a kernel, so
 answers are bit-identical with the plane on or off.  The JAX package's
-``repro.obs`` host part, module for module and under its names:
+``repro.obs``, module for module and under its names:
 
 * :mod:`~repro_torch.obs.metrics` -- thread-safe registry of labelled
   counters, gauges and log-bucketed histograms (ES ``_nodes/stats``);
@@ -23,13 +24,23 @@ answers are bit-identical with the plane on or off.  The JAX package's
   (ES ``_cat/thread_pool``), the index's ``_cat/segments`` view,
   ``Store.stats()`` (ES ``_stats/translog``) and the cluster rollups
   ``ClusterEngine.stats()`` / ``cluster_health()`` (ES ``_cluster/stats``
-  and ``_cluster/health``).
-
-The device part (byte accounting, cost model, node stats, diagnostics)
-is not ported yet.
+  and ``_cluster/health``) and ``node_stats`` (ES ``_nodes/stats``);
+* :mod:`~repro_torch.obs.device` -- exact index-resident byte accounting
+  per leaf, section and device, storages counted once;
+* :mod:`~repro_torch.obs.cost` -- analytic operations/bytes rows per
+  (region, signature, kernel), filed by the kernels' wrappers, with the
+  roofline join and the fused-vs-composed byte claim;
+* :mod:`~repro_torch.obs.diagnostics` -- the one-call support bundle
+  (``python -m repro_torch.launch.serve --diagnostics-on-exit``).
 """
 
 from .compile_watch import CompileWatch, active_watch, watch_region
+from .cost import (CostTable, kernel_byte_ratio, missing_cost_regions,
+                   roofline, verify_kernel_claim)
+from .device import (device_bytes, format_device_line, resident_leaf_entries,
+                     resident_storages)
+from .diagnostics import (BUNDLE_SECTIONS, diagnostics_bundle,
+                          write_diagnostics)
 from .export import (MetricsExporter, device_gauges, health_gauges,
                      prometheus_text)
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
@@ -38,7 +49,7 @@ from .profile import ProfileNode, format_profile_tree, profile_from_trace
 from .slowlog import SlowLog, start_request_trace
 from .stats import (cluster_health, cluster_stats, engine_stats,
                     format_health_line, format_segments_line,
-                    format_stats_line, index_stats, store_stats)
+                    format_stats_line, index_stats, node_stats, store_stats)
 from .tracing import NULL_TRACE, Span, Trace, Tracer, annotation
 
 __all__ = [
@@ -51,4 +62,9 @@ __all__ = [
     "SlowLog", "start_request_trace",
     "CompileWatch", "active_watch", "watch_region",
     "MetricsExporter", "prometheus_text", "health_gauges", "device_gauges",
+    "device_bytes", "format_device_line", "resident_leaf_entries",
+    "resident_storages", "node_stats",
+    "CostTable", "missing_cost_regions", "roofline", "kernel_byte_ratio",
+    "verify_kernel_claim",
+    "BUNDLE_SECTIONS", "diagnostics_bundle", "write_diagnostics",
 ]

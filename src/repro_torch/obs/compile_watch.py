@@ -101,6 +101,7 @@ class CompileWatch:
     """
 
     def __init__(self, metrics=None):
+        from .cost import CostTable
         from .metrics import default_registry
 
         self.metrics = metrics if metrics is not None else default_registry()
@@ -110,6 +111,9 @@ class CompileWatch:
         self._steady_events: List[dict] = []
         self._total = 0
         self._steady_total = 0
+        # analytic operations/bytes per kernel call, attributed through the
+        # same region stack as build counting (repro_torch.obs.cost)
+        self.costs = CostTable()
         _ensure_listener()
 
     # -------------------------------------------------------------- regions

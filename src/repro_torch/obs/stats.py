@@ -5,9 +5,10 @@ ready, the shape ES returns from ``GET <index>/_stats`` / ``_cat``
 endpoints).  ``BatchedSearchEngine.stats()``, ``ClusterEngine.stats()``
 and ``Store.stats()`` expose them, but the assembly lives here so the
 serving classes carry no formatting code and the obs package owns the
-schema -- the JAX package's schema, key for key, but for the static-cost
-rollup of its compile section (XLA's cost model has no counterpart here
-yet) and the device part (``node_stats``, not ported yet).
+schema -- the JAX package's schema, key for key.  The compile section's
+``cost`` rollup reads the analytic rows of :mod:`repro_torch.obs.cost`
+(the JAX package's reads XLA's cost model), and counts ``launches``
+where the JAX package counts ``compiles``.
 
 Counter reconciliation is part of the schema contract: queries issued ==
 ``cluster.requests.completed`` == sum over groups of
@@ -39,6 +40,9 @@ What maps where:
   :class:`repro_torch.store.Store`: translog seqno, generation and
   on-disk bytes, the newest commit, commit and recovery counts and
   timings, the incremental-commit byte counts.
+* :func:`node_stats` -- ES ``_nodes/stats``: one node per CUDA device
+  (the allocator's ``memory_stats``) and the index bytes each holds,
+  split per replica group (:func:`repro_torch.obs.device.device_bytes`).
 * :func:`format_stats_line` renders an engine (or a cluster rollup)
   dict as one ``_cat`` line.
 """
@@ -50,8 +54,8 @@ import os
 from typing import Optional
 
 __all__ = ["index_stats", "engine_stats", "cluster_stats", "store_stats",
-           "cluster_health", "format_stats_line", "format_segments_line",
-           "format_health_line"]
+           "cluster_health", "node_stats", "format_stats_line",
+           "format_segments_line", "format_health_line"]
 
 
 def _hist(registry, name: str, **labels) -> dict:
@@ -79,8 +83,13 @@ def _compile_stats(watch) -> dict:
     """The build-watch section, without the (possibly long) event list
     -- stats lines want the totals; ``watch.stats()`` has the rest."""
     s = watch.stats()
-    return {k: s[k] for k in ("compiles_total", "compiles_steady_state",
-                              "steady", "signatures", "by_function")}
+    out = {k: s[k] for k in ("compiles_total", "compiles_steady_state",
+                             "steady", "signatures", "by_function")}
+    # the analytic-cost rollup (operations/bytes per region) rides the
+    # same section; raw rows stay on watch.costs for the diagnostics bundle
+    cost = watch.costs.stats()
+    out["cost"] = {"n_rows": cost["n_rows"], "by_region": cost["by_region"]}
+    return out
 
 
 def index_stats(index) -> dict:
@@ -301,6 +310,58 @@ def format_health_line(health: dict) -> str:
     parts.append(f"maint={len(health['pending_maintenance'])}")
     parts.append(f"gen={health['generation']}")
     return " ".join(parts)
+
+
+def node_stats(engine) -> dict:
+    """ES ``GET _nodes/stats``: per-device residency for everything the
+    engine serves.  Every CUDA device gets a node entry (platform,
+    process, the allocator's ``torch.cuda.memory_stats``); a CPU holding
+    index bytes gets one with ``memory_stats`` None.  Index bytes are
+    storage bytes per device (:func:`repro_torch.obs.device.
+    device_bytes`), split per replica group for a cluster; a node's
+    ``index_bytes`` counts a storage the groups share once, what the
+    device pays, while ``total_index_bytes`` sums each group's logical
+    total as the JAX package does."""
+    import torch
+
+    from repro_torch.obs.device import device_bytes, resident_storages
+
+    nodes: dict = {}
+    for i in range(torch.cuda.device_count()):
+        nodes[f"cuda:{i}"] = {
+            "platform": "cuda",
+            "process_index": 0,
+            "index_bytes": 0,
+            "index_bytes_by_group": {},
+            "memory_stats": dict(torch.cuda.memory_stats(i)),
+        }
+    batchers = getattr(engine, "batchers", None)
+    if batchers is not None:
+        indexes = [(g, b.index) for g, b in enumerate(batchers)]
+    else:
+        indexes = [(0, engine.index)]
+    total = 0
+    storages: dict = {}
+    for g, idx in indexes:
+        db = device_bytes(idx, reconcile=False)
+        total += db["total_bytes"]
+        storages.update(resident_storages(idx))
+        for dstr, b in db["per_device"].items():
+            node = nodes.setdefault(dstr, {
+                "platform": dstr.split(":")[0], "process_index": 0,
+                "index_bytes": 0, "index_bytes_by_group": {},
+                "memory_stats": None})
+            node["index_bytes_by_group"][g] = (
+                node["index_bytes_by_group"].get(g, 0) + b)
+    for dstr, b in storages.values():
+        nodes[dstr]["index_bytes"] += b
+    return {
+        "n_devices": len(nodes),
+        "total_index_bytes": total,
+        "device_resident_bytes": sum(n["index_bytes"]
+                                     for n in nodes.values()),
+        "nodes": nodes,
+    }
 
 
 def store_stats(store) -> dict:

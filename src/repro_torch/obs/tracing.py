@@ -29,7 +29,6 @@ sites never branch.
 from __future__ import annotations
 
 import contextlib
-import itertools
 import threading
 import time
 from collections import deque
@@ -206,22 +205,20 @@ class Tracer:
         self.annotate = annotate
         self._lock = threading.Lock()
         self._ring: deque = deque(maxlen=capacity)
-        # admission draws from an itertools counter (C-level atomic, so
-        # the sampled-OUT path -- the common case -- takes no lock);
-        # _n_seen mirrors it for stats() and is exact when starts don't
-        # race each other
-        self._counter = itertools.count()
+        # admission counts under the lock, so stats() is exact when
+        # starts race each other
         self._n_started = 0
         self._n_seen = 0
 
     def start(self, name: str = "query", **attrs) -> "Trace | _NullTrace":
         """Admit (or null-admit) one request.  Sampled-out requests get
-        :data:`NULL_TRACE` -- lock-free, a counter draw and a modulo."""
-        n = next(self._counter)
-        self._n_seen = n + 1
-        if n % self.period:
-            return NULL_TRACE
+        :data:`NULL_TRACE` -- a count under an uncontended lock and a
+        modulo."""
         with self._lock:
+            n = self._n_seen
+            self._n_seen = n + 1
+            if n % self.period:
+                return NULL_TRACE
             self._n_started += 1
             tid = self._n_started
         return Trace(name, tid, tracer=self, **attrs)

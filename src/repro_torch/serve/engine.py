@@ -199,7 +199,7 @@ class BatchedSearchEngine:
                                **self._metric_labels).observe(latency)
         self.metrics.counter("engine.ingest.added_docs",
                              **self._metric_labels).inc(
-            int(np.shape(vectors)[0]))
+            len(vectors))
         return first_id
 
     def delete(self, ids) -> None:
@@ -246,6 +246,21 @@ class BatchedSearchEngine:
         from repro_torch.obs.stats import engine_stats
 
         return engine_stats(self)
+
+    def node_stats(self) -> dict:
+        """ES ``GET _nodes/stats``: per-device residency of the served
+        index (see :func:`repro_torch.obs.stats.node_stats`)."""
+        from repro_torch.obs.stats import node_stats
+
+        return node_stats(self)
+
+    def device_stats(self) -> dict:
+        """Exact index-resident byte accounting for the served index --
+        per leaf, per section, per device, reconciled against the
+        allocator (see :func:`repro_torch.obs.device.device_bytes`)."""
+        from repro_torch.obs.device import device_bytes
+
+        return device_bytes(self.index)
 
     def close(self):
         with self._lock:
@@ -305,8 +320,11 @@ class BatchedSearchEngine:
                 ids, scores = index.search(
                     torch.from_numpy(qs), k=self.k, page=self.page,
                     trim=self.trim, engine=self.engine, **kwargs)
-                return (np.asarray(torch.as_tensor(ids).cpu()),
-                        np.asarray(torch.as_tensor(scores).cpu()))
+                # the answers' two copies to the host: the batch's only
+                # synchronisation
+                ids = torch.as_tensor(ids).cpu()  # host-seam: answer
+                scores = torch.as_tensor(scores).cpu()  # host-seam: answer
+                return np.asarray(ids), np.asarray(scores)
 
     def _run(self):
         while True:

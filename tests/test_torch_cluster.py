@@ -1437,11 +1437,15 @@ def test_format_health_line_equals_reference():
 
 # ----------------------------------------------------- launch counters
 class _CudaStub:
-    """Stands in for a CUDA tensor: the wrappers read ``is_cuda`` and
-    ``shape`` before they launch."""
+    """Stands in for a CUDA tensor: the wrappers read ``is_cuda``,
+    ``shape`` and ``element_size()`` (for their cost row) before they
+    launch."""
 
     is_cuda = True
     shape = (8, 4)
+
+    def element_size(self) -> int:
+        return 1
 
 
 class _YieldingKernel:

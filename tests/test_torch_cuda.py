@@ -953,3 +953,134 @@ def test_sharded_kernels_vs_plain_on_a_shard(gen):
     # the shard's page goes global by its offset
     ids, _ = sidx.search(q, k=1, page=320, engine="fused")
     assert ids[:, 0].tolist() == list(range(2049, 2055))
+
+
+# ------------------------------------------------- the obs plane's device side
+def test_device_bytes_on_card_reconcile_with_allocator(gen):
+    """Storage bytes on ``cuda:0``, at most what the allocator holds;
+    4 x 2 shards of a flat index view its vectors and codes."""
+    from repro_torch.core import VectorIndex
+    from repro_torch.dist.shard_index import ShardedVectorIndex
+    from repro_torch.launch import make_shard_mesh
+    from repro_torch.obs import device_bytes
+
+    V = torch.randn((4096, 64), generator=gen, device="cuda")
+    idx = VectorIndex.build(V)
+    dev = device_bytes(idx)
+    rec = dev["reconciliation"]
+    assert set(dev["per_device"]) == {"cuda:0"}
+    assert rec["accounted_bytes"] == dev["per_device"]["cuda:0"] \
+        == dev["total_bytes"]
+    assert rec["accounted_bytes"] <= rec["process_live_bytes"] \
+        == torch.cuda.memory_allocated()
+    assert rec["live_leaves"] == dev["n_leaves"] == 4
+    s42 = ShardedVectorIndex.from_index(idx, mesh=make_shard_mesh(4, 2))
+    sdev = device_bytes(s42)
+    shared = {"vectors": "[<flat index 0>]", "codes": "[<flat index 1>]"}
+    flat = {l["path"]: l["nbytes"] for l in dev["leaves"]}
+    sharded = {l["path"]: l["nbytes"] for l in sdev["leaves"]}
+    for path, flat_path in shared.items():
+        assert sharded[path] == flat[flat_path]
+    assert sdev["reconciliation"]["accounted_bytes"] <= \
+        torch.cuda.memory_allocated()
+
+
+@pytest.mark.parametrize("kernel", ["fused_phase1", "fused_phase1_quant",
+                                    "code_match", "bucketize",
+                                    "rerank_topk"])
+def test_cost_row_same_on_kernel_and_plain_path(gen, kernel):
+    """A wrapper files the same operations and bytes whether the card's
+    kernel or the CPU's plain version runs the call."""
+    from repro_torch.core import RoundingEncoder
+    from repro_torch.core.quantize import quantize_table
+    from repro_torch.obs import CompileWatch, MetricsRegistry
+
+    D = torch.randint(-8, 8, (3000, 40), generator=gen,
+                      device="cuda").to(torch.int8)
+    Qc = torch.randint(-8, 8, (4, 40), generator=gen,
+                       device="cuda").to(torch.int8)
+    W = torch.rand((4, 40), generator=gen, device="cuda")
+    V = trerank.normalize(torch.randn((3000, 40), generator=gen,
+                                      device="cuda"))
+    ids = torch.randint(0, 3000, (4, 64), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    qt = quantize_table(V)
+    call = {
+        "fused_phase1": lambda d: tops.fused_phase1(
+            D.to(d), Qc.to(d), W.to(d), 64),
+        "fused_phase1_quant": lambda d: tops.fused_phase1_quant(
+            qt.codes.to(d), qt.scale.to(d), qt.zero.to(d), V[:4].to(d), 64),
+        "code_match": lambda d: cm_ops.code_match(D.to(d), Qc.to(d),
+                                                  W.to(d)),
+        "bucketize": lambda d: bk_ops.encode(V.to(d), RoundingEncoder(2)),
+        "rerank_topk": lambda d: rk_ops.rerank_topk(V.to(d), ids.to(d),
+                                                    V[:4].to(d), 10),
+    }[kernel]
+    watch = CompileWatch(metrics=MetricsRegistry())
+    for d in ("cuda", "cpu"):
+        with watch.region(d):
+            call(d)
+    rows = {r["region"]: r for r in watch.costs.rows()}
+    assert set(rows) == {"cuda", "cpu"}
+    for key in ("program", "flops", "bytes_accessed", "op_kind",
+                "launches"):
+        assert rows["cuda"][key] == rows["cpu"][key], key
+    assert rows["cuda"]["program"] == kernel
+
+
+def test_node_stats_and_bundle_on_card(gen):
+    from repro_torch.core import VectorIndex
+    from repro_torch.obs import (BUNDLE_SECTIONS, MetricsRegistry,
+                                 diagnostics_bundle)
+    from repro_torch.serve.engine import BatchedSearchEngine
+
+    idx = VectorIndex.build(torch.randn((4096, 64), generator=gen,
+                                        device="cuda"))
+    eng = BatchedSearchEngine(idx, batch_size=4, k=5, page=64,
+                              engine="fused", metrics=MetricsRegistry())
+    try:
+        for q in torch.randn((4, 64), generator=gen,
+                             device="cuda").cpu().numpy():
+            eng.search(q, timeout=120)
+        ns = eng.node_stats()
+        bundle = diagnostics_bundle(eng, reason="test")
+    finally:
+        eng.close()
+    assert set(ns["nodes"]) == {f"cuda:{i}"
+                                for i in range(torch.cuda.device_count())}
+    node = ns["nodes"]["cuda:0"]
+    assert node["platform"] == "cuda"
+    assert node["memory_stats"]["allocated_bytes.all.current"] > 0
+    assert node["index_bytes"] == eng.device_stats()["per_device"]["cuda:0"]
+    assert tuple(bundle) == BUNDLE_SECTIONS
+    assert bundle["meta"]["backend"] == "cuda"
+    assert bundle["meta"]["n_devices"] == torch.cuda.device_count()
+    assert bundle["stats"]["requests"]["completed"] == 4
+
+
+def test_launcher_on_card(gen, tmp_path):
+    """``python -m repro_torch.launch.serve`` on the card: a 2 x 2 cluster
+    serving ``fused``, its failover bit-identical, its bundles valid, its
+    kernel launched."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(repo, "src"))
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--docs", "3000",
+         "--features", "64", "--queries", "32", "--engine", "fused",
+         "--shards", "2", "--replicas", "2", "--cluster", "--fail-shard",
+         "1", "--diagnostics-on-exit", str(tmp_path)],
+        env=env, cwd=repo, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert "results bit-identical to the healthy cluster" in run.stdout
+    launches = json.loads(run.stdout.splitlines()[-1].split(": ", 1)[1])
+    assert launches["fused_phase1"] > 0
+    val = subprocess.run(
+        [sys.executable, os.path.join(repo, "tools",
+                                      "validate_diag_bundle_torch.py"),
+         str(tmp_path)], capture_output=True, text=True, timeout=120)
+    assert val.returncode == 0, val.stdout + val.stderr

@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases CI     # shards and replica groups only
     python3 chip_smoke.py --phases CIJ    # the cluster control plane only
     python3 chip_smoke.py --phases K      # the launcher runs only
+    python3 chip_smoke.py --phases L      # the LM and its training only
 
 It builds the hand-written kernels from the sources in this checkout (one
 nvcc per library, all started together), holds each against its plain
@@ -22,7 +23,8 @@ through the durability plane, splits it into 4 doc-shards x 1 and
 x 2 replica groups, serves those groups through the cluster control
 plane (routing, failover, health, restore and background merges) and
 reads their device bytes, cost rows and diagnostics bundle, and runs
-the port's serving launcher as an operator would.
+the port's serving launcher as an operator would, and trains, resumes,
+prefills and decodes the dense LM qwen2-0.5b at its published widths.
 
 Phases, each printing one JSON line (D and G one per engine, then a
 summary):
@@ -251,6 +253,36 @@ summary):
      page 320, the served live masks).  P@10, ms a query,
      kill-and-recover seconds, bundle count and the kernels each run
      launched (its last line) in the K line.
+  L  the dense transformer LM and the training substrate, qwen2-0.5b
+     (24 layers, d_model 896, 14 heads over 2 KV heads, d_ff 4864, vocab
+     151,936, tied embeddings, QKV biases), run last with every earlier
+     phase's tensors released and bf16 products accumulated in f32:
+     L0 two of its layers at its widths, seq 512, batch 2, params carried
+     from one seeded CPU tree: logits (<= 2e-2 of the largest), lm_loss
+     (<= 2e-3 relative), gradients (global norm within 1e-2, cosine >=
+     0.999) and one AdamW step fed the CPU's gradients (<= 1e-6 of each
+     leaf's largest) on the card against the CPU; L1 the full config
+     (494,032,768 parameters) from init_params seeded on the card, 4 steps
+     of make_train_step with AdamW and a cosine schedule at global batch 16
+     x 4,096 (train_4k's length) at accum 16: step-0 loss within 0.5 of
+     ln 151,936, finite losses and gradient norms, seconds a step, tokens
+     a second, peak memory; L2 the reference's test_resume_is_bit_exact at
+     full widths under torch.use_deterministic_algorithms: batch 2 x
+     4,096 at accum 2, 6 steps straight against 3, a checkpoint and a
+     resume to 6 through run_train_loop, every parameter and AdamW moment
+     equal bit for bit, checkpoint bytes and seconds (the directories
+     under a temporary directory, removed); L3 serving: a 32,768-token prefill
+     (prefill_32k's length), serve_step against forward at 4 x 4,096
+     (relative error < 0.05, the reference's bound), then a 512-token
+     prefill at batch 64 into a 32,768-slot cache (decode_32k's;
+     25,769,803,776 B, checked) and 16 greedy decode steps, each reading
+     every slot: prefill seconds, decode ms a step; L4 ``python -m
+     repro_torch.launch.train --arch qwen2-0.5b --smoke --steps 20
+     --ckpt-every 10``, then ``--steps 30`` on the same directory, which
+     must resume at step 20 (run beside L0-L3).  The LM path launches
+     none of the five search kernels (checked).  Cuts: train_4k at batch
+     16 and accum 16 (256 at accum 8), prefill_32k at batch 1 (32),
+     decode_32k at batch 64 (128).
 Then the ``kernels`` line (launches summed over the phases' main paths,
 phase K's as its runs printed them,
 and by phase; each library's largest ptxas stack frame
@@ -266,6 +298,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import pathlib
 import re
@@ -274,7 +307,12 @@ import sys
 import time
 
 import numpy as np
-import torch
+
+# phase L's bit-exact resume runs under torch.use_deterministic_algorithms,
+# which needs cuBLAS's workspace fixed before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 N_DOCS = 4_181_504                 # English Wikipedia 4,181,352, padded x512
 N_FEATURES = 400
@@ -310,6 +348,17 @@ E_VOCAB = 100_000                  # gensim make_wiki: keep_n=100000
 E_TOPICS = 400
 E_QUERIES = 128
 E_EXACT_QUERIES = 16               # C4 at page = n_docs: (16, d, 400) rescore
+L_ARCH = "qwen2-0.5b"              # phase L: the one assigned LM whose
+L0_LAYERS, L0_SEQ, L0_BATCH = 2, 512, 2    # training fits one card
+L_SEQ = 4_096                      # train_4k's length; batch 16 at accum 16,
+L_BATCH, L_ACCUM, L_STEPS = 16, 16, 4      # not 256 at accum 8
+L2_BATCH, L2_ACCUM, L2_STEPS = 2, 2, 6     # 6 steps against 3 + resume to 6
+L_PREFILL = 32_768                 # prefill_32k's length, at batch 1 (not 32)
+L_DECODE_BATCH = 64                # decode_32k at batch 64 (not 128)
+L_DECODE_CACHE = 32_768            # decode_32k's cache (max_seq)
+L_DECODE_PROMPT = 512
+L_DECODE_STEPS = 16
+L_LAUNCHER_STEPS = (20, 30)        # launch.train, then its resume
 
 
 def emit(obj) -> None:
@@ -3914,9 +3963,348 @@ def phase_e() -> tuple:
     return line, got
 
 
+# ----------------------------------------------------------------- phase L
+def l_batch(seed, batch, seq, vocab, dev) -> dict:
+    from repro_torch.data import lm_batch
+
+    b = lm_batch(np.random.default_rng(seed), batch, seq, vocab)
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def l_rel(got, want) -> float:
+    """max |got - want| / max |want|, on the host in f32."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def l_sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def l0_parity(cfg, dev) -> dict:
+    """The model at ``cfg`` (qwen2-0.5b's widths, 2 of its layers) on
+    ``dev`` against the CPU, params carried from one seeded CPU tree:
+    logits, ``lm_loss``, gradients, and one AdamW step fed the CPU's
+    gradients, within the CPU parity tests' bounds."""
+    from repro_torch.models.transformer import model as lm
+    from repro_torch.train import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    t0 = time.monotonic()
+    cpu = lm.init_params(cfg, device="cpu", seed=1)
+    card = lm.LM(cfg, device=dev).load_tree(cpu.tree())
+    batch = {"cpu": l_batch(0, L0_BATCH, L0_SEQ, cfg.vocab, "cpu")}
+    batch["card"] = {k: v.to(dev) for k, v in batch["cpu"].items()}
+    models = {"cpu": cpu, "card": card}
+    with torch.no_grad():
+        logits = {n: m(batch[n]["tokens"])[0] for n, m in models.items()}
+    out = {"logits_rel": l_rel(logits["card"], logits["cpu"])}
+    del logits
+    loss, grads = {}, {}
+    for name, m in models.items():
+        l = lm.lm_loss(m, batch[name])
+        l.backward()
+        loss[name] = float(l.detach())
+        grads[name] = m.tree(grads=True)
+        m.zero_grad(set_to_none=True)
+    out["loss"] = loss
+    out["loss_rel"] = abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"])
+    flat = {n: torch.cat([g.double().reshape(-1).cpu() for g in tree_leaves(t)])
+            for n, t in grads.items()}
+    na, nb = float(flat["cpu"].norm()), float(flat["card"].norm())
+    out["grad_norm"] = {"cpu": na, "card": nb}
+    out["grad_norm_rel"] = abs(na - nb) / na
+    out["grad_cos"] = float(flat["cpu"] @ flat["card"]) / (na * nb)
+    del flat
+    new = {}
+    for name, m in models.items():             # the CPU's gradients on both
+        d = next(m.parameters()).device
+        g = tree_map(lambda t: t.to(d), grads["cpu"])
+        tree = m.tree()
+        new[name] = adamw_update(g, adamw_init(tree), tree, AdamWConfig(),
+                                 lr_scale=0.5)
+    pairs = list(zip(tree_leaves(new["card"]), tree_leaves(new["cpu"])))
+    out["adamw_rel"] = max(l_rel(a, b) for a, b in pairs if b.abs().max() > 0)
+    out["s"] = time.monotonic() - t0
+    check(out["logits_rel"] <= 2e-2, f"L0 logits {out['logits_rel']}")
+    check(out["loss_rel"] <= 2e-3, f"L0 loss {loss}")
+    check(out["grad_norm_rel"] <= 1e-2 and out["grad_cos"] >= 0.999,
+          f"L0 gradients {out}")
+    check(out["adamw_rel"] <= 1e-6, f"L0 AdamW step {out['adamw_rel']}")
+    return out
+
+
+def l1_train(cfg, dev) -> dict:
+    """``L_STEPS`` steps of ``make_train_step`` at the full config: global
+    batch ``L_BATCH`` x ``L_SEQ`` at accum ``L_ACCUM``, the arch's AdamW and
+    a cosine schedule, from ``init_params`` seeded on ``dev``."""
+    from repro_torch.models.transformer import model as lm
+    from repro_torch.train import (AdamWConfig, adamw_init, cosine_schedule,
+                                   make_train_step)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    model = lm.init_params(cfg, device=dev, seed=0)
+    opt = adamw_init(model)
+    init_s = time.monotonic() - t0
+    step = make_train_step(lambda m, b: lm.lm_loss(m, b), AdamWConfig(),
+                           accum=L_ACCUM, lr_schedule=cosine_schedule(1, L_STEPS))
+    times, losses, norms = [], [], []
+    for i in range(L_STEPS):
+        batch = l_batch(100 + i, L_BATCH, L_SEQ, cfg.vocab, dev)
+        l_sync(dev)
+        t = time.monotonic()
+        model, opt, m = step(model, opt, batch)
+        l_sync(dev)
+        times.append(time.monotonic() - t)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    ln_v = math.log(cfg.vocab)
+    check(abs(losses[0] - ln_v) <= 0.5,
+          f"L1 step-0 loss {losses[0]}, ln V = {ln_v}")
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"L1 losses {losses}, grad norms {norms}")
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    return {"params": sum(p.numel() for p in model.parameters()),
+            "tokens_a_step": L_BATCH * L_SEQ, "init_s": init_s,
+            "step_s": times, "step_s_median_after_first": steady,
+            "tokens_per_s": L_BATCH * L_SEQ / steady, "loss": losses,
+            "ln_vocab": ln_v, "grad_norm": norms,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def l2_resume(cfg, dev, root) -> tuple:
+    """The reference's ``test_resume_is_bit_exact`` at full widths: global
+    batch ``L2_BATCH`` x ``L_SEQ`` at accum ``L2_ACCUM``; ``L2_STEPS`` steps
+    straight against half of them, a checkpoint, and a resume to the end,
+    under ``torch.use_deterministic_algorithms``; every parameter and
+    AdamW moment equal bit for bit.  -> (the line, the resumed model)."""
+    from repro_torch.models.transformer import model as lm
+    from repro_torch.train import (AdamWConfig, TrainLoopConfig, adamw_init,
+                                   cosine_schedule, make_train_step,
+                                   run_train_loop)
+    from repro_torch.train.tree import tree_leaves
+
+    torch.cuda.reset_peak_memory_stats()
+    base = make_train_step(lambda m, b: lm.lm_loss(m, b), AdamWConfig(),
+                           accum=L2_ACCUM,
+                           lr_schedule=cosine_schedule(1, L2_STEPS))
+    step_s = []
+
+    def step(m, o, b):
+        t = time.monotonic()
+        out = base(m, o, b)
+        l_sync(dev)
+        step_s.append(time.monotonic() - t)
+        return out
+
+    def fresh():
+        m = lm.init_params(cfg, device=dev, seed=0)
+        return m, adamw_init(m)
+
+    def make_batch(i):
+        return l_batch(200 + i, L2_BATCH, L_SEQ, cfg.vocab, dev)
+
+    def run(steps, name, every):
+        n = len(step_s)
+        t = time.monotonic()
+        model, opt, _ = run_train_loop(step, *fresh(), make_batch,
+                                       TrainLoopConfig(steps, str(root / name),
+                                                       ckpt_every=every))
+        state = {"params": model, "opt": opt}
+        return state, time.monotonic() - t - sum(step_s[n:]), len(step_s) - n
+
+    half = L2_STEPS // 2
+    torch.use_deterministic_algorithms(True)
+    try:
+        straight, save_s, n_a = run(L2_STEPS, "a", L2_STEPS)
+        straight["params"] = straight["params"].tree()
+        run(half, "b", half)
+        resumed, resume_s, n_b = run(L2_STEPS, "b", half)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    model = resumed["params"]
+    resumed["params"] = model.tree()
+    leaves = list(zip(tree_leaves(straight), tree_leaves(resumed)))
+    differ = [k for k, (a, b) in enumerate(leaves) if not torch.equal(a, b)]
+    check(n_a == L2_STEPS and n_b == L2_STEPS - half,
+          f"L2 ran {n_a} and {n_b} steps: the resume did not start at {half}")
+    check(not differ, f"L2: {len(differ)} of {len(leaves)} leaves (params, "
+          "then AdamW's) differ after the resume")
+    ckpt = root / "b" / f"step_{half:08d}"
+    size = sum(f.stat().st_size for f in ckpt.iterdir())
+    fs, _ = filesystem(root)
+    return {"steps": L2_STEPS, "resumed_at": half, "leaves": len(leaves),
+            "bit_equal": True, "checkpoint_bytes": size,
+            "checkpoint_files": len(list(ckpt.iterdir())),
+            "save_s": save_s, "restore_and_save_s": resume_s,
+            "step_s_median": sorted(step_s)[len(step_s) // 2],
+            "filesystem": fs,
+            "peak_bytes": torch.cuda.max_memory_allocated()}, model
+
+
+def l3_serve(model, dev) -> dict:
+    """Prefill of ``L_PREFILL`` tokens; ``serve_step`` against forward at 4 x
+    ``L_SEQ`` (the reference's 0.05 bound); ``L_DECODE_STEPS`` greedy decode
+    steps at batch ``L_DECODE_BATCH`` over an ``L_DECODE_CACHE``-slot cache
+    filled by a ``L_DECODE_PROMPT``-token prefill, each reading every slot."""
+    from repro_torch.models.transformer import model as lm
+
+    cfg = model.cfg
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    toks = l_batch(300, 1, L_PREFILL, cfg.vocab, dev)["tokens"]
+    l_sync(dev)
+    t = time.monotonic()
+    logits, cache = lm.prefill(model, toks, L_PREFILL)
+    l_sync(dev)
+    out["prefill_s"] = time.monotonic() - t
+    out["prefill_tokens"] = L_PREFILL
+    check(logits.shape == (1, 1, cfg.vocab)
+          and bool(torch.isfinite(logits.float()).all()), "L3 prefill logits")
+    del cache, logits
+
+    toks = l_batch(301, 4, L_SEQ, cfg.vocab, dev)["tokens"]
+    want, cache = lm.prefill(model, toks, L_SEQ)
+    got, _ = lm.serve_step(model, cache, toks[:, -1:], L_SEQ - 1)
+    out["serve_step_vs_forward_rel"] = l_rel(got, want)
+    check(out["serve_step_vs_forward_rel"] < 0.05,
+          f"L3 serve_step vs forward {out['serve_step_vs_forward_rel']}")
+    del cache, got, want
+
+    toks = l_batch(302, L_DECODE_BATCH, L_DECODE_PROMPT, cfg.vocab, dev)["tokens"]
+    l_sync(dev)
+    t = time.monotonic()
+    logits, cache = lm.prefill(model, toks, L_DECODE_CACHE)
+    l_sync(dev)
+    out["decode_prefill_s"] = time.monotonic() - t
+    kv = [c[k] for c in cache.values() for k in ("k", "v")]
+    out["cache_bytes"] = sum(t.numel() * t.element_size() for t in kv)
+    want_bytes = (L_DECODE_BATCH * L_DECODE_CACHE * cfg.n_layers
+                  * cfg.n_kv_heads * cfg.d_head * 2 * 2)
+    check(out["cache_bytes"] == want_bytes,
+          f"L3 cache {out['cache_bytes']} B, want {want_bytes}")
+    nxt = logits.argmax(-1)
+    ms = []
+    for i in range(L_DECODE_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, cache = lm.serve_step(model, cache, nxt, L_DECODE_PROMPT + i)
+        nxt = logits.argmax(-1)
+        end.record()
+        ms.append((start, end))
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in ms]
+    filled = int((cache["sub0"]["pos"] >= 0).sum())
+    check(filled == cfg.n_super * (L_DECODE_PROMPT + L_DECODE_STEPS),
+          f"L3 decode filled {filled} slots")
+    check(bool(torch.isfinite(logits.float()).all()), "L3 decode logits")
+    out.update(decode_batch=L_DECODE_BATCH, decode_cache_slots=L_DECODE_CACHE,
+               decode_ms=ms, decode_ms_median=sorted(ms)[len(ms) // 2],
+               decode_tokens_per_s=L_DECODE_BATCH * 1e3 / sorted(ms)[len(ms) // 2],
+               peak_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
+def l4_launcher(root) -> dict:
+    """``python -m repro_torch.launch.train`` on the card, then again on
+    the same checkpoint directory with more steps: the second run must
+    resume at the first's last step."""
+    here = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(here / "src"))
+    runs = []
+    for steps in L_LAUNCHER_STEPS:
+        argv = ["--arch", L_ARCH, "--smoke", "--steps", str(steps),
+                "--ckpt-every", "10", "--ckpt-dir", str(root / "ck")]
+        t = time.monotonic()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                            *argv], cwd=here, env=env, capture_output=True,
+                           text=True, timeout=300)
+        lines = r.stdout.splitlines()
+        runs.append({"argv": argv, "rc": r.returncode,
+                     "s": time.monotonic() - t,
+                     "steps_printed": [int(ln.split()[1]) for ln in lines
+                                       if ln.startswith("step ")],
+                     "resumed": [ln for ln in lines if ln.startswith("resuming")],
+                     "last": lines[-2:], "stderr": r.stderr[-2000:]})
+    first, second = runs
+    check(first["rc"] == 0 and second["rc"] == 0, f"L4 runs {runs}")
+    check(not first["resumed"] and first["steps_printed"][0] == 0
+          and first["last"][-1] == "done", f"L4 first run {first}")
+    resume = L_LAUNCHER_STEPS[0]
+    check(second["resumed"] and second["resumed"][0].startswith(
+        f"resuming at step {resume} ")
+          and second["steps_printed"][0] == resume
+          and second["last"][-1] == "done", f"L4 second run {second}")
+    return {"runs": runs, "resumed_at": resume}
+
+
+def phase_l(smi) -> tuple:
+    """The dense LM and its training substrate on the card (see the module
+    doc); every check raises.  -> (the phase line, the five kernels'
+    launches: all 0, the LM path reaches none of them)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts
+
+    torch.cuda.empty_cache()
+    reset_launches()
+    held = torch.cuda.memory_allocated()
+    cfg = get_arch(L_ARCH).cfg
+    t_phase = time.monotonic()
+    root = pathlib.Path(tempfile.mkdtemp(prefix="phase_l_"))
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    # bf16 products accumulate in f32 end to end, as the reference's
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    pool = ThreadPoolExecutor(1)
+    try:
+        l4 = pool.submit(l4_launcher, root / "l4")
+        line = {"phase": "L", "device": smi, "arch": L_ARCH,
+                "held_bytes_at_start": held}
+        line["L0"] = l0_parity(dataclasses.replace(cfg, n_layers=L0_LAYERS),
+                               "cuda")
+        progress(f"L0: {line['L0']}")
+        line["L1"] = l1_train(cfg, "cuda")
+        progress(f"L1: {line['L1']}")
+        line["L2"], model = l2_resume(cfg, "cuda", root)
+        progress(f"L2: {line['L2']}")
+        line["L3"] = l3_serve(model, "cuda")
+        progress(f"L3: {line['L3']}")
+        del model
+        line["L4"] = l4.result()
+    finally:
+        pool.shutdown(wait=True)
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    launches = launch_counts()
+    check(not any(launches.values()),
+          f"L: the LM path launched a search kernel: {launches}")
+    line.update(launches=launches, phase_s=time.monotonic() - t_phase,
+                cuts={"train_4k": f"batch {L_BATCH} at accum {L_ACCUM} "
+                                  "(256 at accum 8 in the reference)",
+                      "prefill_32k": "batch 1 (32)",
+                      "decode_32k": f"batch {L_DECODE_BATCH} (128)"})
+    return line, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="ABCDEFGHIJK")
+    ap.add_argument("--phases", default="ABCDEFGHIJKL",
+                    help="letters of the phases to run, each described in "
+                         "the module doc: A kernels against their plain "
+                         "versions, B encoders, C-D engines, E quality, F "
+                         "segments, G observability, H durability, I shards "
+                         "and replicas, J cluster (with C and I), K the "
+                         "serving launcher, L the dense LM trained, resumed "
+                         "bit-exactly, prefilled and decoded at qwen2-0.5b's "
+                         "widths")
     args = ap.parse_args(argv)
     if "J" in args.phases and not {"C", "I"} <= set(args.phases):
         ap.error("phase J serves phase C's index and holds its answers to "
@@ -4059,6 +4447,9 @@ def main(argv=None) -> int:
         emit(line)
         for name, err in line["kernels_max_abs_err"].items():
             a_err[name] = max(a_err.get(name, 0.0), err)
+    if "L" in args.phases:
+        line, by_phase["L"] = phase_l(smi)
+        emit(line)
     ck = c["kernel"] if c else (a["first_shape"] if a else {})
     entries = [{
         "name": "fused_phase1", "route": "cuda",

@@ -1,3 +1,3 @@
-from .synthetic import TopicCorpus, make_corpus
+from .synthetic import TopicCorpus, lm_batch, make_corpus
 
-__all__ = ["TopicCorpus", "make_corpus"]
+__all__ = ["TopicCorpus", "make_corpus", "lm_batch"]

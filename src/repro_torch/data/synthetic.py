@@ -9,7 +9,8 @@ neighbours in the latent space -- so the quality curves (P@10 / nDCG /
 avg.diff against page, trim, best) behave like the paper's.
 
 A numpy copy of the JAX package's generator: the same arguments and seed
-give the byte-identical corpus, drawn on the host.
+give the byte-identical corpus, drawn on the host.  ``lm_batch`` is its
+LM token-stream generator, copied the same way.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["TopicCorpus", "make_corpus"]
+__all__ = ["TopicCorpus", "make_corpus", "lm_batch"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,3 +72,9 @@ def make_corpus(
         doc_terms[i, : uniq.shape[0]] = uniq
         doc_tf[i, : uniq.shape[0]] = counts
     return TopicCorpus(doc_terms, doc_tf, vocab_size, n_topics, mixtures)
+
+
+# ---------------------------------------------------------------- model batches
+def lm_batch(rng: np.random.Generator, batch: int, seq: int, vocab: int):
+    tokens = rng.integers(0, vocab, size=(batch, seq), dtype=np.int32)
+    return {"tokens": tokens, "labels": np.roll(tokens, -1, axis=1)}

@@ -10,7 +10,12 @@ run one model or search one index:
   vectors), so ``embed`` and ``fold_in`` run on the same model;
 * ``mlt_from_numpy``: an ``MLTIndex`` (its term postings and the corpus);
 * ``sharded_from_numpy``: a ``ShardedVectorIndex`` of any shard count
-  (its base, active buffer and sealed segments, and the host counters).
+  (its base, active buffer and sealed segments, and the host counters);
+* ``lm_params_from_numpy`` / ``lm_params_to_numpy``: an LM's parameter
+  tree (leaves stacked over ``n_super``) to the port's ``LM`` module and
+  back, and the same for an ``AdamWState`` or ``AdafactorState`` (the
+  port keeps optimizer state in the reference's tree already).  bf16
+  leaves come back widened to f32 (numpy has no bf16).
 
 This module imports no JAX: the caller does the ``np.asarray``.
 """
@@ -30,9 +35,12 @@ from repro_torch.dist.shard_index import (DEFAULT_SEAL_THRESHOLD, Segment,
                                           ShardedVectorIndex, resolve_mesh)
 from repro_torch.launch.mesh import make_shard_mesh
 from repro_torch.lsa import LsaModel, LsaPipeline, TfIdf
+from repro_torch.models.transformer.model import LM, LMConfig
+from repro_torch.train.optimizer import AdafactorState, AdamWState
+from repro_torch.train.tree import tree_map
 
 __all__ = ["index_from_numpy", "lsa_from_numpy", "mlt_from_numpy",
-           "sharded_from_numpy"]
+           "sharded_from_numpy", "lm_params_from_numpy", "lm_params_to_numpy"]
 
 
 def _put(a, device, dtype=None):
@@ -169,3 +177,35 @@ def sharded_from_numpy(
         shard_tombstones=tuple(int(x) for x in shard_tombstones),
         seal_threshold=seal_threshold, seg_base=int(seg_base),
         active_tombstones=int(active_tombstones), mesh=mesh, **active)
+
+
+def _leaf_to_torch(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bf16: widen exactly
+        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def lm_params_from_numpy(tree, cfg: LMConfig, device="cuda"):
+    """The reference's LM parameter tree (numpy leaves, stacked over
+    ``n_super``) -> an :class:`LM` on ``device`` holding the same bits; an
+    ``AdamWState`` / ``AdafactorState`` of numpy trees -> the same state
+    of tensors on ``device``."""
+    for state in (AdamWState, AdafactorState):
+        if getattr(tree, "_fields", None) == state._fields:
+            return state(*tree_map(lambda a: _leaf_to_torch(a, device),
+                                   tuple(tree)))
+    model = LM(cfg, device=device)
+    return model.load_tree(tree_map(lambda a: _leaf_to_torch(a, device), tree))
+
+
+def lm_params_to_numpy(params):
+    """An :class:`LM` -> the reference's parameter tree of numpy arrays
+    (stacked over ``n_super``); an optimizer state -> its numpy trees."""
+    tree = params.tree() if isinstance(params, LM) else params
+    return tree_map(_leaf_to_numpy, tree)

@@ -1,6 +1,7 @@
 """repro_torch on the card: the hand-written kernels against their plain
-versions, the card's encoders and quant table against the CPU's, and
-every search engine on the card against the same search on the CPU.
+versions, the card's encoders and quant table against the CPU's, every
+search engine on the card against the same search on the CPU, and the
+dense LM on the card against the CPU and its bit-exact resume.
 
 Every test here is marked ``cuda`` and skips without a CUDA card.  The file
 imports no JAX, so it runs where only PyTorch is installed:
@@ -1084,3 +1085,91 @@ def test_launcher_on_card(gen, tmp_path):
                                       "validate_diag_bundle_torch.py"),
          str(tmp_path)], capture_output=True, text=True, timeout=120)
     assert val.returncode == 0, val.stdout + val.stderr
+
+
+# ------------------------------------------------- the dense LM (phase L)
+def _lm_batch(seed, batch, seq, vocab, device):
+    from repro_torch.data import lm_batch
+
+    b = lm_batch(np.random.default_rng(seed), batch, seq, vocab)
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def test_lm_card_matches_cpu(gen):
+    """chip_smoke's L0 at a smaller size: one layer at qwen2-0.5b's widths,
+    vocab 8,192, seq 128: logits, loss, gradients and one AdamW step fed
+    the CPU's gradients on the card against the CPU, with the CPU parity
+    tests' bounds."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import model as lm
+    from repro_torch.train import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_arch("qwen2-0.5b").cfg, n_layers=1, vocab=8192)
+    cpu = lm.init_params(cfg, device="cpu", seed=1)
+    card = lm.LM(cfg, device="cuda").load_tree(cpu.tree())
+    b = {"cpu": _lm_batch(0, 2, 128, cfg.vocab, "cpu")}
+    b["cuda"] = {k: v.cuda() for k, v in b["cpu"].items()}
+    models = {"cpu": cpu, "cuda": card}
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        with torch.no_grad():
+            lg = {n: m(b[n]["tokens"])[0].float().cpu() for n, m in models.items()}
+        loss, grads = {}, {}
+        for n, m in models.items():
+            l = lm.lm_loss(m, b[n])
+            l.backward()
+            loss[n] = float(l.detach())
+            grads[n] = m.tree(grads=True)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    assert float((lg["cuda"] - lg["cpu"]).abs().max()) <= 2e-2 * float(lg["cpu"].abs().max())
+    assert abs(loss["cuda"] - loss["cpu"]) <= 2e-3 * abs(loss["cpu"])
+    ga, gb = (torch.cat([g.double().reshape(-1).cpu() for g in tree_leaves(grads[n])])
+              for n in ("cpu", "cuda"))
+    assert abs(float(ga.norm()) - float(gb.norm())) <= 1e-2 * float(ga.norm())
+    assert float(ga @ gb) / float(ga.norm() * gb.norm()) >= 0.999
+    new = {}
+    for n, m in models.items():
+        d = "cuda" if n == "cuda" else "cpu"
+        tree = m.tree()
+        new[n] = adamw_update(tree_map(lambda t: t.to(d), grads["cpu"]),
+                              adamw_init(tree), tree, AdamWConfig(), 0.5)
+    for x, y in zip(tree_leaves(new["cuda"]), tree_leaves(new["cpu"])):
+        x = x.float().cpu()
+        y = y.float()
+        assert float((x - y).abs().max()) <= 1e-6 * max(float(y.abs().max()), 1e-30)
+
+
+def test_lm_resume_bit_exact_on_card(gen, tmp_path):
+    """The reference's ``test_resume_is_bit_exact`` at its tiny config on
+    the card: 12 steps straight against 6, a checkpoint and a resume."""
+    from repro_torch.models.transformer.model import LMConfig, init_params, lm_loss
+    from repro_torch.train import (AdamWConfig, TrainLoopConfig, adamw_init,
+                                   make_train_step, run_train_loop)
+    from repro_torch.train.tree import tree_leaves
+
+    cfg = LMConfig("tiny", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2,
+                   d_head=16, d_ff=64, vocab=64, q_chunk=16, kv_chunk=16)
+    step = make_train_step(lambda m, b: lm_loss(m, b), AdamWConfig(lr=1e-2),
+                           accum=2)
+
+    def fresh():
+        m = init_params(cfg, device="cuda", seed=0)
+        return m, adamw_init(m)
+
+    def batch(i):
+        return _lm_batch(i, 8, 16, 64, "cuda")
+
+    pa, *_ = run_train_loop(step, *fresh(), batch,
+                            TrainLoopConfig(12, str(tmp_path / "a"), ckpt_every=12))
+    run_train_loop(step, *fresh(), batch,
+                   TrainLoopConfig(6, str(tmp_path / "b"), ckpt_every=6))
+    pb, ob, _ = run_train_loop(step, *fresh(), batch,
+                               TrainLoopConfig(12, str(tmp_path / "b"), ckpt_every=6))
+    assert int(ob.step) == 12
+    for x, y in zip(tree_leaves(pa.tree()), tree_leaves(pb.tree())):
+        assert torch.equal(x, y)

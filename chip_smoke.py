@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases CIJ    # the cluster control plane only
     python3 chip_smoke.py --phases K      # the launcher runs only
     python3 chip_smoke.py --phases L      # the LM and its training only
+    python3 chip_smoke.py --phases M      # the recsys models and GIN only
 
 It builds the hand-written kernels from the sources in this checkout (one
 nvcc per library, all started together), holds each against its plain
@@ -23,8 +24,10 @@ through the durability plane, splits it into 4 doc-shards x 1 and
 x 2 replica groups, serves those groups through the cluster control
 plane (routing, failover, health, restore and background merges) and
 reads their device bytes, cost rows and diagnostics bundle, and runs
-the port's serving launcher as an operator would, and trains, resumes,
-prefills and decodes the dense LM qwen2-0.5b at its published widths.
+the port's serving launcher as an operator would, trains, resumes,
+prefills and decodes the dense LM qwen2-0.5b at its published widths,
+and trains and serves the four recsys models and GIN at theirs, the
+paper's two-phase search retrieving from 1,000,000 candidates.
 
 Phases, each printing one JSON line (D and G one per engine, then a
 summary):
@@ -283,6 +286,43 @@ summary):
      none of the five search kernels (checked).  Cuts: train_4k at batch
      16 and accum 16 (256 at accum 8), prefill_32k at batch 1 (32),
      decode_32k at batch 64 (128).
+  M  the recsys models (xDeepFM, AutoInt, DIN, BST) and GIN, float32 with
+     TF32 off: M0 each recsys model at its smoke config (batch 256) and
+     GIN at 2 layers of full_graph_sm's widths on a Cora-sized graph, on
+     the card against the CPU from one seeded tree (logits, user
+     embedding, loss, gradients' norm and cosine, one AdamW step fed the
+     CPU's gradients, within the CPU parity tests' bounds), and two
+     training steps run twice on the card, every leaf bit-equal; M1 each
+     recsys model at its published config (453,586,306 / 654,350,798 /
+     302,025,171 / 538,242,786 parameters) 4 AdamW steps at train_batch's
+     65,536 rows: step-0 loss within 0.1 of ln 2, seconds a step,
+     examples a second, peak memory; then DIN 2 + 2 steps with a
+     checkpoint and a resume through run_train_loop against 4 straight,
+     every parameter and moment bit-equal (the directories under a
+     temporary directory, removed); M2 each trained model forward under
+     no_grad at serve_p99 (512 rows: the first of the bulk batch, whose
+     logits must equal the bulk's within 1e-5) and serve_bulk (262,144),
+     median ms of 5 calls; M3 retrieval_cand: the user tower on one
+     request, then serve/retrieval.py's retrieval_step over 1,000,000
+     seeded Gaussian candidates of the model's embed_dim (page 512, k
+     100, trim 0.05): at page = N the ids and score bits of
+     brute_force_retrieval (which ranks by one (1, N) product) but where
+     two scores lie within 4 * D * 2**-24 of each other, at page 512 the
+     page's ids bit-equal to the same phase 1 on the CPU, recall@100 and
+     the ms of both (reported, not gated); beside it the code_match
+     kernel through its wrapper on the same problem within 1e-5 of
+     score_codes, both timed, its launches counted by the wrapper and
+     taken off the path's; M4 gin-tu at its four shapes, 3 AdamW steps each:
+     full_graph_sm (a Cora-sized random graph, 1,433 features, padded
+     x512), molecule (128 graphs of 30 nodes and 64 edges), minibatch_lg
+     (a block sampled with fanouts 15, 10 from 1,024 seeds a step, over a
+     Reddit-sized graph of 232,965 nodes, 11,606,919 edges, 602
+     features) and ogb_products (2,449,029 nodes x 100 features,
+     61,859,140 edges, 47 classes, in full): seconds a step, peak memory.
+     The path launches none of the five search kernels (checked).  Cuts:
+     xDeepFM's train_batch at accum 2 and its serve_bulk in row chunks of
+     16,384 (CIN's (B, D, H*m) product); checks are gathered and raised
+     at the phase's end.
 Then the ``kernels`` line (launches summed over the phases' main paths,
 phase K's as its runs printed them,
 and by phase; each library's largest ptxas stack frame
@@ -4294,9 +4334,623 @@ def phase_l(smi) -> tuple:
     return line, launches
 
 
+# ----------------------------------------------------------------- phase M
+M_RECSYS = ("xdeepfm", "autoint", "din", "bst")
+M_STEPS = 4                        # train_batch steps a model
+M_ACCUM = {"xdeepfm": 2}           # CIN's (B, D, H*m) product: 65,536 rows
+                                   # at accum 2, the smallest under ~60 GB
+                                   # (51.2 GB; 29.3 at accum 4; accum 1
+                                   # would hold about 95)
+M_RESUME = "din"                   # 2 + 2 steps and a resume against 4
+M_SERVE_REPS = 5
+M_BULK_CHUNK = {"xdeepfm": 16_384}  # serve_bulk in row chunks (CIN again)
+M_PAGE, M_K, M_TRIM = 512, 100, 0.05
+M0_BATCH, M0_GIN_LAYERS = 256, 2
+M_GIN_STEPS = 3
+M_GRAPHS = {                       # the raw graphs, padded to SHAPES' sizes
+    "full_graph_sm": (2_708, 10_556),        # Cora
+    "ogb_products": (2_449_029, 61_859_140),  # ogbn-products, in full
+}
+M_REDDIT = (232_965, 11_606_919)   # Reddit as Cluster-GCN tabulates it
+M_FANOUTS, M_SEEDS = (15, 10), 1_024
+# the CPU parity tests' bounds (tests/test_torch_recsys.py, test_torch_gnn.py)
+M0_FWD, M0_LOSS, M0_GRAD_NORM, M0_GRAD_COS, M0_ADAMW = 2e-6, 1e-6, 1e-6, 0.99999, 1e-6
+
+
+def m_peak_reset(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def m_peak(dev):
+    return (torch.cuda.max_memory_allocated()
+            if torch.device(dev).type == "cuda" else None)
+
+
+def m_ms(fn, dev) -> float:
+    """Host milliseconds of one call of ``fn``, synchronised before and
+    after (what a caller waits)."""
+    l_sync(dev)
+    t = time.monotonic()
+    fn()
+    l_sync(dev)
+    return (time.monotonic() - t) * 1e3
+
+
+def m_median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def m_batch(arch, cfg, batch, seed, dev) -> dict:
+    from repro_torch.data import recsys_batch
+
+    rng = np.random.default_rng(seed)
+    if arch.seq:
+        b = recsys_batch(rng, batch, 1, [cfg.item_vocab], seq_len=cfg.seq_len)
+    else:
+        b = recsys_batch(rng, batch, cfg.n_sparse, cfg.vocab_sizes)
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def m_pad_graph(g, nodes, edges) -> dict:
+    """A ``random_graph`` padded to ``nodes`` x ``edges``: zero rows,
+    label_mask 0, -1 edges (the reference's x512 pads)."""
+    n, e = g["x"].shape[0], g["edge_src"].shape[0]
+    x = np.zeros((nodes, g["x"].shape[1]), np.float32)
+    x[:n] = g["x"]
+    out = {"x": x}
+    for k in ("edge_src", "edge_dst"):
+        out[k] = np.full(edges, -1, np.int32)
+        out[k][:e] = g[k]
+    out["labels"] = np.zeros(nodes, np.int32)
+    out["labels"][:n] = g["labels"]
+    out["label_mask"] = np.zeros(nodes, np.float32)
+    out["label_mask"][:n] = g["label_mask"]
+    return out
+
+
+def m_molecule(rng, info) -> dict:
+    """``molecule``: B graphs of up to N nodes (10 to N live, the rest
+    masked) and E edges among the live nodes, the last few -1."""
+    B, N, E = info["batch"], info["nodes"], info["edges"]
+    live = rng.integers(10, N + 1, size=B)
+    src = (rng.random((B, E)) * live[:, None]).astype(np.int32)
+    dst = (rng.random((B, E)) * live[:, None]).astype(np.int32)
+    pad = np.arange(E)[None, :] >= E - rng.integers(0, 8, size=B)[:, None]
+    src[pad] = dst[pad] = -1
+    return {"x": rng.normal(size=(B, N, info["d_in"])).astype(np.float32),
+            "edge_src": src, "edge_dst": dst,
+            "node_mask": (np.arange(N)[None, :] < live[:, None]).astype(np.float32),
+            "labels": rng.integers(0, info["classes"], size=B).astype(np.int32)}
+
+
+def m_to(b, dev) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in b.items()}
+
+
+class MChecks:
+    """Phase M's checks: each failure is kept, and the phase raises them
+    all at its end (one run reports every bound it broke)."""
+
+    def __init__(self):
+        self.failed = []
+
+    def __call__(self, cond: bool, what: str) -> None:
+        if not cond:
+            self.failed.append(what)
+            progress(f"M check failed: {what}")
+
+    def raise_any(self) -> None:
+        check(not self.failed, f"phase M: {len(self.failed)} checks failed: "
+              f"{self.failed}")
+
+
+def m0_compare(models, batches, loss_fn, outputs, mcheck, ctx) -> dict:
+    """``models`` on the CPU and the card (the same weights): each of
+    ``outputs`` (name -> fn(model, batch)), the loss, the gradients and
+    one AdamW step fed the CPU's gradients, against the CPU."""
+    from repro_torch.train import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    out = {}
+    with torch.no_grad():
+        for name, fn in outputs.items():
+            got = {d: fn(m, batches[d]) for d, m in models.items()}
+            out[f"{name}_rel"] = l_rel(got["card"], got["cpu"])
+            mcheck(out[f"{name}_rel"] <= M0_FWD, f"M0 {ctx} {name} {out}")
+    loss, grads = {}, {}
+    for d, m in models.items():
+        l = loss_fn(m, batches[d])
+        l.backward()
+        loss[d] = float(l.detach())
+        grads[d] = m.tree(grads=True)
+        m.zero_grad(set_to_none=True)
+    out["loss_rel"] = abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"])
+    flat = {d: torch.cat([g.double().reshape(-1).cpu() for g in tree_leaves(t)])
+            for d, t in grads.items()}
+    na, nb = float(flat["cpu"].norm()), float(flat["card"].norm())
+    out["grad_norm_rel"] = abs(na - nb) / na
+    out["grad_cos"] = float(flat["cpu"] @ flat["card"]) / (na * nb)
+    new = {}
+    for d, m in models.items():
+        dev = next(m.parameters()).device
+        tree = m.tree()
+        new[d] = adamw_update(tree_map(lambda t: t.to(dev), grads["cpu"]),
+                              adamw_init(tree), tree, AdamWConfig(), 0.5)
+    out["adamw_rel"] = max(l_rel(a, b) for a, b in zip(tree_leaves(new["card"]),
+                                                       tree_leaves(new["cpu"]))
+                           if b.abs().max() > 0)
+    mcheck(out["loss_rel"] <= M0_LOSS, f"M0 {ctx} loss {loss}")
+    mcheck(out["grad_norm_rel"] <= M0_GRAD_NORM and out["grad_cos"] >= M0_GRAD_COS,
+           f"M0 {ctx} gradients {out}")
+    mcheck(out["adamw_rel"] <= M0_ADAMW, f"M0 {ctx} AdamW step {out['adamw_rel']}")
+    return out
+
+
+def m0_repeat(make_model, loss_fn, batch, mcheck, ctx) -> int:
+    """Two training steps from one seeded model, run twice on the card:
+    every parameter and AdamW moment bit-equal.  -> leaves compared."""
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.train.tree import tree_leaves
+
+    runs = []
+    for _ in range(2):
+        m = make_model()
+        o = adamw_init(m)
+        step = make_train_step(loss_fn, AdamWConfig(lr=1e-2))
+        for _ in range(2):
+            m, o, _ = step(m, o, batch)
+        runs.append(tree_leaves({"p": m.tree(), "o": o}))
+    differ = [i for i, (a, b) in enumerate(zip(*runs)) if not torch.equal(a, b)]
+    mcheck(not differ, f"M0 {ctx}: {len(differ)} of {len(runs[0])} leaves differ "
+           "between two identical runs")
+    return len(runs[0])
+
+
+def m0_parity(dev, mcheck) -> dict:
+    """The four recsys models at their smoke configs and GIN at 2 layers of
+    full_graph_sm's widths, on ``dev`` against the CPU, and each trained
+    twice on ``dev`` for two steps, bit-equal."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import random_graph
+    from repro_torch.models.gnn import gin
+    from repro_torch.models.recsys.models import bce_loss
+
+    t0 = time.monotonic()
+    out = {}
+    for arch_id in M_RECSYS:
+        arch = get_arch(arch_id)
+        cfg = arch.smoke_cfg
+        cpu = arch.init_fn(cfg, device="cpu", seed=1)
+        models = {"cpu": cpu,
+                  "card": arch.init_fn(cfg, device=dev, seed=1).load_tree(cpu.tree())}
+        batches = {"cpu": m_batch(arch, cfg, M0_BATCH, 7, "cpu")}
+        batches["card"] = {k: v.to(dev) for k, v in batches["cpu"].items()}
+        loss_fn = lambda m, b, a=arch, c=cfg: bce_loss(a.forward_fn, m, b, c)
+        out[arch_id] = m0_compare(
+            models, batches, loss_fn,
+            {"logits": lambda m, b, a=arch, c=cfg: a.forward_fn(m, b, c),
+             "user": lambda m, b, a=arch, c=cfg: a.user_fn(m, b, c)},
+            mcheck, arch_id)
+        out[arch_id]["repeat_leaves"] = m0_repeat(
+            lambda a=arch, c=cfg: a.init_fn(c, device=dev, seed=1), loss_fn,
+            batches["card"], mcheck, arch_id)
+    arch = get_arch("gin-tu")
+    cfg = dataclasses.replace(arch.cfg_for("full_graph_sm"), n_layers=M0_GIN_LAYERS)
+    info = arch.SHAPES["full_graph_sm"]
+    g = random_graph(np.random.default_rng(8), *M_GRAPHS["full_graph_sm"],
+                     info["d_in"], info["classes"])
+    batches = {"cpu": m_to(m_pad_graph(g, info["nodes"], info["edges"]), "cpu")}
+    batches["card"] = {k: v.to(dev) for k, v in batches["cpu"].items()}
+    cpu = gin.init_params(cfg, device="cpu", seed=1)
+    models = {"cpu": cpu,
+              "card": gin.init_params(cfg, device=dev, seed=1).load_tree(cpu.tree())}
+    loss_fn = lambda m, b: gin.node_loss(m, b, cfg)
+    out["gin-tu"] = m0_compare(
+        models, batches, loss_fn,
+        {"logits": lambda m, b: gin.node_forward(m, b["x"], b["edge_src"],
+                                                 b["edge_dst"], cfg)},
+        mcheck, "gin-tu")
+    out["gin-tu"]["repeat_leaves"] = m0_repeat(
+        lambda: gin.init_params(cfg, device=dev, seed=1), loss_fn,
+        batches["card"], mcheck, "gin-tu")
+    out["s"] = time.monotonic() - t0
+    return out
+
+
+def m1_train(arch_id, dev, mcheck) -> tuple:
+    """``M_STEPS`` steps of ``make_train_step`` at the full config and
+    ``train_batch``'s 65,536 rows (at ``M_ACCUM``), AdamW and a cosine
+    schedule, from ``init_fn`` seeded on ``dev``.  -> (line, model)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.recsys.models import bce_loss
+    from repro_torch.train import (AdamWConfig, adamw_init, cosine_schedule,
+                                   make_train_step)
+
+    arch = get_arch(arch_id)
+    cfg = arch.cfg
+    B = arch.SHAPES["train_batch"]["batch"]
+    accum = M_ACCUM.get(arch_id, 1)
+    m_peak_reset(dev)
+    t0 = time.monotonic()
+    model = arch.init_fn(cfg, device=dev, seed=0)
+    opt = adamw_init(model)
+    l_sync(dev)
+    init_s = time.monotonic() - t0
+    step = make_train_step(lambda m, b: bce_loss(arch.forward_fn, m, b, cfg),
+                           AdamWConfig(), accum=accum,
+                           lr_schedule=cosine_schedule(1, M_STEPS))
+    times, losses, norms = [], [], []
+    for i in range(M_STEPS):
+        batch = m_batch(arch, cfg, B, 100 + i, dev)
+        l_sync(dev)
+        t = time.monotonic()
+        model, opt, m = step(model, opt, batch)
+        l_sync(dev)
+        times.append(time.monotonic() - t)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    del opt
+    mcheck(abs(losses[0] - math.log(2)) <= 0.1,
+           f"M1 {arch_id} step-0 loss {losses[0]}, ln 2 = {math.log(2)}")
+    mcheck(all(math.isfinite(x) for x in losses + norms),
+           f"M1 {arch_id} losses {losses}, grad norms {norms}")
+    steady = m_median(times[1:])
+    return {"params": sum(p.numel() for p in model.parameters()),
+            "batch": B, "accum": accum, "init_s": init_s, "step_s": times,
+            "step_s_median_after_first": steady,
+            "examples_per_s": B / steady, "loss": losses,
+            "grad_norm": norms, "peak_bytes": m_peak(dev)}, model
+
+
+def m1_resume(dev, root, mcheck) -> dict:
+    """``M_RESUME`` at its full config: ``M_STEPS`` steps straight against
+    half of them, a checkpoint, and a resume to ``M_STEPS`` through
+    ``run_train_loop``; every parameter and AdamW moment bit-equal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.recsys.models import bce_loss
+    from repro_torch.train import (AdamWConfig, TrainLoopConfig, adamw_init,
+                                   cosine_schedule, make_train_step,
+                                   run_train_loop)
+    from repro_torch.train.tree import tree_leaves
+
+    arch = get_arch(M_RESUME)
+    cfg = arch.cfg
+    B = arch.SHAPES["train_batch"]["batch"]
+    m_peak_reset(dev)
+    step = make_train_step(lambda m, b: bce_loss(arch.forward_fn, m, b, cfg),
+                           AdamWConfig(), lr_schedule=cosine_schedule(1, M_STEPS))
+    ran = []
+
+    def counted(m, o, b):
+        ran.append(1)
+        return step(m, o, b)
+
+    def fresh():
+        m = arch.init_fn(cfg, device=dev, seed=0)
+        return m, adamw_init(m)
+
+    def run(steps, name, every):
+        n = len(ran)
+        t = time.monotonic()
+        model, opt, _ = run_train_loop(
+            counted, *fresh(), lambda i: m_batch(arch, cfg, B, 100 + i, dev),
+            TrainLoopConfig(steps, str(root / name), ckpt_every=every))
+        return {"params": model.tree(), "opt": opt}, time.monotonic() - t, len(ran) - n
+
+    half = M_STEPS // 2
+    straight, straight_s, n_a = run(M_STEPS, "a", M_STEPS)
+    _, half_s, _ = run(half, "b", half)
+    resumed, resume_s, n_b = run(M_STEPS, "b", half)
+    leaves = list(zip(tree_leaves(straight), tree_leaves(resumed)))
+    differ = [k for k, (a, b) in enumerate(leaves) if not torch.equal(a, b)]
+    mcheck(n_a == M_STEPS and n_b == M_STEPS - half,
+           f"M1 resume ran {n_a} and {n_b} steps: not resumed at {half}")
+    mcheck(not differ, f"M1 resume: {len(differ)} of {len(leaves)} leaves "
+           "(params, then AdamW's) differ from the straight run")
+    ckpt = root / "b" / f"step_{half:08d}"
+    size = sum(f.stat().st_size for f in ckpt.iterdir())
+    return {"arch": M_RESUME, "steps": M_STEPS, "resumed_at": half,
+            "leaves": len(leaves), "bit_equal": not differ,
+            "checkpoint_bytes": size, "straight_s": straight_s,
+            "half_and_save_s": half_s, "restore_and_finish_s": resume_s,
+            "peak_bytes": m_peak(dev)}
+
+
+def m2_serve(arch_id, arch, model, dev, mcheck) -> dict:
+    """``serve_p99`` (the first 512 rows of the bulk batch) and
+    ``serve_bulk`` forward under no_grad: median ms of ``M_SERVE_REPS``
+    calls after a warm-up; the p99 logits the bulk's first rows."""
+    cfg = arch.cfg
+    B = arch.SHAPES["serve_bulk"]["batch"]
+    bulk = m_batch(arch, cfg, B, 200, dev)
+    small = {k: v[:arch.SHAPES["serve_p99"]["batch"]] for k, v in bulk.items()}
+    chunk = M_BULK_CHUNK.get(arch_id, B)
+
+    @torch.no_grad()
+    def fwd(b):
+        n = b["dense"].shape[0]
+        return torch.cat([arch.forward_fn(model, {k: v[i:i + chunk]
+                                                  for k, v in b.items()}, cfg)
+                          for i in range(0, n, chunk)])
+
+    m_peak_reset(dev)
+    out = {}
+    logits = {}
+    for name, b in (("serve_p99", small), ("serve_bulk", bulk)):
+        logits[name] = fwd(b)
+        ms = [m_ms(lambda: fwd(b), dev) for _ in range(M_SERVE_REPS)]
+        out[name] = {"batch": b["dense"].shape[0], "ms": ms,
+                     "ms_median": m_median(ms),
+                     "rows_per_s": b["dense"].shape[0] * 1e3 / m_median(ms)}
+        mcheck(logits[name].shape == (b["dense"].shape[0],)
+               and bool(torch.isfinite(logits[name]).all()),
+               f"M2 {arch_id} {name} logits")
+    n = small["dense"].shape[0]
+    out["p99_vs_bulk_rows_rel"] = l_rel(logits["serve_p99"], logits["serve_bulk"][:n])
+    mcheck(out["p99_vs_bulk_rows_rel"] <= 1e-5,
+           f"M2 {arch_id}: a row's logit depends on its batch "
+           f"({out['p99_vs_bulk_rows_rel']})")
+    out["bulk_chunk_rows"] = chunk
+    out["peak_bytes"] = m_peak(dev)
+    return out
+
+
+def m_same_up_to_near_ties(ids, scores, want_ids, want_scores, tol) -> tuple:
+    """``retrieval_step``'s top-k at page = N against the brute force's
+    top-(k + 1), rank by rank.  A run of ranks whose neighbouring
+    brute-force scores lie within ``tol`` of each other may hold its ids
+    in another order, and one that reaches rank k + 1 may lend that rank's
+    id to the top-k; elsewhere the ids are equal.  Every score is within
+    ``tol`` plus its run's span of the brute force's.  -> (ok, ranks in
+    such runs)."""
+    k = ids.shape[1]
+    ok, tied = True, 0
+    for q in range(ids.shape[0]):
+        s, a, b = want_scores[q].tolist(), ids[q].tolist(), want_ids[q].tolist()
+        got = scores[q].tolist()
+        i = 0
+        while i < k:
+            j = i
+            while j + 1 < len(s) and s[j] - s[j + 1] <= tol:
+                j += 1
+            hi = min(j, k - 1)
+            ok &= set(a[i:hi + 1]) <= set(b[i:j + 1])
+            ok &= all(abs(got[r] - s[r]) <= tol + s[i] - s[j]
+                      for r in range(i, hi + 1))
+            tied += hi + 1 - i if j > i else 0
+            i = j + 1
+    return ok, tied
+
+
+def m3_retrieval(arch, model, dev, gen, mcheck) -> dict:
+    """``retrieval_cand``: the user tower on one request, then
+    ``retrieval_step`` over ``n_cand`` seeded Gaussian candidates of the
+    model's embed_dim (page ``M_PAGE``, k ``M_K``, trim ``M_TRIM``):
+    at page = N the ids of ``brute_force_retrieval`` but where two
+    candidates' scores lie within ``4 * D * 2**-24`` of each other (each
+    product's float32 dot of unit vectors is within D * 2**-24 of the
+    exact one, so the two can order two candidates differently only
+    there), the page's ids those of the same phase 1 on the CPU,
+    recall@k at ``M_PAGE``, ms of both, phase 1's counts of the exact
+    top-k beside the page's lowest; and the side check, ``code_match``
+    through its wrapper on the same (1 x N x D) problem against
+    ``score_codes``, its launches read as the wrapper's count after less
+    before (the phase takes them off the path's count)."""
+    from repro_torch.core.codes import score_codes
+    from repro_torch.core.encoding import RoundingEncoder
+    from repro_torch.core.filtering import TrimFilter, expand_mask, feature_mask
+    from repro_torch.core.rerank import normalize
+    from repro_torch.kernels.code_match import ops as cm_ops
+    from repro_torch.obs import cost
+    from repro_torch.serve.retrieval import (brute_force_retrieval,
+                                             encode_candidates, retrieval_page,
+                                             retrieval_step)
+
+    cfg = arch.cfg
+    N = arch.SHAPES["retrieval_cand"]["n_cand"]
+    D = cfg.embed_dim
+    with torch.no_grad():
+        u = arch.user_fn(model, m_batch(arch, cfg, 1, 300, dev), cfg)
+    cand = torch.randn((N, D), generator=gen, device=dev)
+    t = time.monotonic()
+    vecs, codes = encode_candidates(cand)
+    l_sync(dev)
+    out = {"embed_dim": D, "n_cand": N, "encode_s": time.monotonic() - t}
+    step = lambda page: retrieval_step(u, vecs, codes, page=page, k=M_K,
+                                       trim_threshold=M_TRIM)
+    ids, scores = step(M_PAGE)
+    wids, wscores = brute_force_retrieval(u, vecs, k=M_K + 1)
+    bids = wids[:, :M_K]
+    ms = [m_ms(lambda: step(M_PAGE), dev) for _ in range(M_SERVE_REPS)]
+    bms = [m_ms(lambda: brute_force_retrieval(u, vecs, k=M_K), dev)
+           for _ in range(M_SERVE_REPS)]
+    hits = len(set(ids[0].tolist()) & set(bids[0].tolist()))
+    out.update(retrieval_ms=ms, retrieval_ms_median=m_median(ms),
+               brute_force_ms=bms, brute_force_ms_median=m_median(bms),
+               recall_at_k=hits / M_K, k=M_K, page=M_PAGE)
+    nids, nscores = step(N)
+    tol = 4 * D * 2.0 ** -24
+    same, tied = m_same_up_to_near_ties(nids, nscores, wids, wscores, tol)
+    out["page_n_exact"], out["page_n_tied_ranks"] = same, tied
+    out["page_n_tie_tol"] = tol
+    mcheck(same, f"M3 {cfg.name}: page = N is not the brute force "
+           f"({nids[0, :10].tolist()} vs {bids[0, :10].tolist()})")
+    _, page = retrieval_page(u, codes, page=M_PAGE, trim_threshold=M_TRIM)
+    _, cpu_page = retrieval_page(u.cpu(), codes.cpu(), page=M_PAGE,
+                                 trim_threshold=M_TRIM)
+    out["page_equals_cpu"] = torch.equal(page.cpu(), cpu_page)
+    mcheck(out["page_equals_cpu"], f"M3 {cfg.name}: the card's page is not "
+           "the CPU's")
+    # side check: the code-match kernel on the same problem
+    q = normalize(u.float())
+    enc = RoundingEncoder(2)
+    qcodes = enc.encode(q)
+    w = torch.where(expand_mask(feature_mask(q, trim=TrimFilter(M_TRIM)), D),
+                    1.0, 0.0)
+    plain = score_codes(codes, qcodes, w)
+    # why recall is what it is: phase 1's counts of the exact top-k
+    # against the page's lowest count, and how many candidates tie there
+    top = plain[0, bids[0].long()]
+    cut = plain[0, page[0, -1]]
+    out["phase1"] = {"query_tokens": int(w.sum()),
+                     "top_k_counts_mean": float(top.mean()),
+                     "top_k_counts_max": float(top.max()),
+                     "page_lowest_count": float(cut),
+                     "candidates_at_or_above_it": int((plain[0] >= cut).sum())}
+    before = cm_ops.launches
+    got = cm_ops.code_match(codes, qcodes, w)
+    if torch.device(dev).type == "cuda":
+        kernel_ms = cuda_ms(lambda: cm_ops.code_match(codes, qcodes, w), 20)
+        plain_ms = cuda_ms(lambda: score_codes(codes, qcodes, w), 20)
+    else:                          # a rehearsal on the CPU: no kernel
+        kernel_ms = plain_ms = None
+    side = cm_ops.launches - before
+    mcheck(side > 0 or torch.device(dev).type != "cuda",
+           f"M3 {cfg.name}: the code_match side check launched no kernel")
+    err = float((got - plain).abs().max())
+    mcheck(err <= 1e-5, f"M3 {cfg.name}: code_match vs score_codes {err}")
+    bound, by = cost.bound_ms(cost.code_match_work(N, 1, D, codes.element_size()))
+    out["code_match_side_check"] = {
+        "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": by,
+        "launches": side}
+    return out
+
+
+def m4_gin(shape, dev, rng, mcheck) -> dict:
+    """gin-tu at ``shape`` (``GNNArch.SHAPES``): ``M_GIN_STEPS`` AdamW steps
+    of ``make_train_step``, seconds a step and peak memory.  Graphs are
+    ``random_graph``s of the named datasets' sizes padded to the shape's;
+    ``minibatch_lg`` samples a fresh block a step from Reddit's size."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import random_graph
+    from repro_torch.models.gnn import gin, sampler
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+
+    arch = get_arch("gin-tu")
+    info = arch.SHAPES[shape]
+    cfg = arch.cfg_for(shape)
+    out = {"shape": shape}
+    t = time.monotonic()
+    if shape == "molecule":
+        batches = [m_to(m_molecule(rng, info), dev)] * M_GIN_STEPS
+        loss = lambda m, b: gin.graph_loss(m, b, cfg)
+    elif shape == "minibatch_lg":
+        g = random_graph(rng, *M_REDDIT, info["d_in"], info["classes"])
+        csr = sampler.build_csr(M_REDDIT[0], g["edge_src"], g["edge_dst"],
+                                g["x"], g["labels"])
+        del g
+        out["graph"] = {"nodes": M_REDDIT[0], "edges": M_REDDIT[1]}
+        batches, sample_s = [], []
+        for _ in range(M_GIN_STEPS):
+            ts = time.monotonic()
+            seeds = rng.choice(M_REDDIT[0], size=M_SEEDS, replace=False)
+            blk = sampler.sample_block(csr, seeds, M_FANOUTS, rng)
+            sample_s.append(time.monotonic() - ts)
+            batches.append(m_to(blk, dev))
+        out["sample_s"] = sample_s
+        out["block"] = {"nodes": int(batches[0]["x"].shape[0]),
+                        "edges": int(batches[0]["edge_src"].shape[0]),
+                        "live_edges": int((batches[0]["edge_src"] >= 0).sum())}
+        loss = lambda m, b: gin.node_loss(m, b, cfg)
+    else:
+        n, e = M_GRAPHS[shape]
+        g = m_pad_graph(random_graph(rng, n, e, info["d_in"], info["classes"]),
+                        info["nodes"], info["edges"])
+        batches = [m_to(g, dev)] * M_GIN_STEPS
+        del g
+        out["graph"] = {"nodes": n, "edges": e, "padded_nodes": info["nodes"],
+                        "padded_edges": info["edges"]}
+        loss = lambda m, b: gin.node_loss(m, b, cfg)
+    out["data_s"] = time.monotonic() - t
+    m_peak_reset(dev)
+    model = gin.init_params(cfg, device=dev, seed=0)
+    opt = adamw_init(model)
+    step = make_train_step(loss, AdamWConfig())
+    times, losses = [], []
+    for b in batches:
+        l_sync(dev)
+        t = time.monotonic()
+        model, opt, m = step(model, opt, b)
+        l_sync(dev)
+        times.append(time.monotonic() - t)
+        losses.append(float(m["loss"]))
+    mcheck(all(math.isfinite(x) for x in losses), f"M4 {shape} losses {losses}")
+    out.update(d_in=cfg.d_in, classes=cfg.n_classes, step_s=times,
+               step_s_median=m_median(times), loss=losses,
+               peak_bytes=m_peak(dev))
+    return out
+
+
+def phase_m(smi, dev="cuda") -> tuple:
+    """The recsys and GIN families on the card (see the module doc).
+    -> (the phase line, the five search kernels' launches on its path: all
+    0, checked; the code_match side check's launches are in the line)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev).manual_seed(0)
+    else:
+        gen = torch.Generator().manual_seed(0)
+    reset_launches()
+    mcheck = MChecks()
+    t_phase = time.monotonic()
+    line = {"phase": "M", "device": smi}
+    line["M0"] = m0_parity(dev, mcheck)
+    progress(f"M0: {line['M0']}")
+    line["M1"], line["M2"], line["M3"] = {}, {}, {}
+    side = 0
+    for arch_id in M_RECSYS:
+        line["M1"][arch_id], model = m1_train(arch_id, dev, mcheck)
+        progress(f"M1 {arch_id}: {line['M1'][arch_id]}")
+        arch = get_arch(arch_id)
+        line["M2"][arch_id] = m2_serve(arch_id, arch, model, dev, mcheck)
+        progress(f"M2 {arch_id}: {line['M2'][arch_id]}")
+        line["M3"][arch_id] = m3_retrieval(arch, model, dev, gen, mcheck)
+        side += line["M3"][arch_id]["code_match_side_check"]["launches"]
+        progress(f"M3 {arch_id}: {line['M3'][arch_id]}")
+        del model
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+    root = pathlib.Path(tempfile.mkdtemp(prefix="phase_m_"))
+    try:
+        line["M1"]["resume"] = m1_resume(dev, root, mcheck)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    progress(f"M1 resume: {line['M1']['resume']}")
+    rng = np.random.default_rng(0)
+    line["M4"] = {}
+    for shape in get_arch("gin-tu").SHAPES:
+        line["M4"][shape] = m4_gin(shape, dev, rng, mcheck)
+        progress(f"M4 {shape}: {line['M4'][shape]}")
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+    launches = launch_counts()
+    launches["code_match"] -= side      # the side checks' own, measured
+    mcheck(not any(launches.values()),
+           f"M: the recsys and GIN path launched a search kernel: {launches}")
+    line.update(launches=launches, side_check_launches={"code_match": side},
+                phase_s=time.monotonic() - t_phase,
+                cuts={"xdeepfm train_batch": f"65,536 rows at accum "
+                                             f"{M_ACCUM['xdeepfm']}",
+                      "xdeepfm serve_bulk": f"row chunks of "
+                                            f"{M_BULK_CHUNK['xdeepfm']:,}"})
+    mcheck.raise_any()
+    return line, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="ABCDEFGHIJKL",
+    ap.add_argument("--phases", default="ABCDEFGHIJKLM",
                     help="letters of the phases to run, each described in "
                          "the module doc: A kernels against their plain "
                          "versions, B encoders, C-D engines, E quality, F "
@@ -4304,7 +4958,9 @@ def main(argv=None) -> int:
                          "and replicas, J cluster (with C and I), K the "
                          "serving launcher, L the dense LM trained, resumed "
                          "bit-exactly, prefilled and decoded at qwen2-0.5b's "
-                         "widths")
+                         "widths, M the recsys models and GIN trained and "
+                         "served at their published widths, with the "
+                         "paper's retrieval over 1,000,000 candidates")
     args = ap.parse_args(argv)
     if "J" in args.phases and not {"C", "I"} <= set(args.phases):
         ap.error("phase J serves phase C's index and holds its answers to "
@@ -4450,6 +5106,15 @@ def main(argv=None) -> int:
     if "L" in args.phases:
         line, by_phase["L"] = phase_l(smi)
         emit(line)
+    m_side = None
+    if "M" in args.phases:
+        line, by_phase["M"] = phase_m(smi)
+        emit(line)
+        m_side = line["side_check_launches"]["code_match"]
+        a_err["code_match"] = max(
+            a_err.get("code_match", 0.0),
+            *(r["code_match_side_check"]["max_abs_err"]
+              for r in line["M3"].values()))
     ck = c["kernel"] if c else (a["first_shape"] if a else {})
     entries = [{
         "name": "fused_phase1", "route": "cuda",
@@ -4493,6 +5158,10 @@ def main(argv=None) -> int:
             "bound_ms": k.get("bound_ms"), "bound_by": k.get("bound_by"),
             "library_ms": k.get("library_ms"),
             "stack_frame_bytes": max(frames[name].values(), default=None)})
+        if name == "code_match" and m_side is not None:
+            # phase M's side checks, counted by the wrapper apart from
+            # the path's
+            entries[-1]["side_check_launches"] = {"M": m_side}
         if name == "rerank_topk":
             entries[-1]["bodies"] = rk_bodies
             entries[-1]["launches_by_body"] = k.get("launches_by_body")

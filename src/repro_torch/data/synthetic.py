@@ -9,8 +9,10 @@ neighbours in the latent space -- so the quality curves (P@10 / nDCG /
 avg.diff against page, trim, best) behave like the paper's.
 
 A numpy copy of the JAX package's generator: the same arguments and seed
-give the byte-identical corpus, drawn on the host.  ``lm_batch`` is its
-LM token-stream generator, copied the same way.
+give the byte-identical corpus, drawn on the host.  The batch generators
+of the assigned architectures (``lm_batch`` token streams,
+``recsys_batch`` click batches, ``random_graph`` graphs) are copied the
+same way: one ``np.random.Generator`` state gives the reference's bytes.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["TopicCorpus", "make_corpus", "lm_batch"]
+__all__ = ["TopicCorpus", "make_corpus", "lm_batch", "recsys_batch", "random_graph"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,3 +80,31 @@ def make_corpus(
 def lm_batch(rng: np.random.Generator, batch: int, seq: int, vocab: int):
     tokens = rng.integers(0, vocab, size=(batch, seq), dtype=np.int32)
     return {"tokens": tokens, "labels": np.roll(tokens, -1, axis=1)}
+
+
+def recsys_batch(rng: np.random.Generator, batch: int, n_sparse: int, vocabs, seq_len: int = 0):
+    out = {
+        "sparse_ids": np.stack(
+            [rng.integers(0, v, size=batch, dtype=np.int32) for v in vocabs], axis=1
+        ),
+        "dense": rng.normal(size=(batch, 13)).astype(np.float32),
+        "label": rng.integers(0, 2, size=(batch,)).astype(np.float32),
+    }
+    if seq_len:
+        out["hist_ids"] = rng.integers(0, vocabs[0], size=(batch, seq_len), dtype=np.int32)
+        out["hist_mask"] = (rng.random((batch, seq_len)) < 0.9).astype(np.float32)
+        out["target_id"] = rng.integers(0, vocabs[0], size=(batch,), dtype=np.int32)
+    return out
+
+
+def random_graph(rng: np.random.Generator, n_nodes: int, n_edges: int, d_feat: int,
+                 n_classes: int = 8):
+    src = rng.integers(0, n_nodes, size=n_edges, dtype=np.int32)
+    dst = rng.integers(0, n_nodes, size=n_edges, dtype=np.int32)
+    return {
+        "x": rng.normal(size=(n_nodes, d_feat)).astype(np.float32),
+        "edge_src": src,
+        "edge_dst": dst,
+        "labels": rng.integers(0, n_classes, size=n_nodes, dtype=np.int32),
+        "label_mask": (rng.random(n_nodes) < 0.3).astype(np.float32),
+    }

@@ -15,7 +15,11 @@ run one model or search one index:
   tree (leaves stacked over ``n_super``) to the port's ``LM`` module and
   back, and the same for an ``AdamWState`` or ``AdafactorState`` (the
   port keeps optimizer state in the reference's tree already).  bf16
-  leaves come back widened to f32 (numpy has no bf16).
+  leaves come back widened to f32 (numpy has no bf16);
+* ``recsys_params_from_numpy`` / ``recsys_params_to_numpy`` and
+  ``gin_params_from_numpy`` / ``gin_params_to_numpy``: a recsys model's
+  or GIN's parameter tree to the port's ``TreeModule`` and back, and
+  their optimizer states as the LM's.
 
 This module imports no JAX: the caller does the ``np.asarray``.
 """
@@ -35,12 +39,17 @@ from repro_torch.dist.shard_index import (DEFAULT_SEAL_THRESHOLD, Segment,
                                           ShardedVectorIndex, resolve_mesh)
 from repro_torch.launch.mesh import make_shard_mesh
 from repro_torch.lsa import LsaModel, LsaPipeline, TfIdf
+from repro_torch.models.gnn import gin
+from repro_torch.models.recsys.models import init_for
 from repro_torch.models.transformer.model import LM, LMConfig
+from repro_torch.models.tree_module import TreeModule
 from repro_torch.train.optimizer import AdafactorState, AdamWState
 from repro_torch.train.tree import tree_map
 
 __all__ = ["index_from_numpy", "lsa_from_numpy", "mlt_from_numpy",
-           "sharded_from_numpy", "lm_params_from_numpy", "lm_params_to_numpy"]
+           "sharded_from_numpy", "lm_params_from_numpy", "lm_params_to_numpy",
+           "recsys_params_from_numpy", "recsys_params_to_numpy",
+           "gin_params_from_numpy", "gin_params_to_numpy"]
 
 
 def _put(a, device, dtype=None):
@@ -191,15 +200,29 @@ def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
+def _state_from_numpy(tree, device):
+    """An ``AdamWState`` / ``AdafactorState`` of numpy trees -> the same
+    state of tensors on ``device``; anything else -> None."""
+    for state in (AdamWState, AdafactorState):
+        if getattr(tree, "_fields", None) == state._fields:
+            return state(*tree_map(lambda a: _leaf_to_torch(a, device),
+                                   tuple(tree)))
+    return None
+
+
+def _to_numpy(params):
+    tree = params.tree() if isinstance(params, (LM, TreeModule)) else params
+    return tree_map(_leaf_to_numpy, tree)
+
+
 def lm_params_from_numpy(tree, cfg: LMConfig, device="cuda"):
     """The reference's LM parameter tree (numpy leaves, stacked over
     ``n_super``) -> an :class:`LM` on ``device`` holding the same bits; an
     ``AdamWState`` / ``AdafactorState`` of numpy trees -> the same state
     of tensors on ``device``."""
-    for state in (AdamWState, AdafactorState):
-        if getattr(tree, "_fields", None) == state._fields:
-            return state(*tree_map(lambda a: _leaf_to_torch(a, device),
-                                   tuple(tree)))
+    state = _state_from_numpy(tree, device)
+    if state is not None:
+        return state
     model = LM(cfg, device=device)
     return model.load_tree(tree_map(lambda a: _leaf_to_torch(a, device), tree))
 
@@ -207,5 +230,51 @@ def lm_params_from_numpy(tree, cfg: LMConfig, device="cuda"):
 def lm_params_to_numpy(params):
     """An :class:`LM` -> the reference's parameter tree of numpy arrays
     (stacked over ``n_super``); an optimizer state -> its numpy trees."""
-    tree = params.tree() if isinstance(params, LM) else params
-    return tree_map(_leaf_to_numpy, tree)
+    return _to_numpy(params)
+
+
+def _tree_module(tree, cfg, init_fn, device) -> TreeModule:
+    """``tree`` as a :class:`TreeModule` of ``cfg`` on ``device``; raises
+    ``ValueError`` where its leaves' shapes are not ``init_fn``'s."""
+    want = init_fn(cfg, device="meta").tree()
+    got = tree_map(lambda a: tuple(np.shape(a)), tree)
+    if got != tree_map(lambda t: tuple(t.shape), want):
+        raise ValueError(f"the tree's leaves are not {cfg.name}'s "
+                         f"(shapes {got})")
+    return TreeModule(cfg, tree_map(lambda a: _leaf_to_torch(a, device), tree))
+
+
+def recsys_params_from_numpy(tree, cfg, device="cuda"):
+    """A recsys model's reference tree (numpy leaves) -> a
+    :class:`TreeModule` on ``device`` holding the same bits, for ``cfg``
+    (a config, or an arch id naming its full config); an optimizer state
+    of numpy trees -> the same state of tensors on ``device``."""
+    state = _state_from_numpy(tree, device)
+    if state is not None:
+        return state
+    if isinstance(cfg, str):
+        from repro_torch.configs import get_arch
+
+        cfg = get_arch(cfg).cfg
+    return _tree_module(tree, cfg, init_for(cfg), device)
+
+
+def recsys_params_to_numpy(params):
+    """A recsys :class:`TreeModule` -> the reference's tree of numpy
+    arrays; an optimizer state -> its numpy trees."""
+    return _to_numpy(params)
+
+
+def gin_params_from_numpy(tree, cfg: gin.GINConfig, device="cuda"):
+    """GIN's reference tree (numpy leaves) -> a :class:`TreeModule` of
+    ``cfg`` on ``device``; an optimizer state as the LM's."""
+    state = _state_from_numpy(tree, device)
+    if state is not None:
+        return state
+    return _tree_module(tree, cfg, gin.init_params, device)
+
+
+def gin_params_to_numpy(params):
+    """A GIN :class:`TreeModule` -> the reference's tree of numpy arrays;
+    an optimizer state -> its numpy trees."""
+    return _to_numpy(params)

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 __all__ = [
     "dense_init", "embed_init", "rms_norm", "layer_norm", "act_fn",
     "softmax_xent", "sigmoid_bce", "mlp_init", "mlp_apply", "div",
+    "seeded",
 ]
 
 PDTYPE = torch.float32   # parameter dtype (f32 master copies)
@@ -35,6 +36,15 @@ def div(x, y):
     elif not isinstance(y, torch.Tensor):
         y = torch.tensor(y, dtype=x.dtype, device=x.device)
     return x / y
+
+
+def seeded(generator: Optional[torch.Generator], device,
+           seed: int) -> Optional[torch.Generator]:
+    """``generator``, else a new one on ``device`` seeded with ``seed``
+    (none on the ``meta`` device, which draws nothing: shapes only)."""
+    if generator is not None or torch.device(device).type == "meta":
+        return generator
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def dense_init(shape, generator: Optional[torch.Generator] = None,

@@ -32,7 +32,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..common import (CDTYPE, act_fn, dense_init, div, embed_init, rms_norm,
-                      softmax_xent)
+                      seeded, softmax_xent)
 from .attention import LayerKind, attention, decode_attention, rope
 
 __all__ = ["LMConfig", "LM", "init_params", "forward", "lm_loss", "prefill",
@@ -375,9 +375,7 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
                 device="cuda", seed: int = 0) -> LM:
     """A seeded random LM on ``device`` (``generator`` defaults to one on
     ``device`` seeded with ``seed``)."""
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(seed)
-    return LM(cfg, generator, device)
+    return LM(cfg, seeded(generator, device, seed), device)
 
 
 def forward(model: LM, tokens, collect_cache_len: int = 0,

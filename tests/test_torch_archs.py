@@ -3,7 +3,9 @@
 * the registry holds the ids ported so far, and refuses the others;
 * the smoke and full configs equal the JAX package's field for field,
   and so do the ``LMArch`` records (optimizer, skipped shapes, accum,
-  the ``SHAPES`` table);
+  the ``SHAPES`` table), the ``RecsysArch`` records (config, smoke
+  config, ``seq``, ``SHAPES``; the four models' full parameter counts)
+  and ``GNNArch`` (base config, ``SHAPES``, ``cfg_for`` every shape);
 * ``param_count`` and ``active_param_count`` equal JAX's for all five LM
   configs (pure arithmetic; the MoE ones as ``LMConfig`` values), and the
   port's module holds that many parameters plus the QKV biases and
@@ -11,8 +13,8 @@
 * a config with MoE layers raises, naming the slice it waits for;
 * the training launcher (``repro_torch.launch.train``'s ``main``, as
   ``python -m`` runs it) with ``--smoke --device cpu`` trains 4 steps,
-  then resumes to 6 from its checkpoint; it refuses a run without
-  ``--smoke`` and an arch not ported yet.
+  then resumes to 6 from its checkpoint, for qwen2-0.5b, din and gin-tu;
+  it refuses a run without ``--smoke`` and an arch not ported yet.
 """
 
 import dataclasses
@@ -31,6 +33,10 @@ from repro_torch.models.transformer.model import LM, LMConfig
 
 DENSE = ["gemma2-27b", "starcoder2-3b", "qwen2-0.5b"]
 LM_IDS = ["llama4-maverick-400b-a17b", "mixtral-8x22b", *DENSE]
+RS_IDS = ["xdeepfm", "autoint", "din", "bst"]
+# the full configs' parameter counts (the issue's; the reference's trees)
+RS_PARAMS = {"xdeepfm": 453_586_306, "autoint": 654_350_798,
+             "din": 302_025_171, "bst": 538_242_786}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -48,12 +54,39 @@ def _port_cfg(jcfg) -> LMConfig:
 
 
 def test_registry():
-    assert sorted(ARCH_IDS) == sorted(DENSE)
-    for arch_id in DENSE:
+    assert sorted(ARCH_IDS) == sorted(DENSE + ["gin-tu"] + RS_IDS)
+    for arch_id in ARCH_IDS:
         assert arch_shapes(arch_id) == jax_arch_shapes(arch_id)
     assert arch_shapes("qwen2-0.5b") == ["train_4k", "prefill_32k", "decode_32k"]
-    with pytest.raises(KeyError, match="not ported"):
-        get_arch("mixtral-8x22b")
+    assert arch_shapes("din") == ["train_batch", "serve_p99", "serve_bulk",
+                                  "retrieval_cand"]
+    for arch_id in ("mixtral-8x22b", "llama4-maverick-400b-a17b", "vectordb-wiki"):
+        with pytest.raises(KeyError, match="not ported"):
+            get_arch(arch_id)
+
+
+@pytest.mark.parametrize("arch_id", RS_IDS)
+def test_recsys_configs_equal_the_references(arch_id):
+    arch, ref = get_arch(arch_id), jax_arch(arch_id)
+    for mine, theirs in ((arch.cfg, ref.cfg), (arch.smoke_cfg, ref.smoke_cfg)):
+        assert type(mine).__name__ == type(theirs).__name__
+        assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+        assert mine.embed_dim == theirs.embed_dim
+    assert (arch.seq, arch.family) == (ref.seq, ref.family)
+    assert type(arch).SHAPES == type(ref).SHAPES
+    assert [f.__name__ for f in (arch.init_fn, arch.forward_fn, arch.user_fn)] == [
+        f.__name__ for f in (ref.init_fn, ref.forward_fn, ref.user_fn)]
+    full = arch.init_fn(arch.cfg, device="meta")
+    assert sum(p.numel() for p in full.parameters()) == RS_PARAMS[arch_id]
+
+
+def test_gin_config_equals_the_reference():
+    arch, ref = get_arch("gin-tu"), jax_arch("gin-tu")
+    assert dataclasses.asdict(arch.base_cfg) == dataclasses.asdict(ref.base_cfg)
+    assert type(arch).SHAPES == type(ref).SHAPES and arch.family == ref.family
+    for shape in type(ref).SHAPES:
+        assert dataclasses.asdict(arch.cfg_for(shape)) == dataclasses.asdict(
+            ref.cfg_for(shape))
 
 
 @pytest.mark.parametrize("arch_id", DENSE)
@@ -107,17 +140,26 @@ def _train(*argv) -> str:
 
 
 def test_launch_train_smoke_and_resume(tmp_path):
-    args = ["--arch", "qwen2-0.5b", "--smoke", "--batch-size", "4",
+    _smoke_and_resume(tmp_path, "qwen2-0.5b")
+
+
+@pytest.mark.parametrize("arch_id", ["din", "gin-tu"])
+def test_launch_train_smoke_and_resume_recsys_and_gnn(tmp_path, arch_id):
+    _smoke_and_resume(tmp_path, arch_id)
+
+
+def _smoke_and_resume(tmp_path, arch_id):
+    args = ["--arch", arch_id, "--smoke", "--batch-size", "4",
             "--ckpt-every", "2", "--ckpt-dir", str(tmp_path / "ck"),
             "--device", "cpu"]
     first = _train(*args, "--steps", "4")
     assert "resuming" not in first and "step     0 loss" in first
     assert first.rstrip().endswith("done")
-    assert sorted(os.listdir(tmp_path / "ck_qwen2-0.5b")) == [
+    assert sorted(os.listdir(tmp_path / f"ck_{arch_id}")) == [
         "step_00000002", "step_00000004"]
     second = _train(*args, "--steps", "6")
     assert "resuming at step 4" in second and "step     0" not in second
-    assert "step_00000006" in os.listdir(tmp_path / "ck_qwen2-0.5b")
+    assert "step_00000006" in os.listdir(tmp_path / f"ck_{arch_id}")
 
 
 def test_launch_train_refuses_full_scale(tmp_path, capsys):

@@ -1,7 +1,9 @@
 """repro_torch on the card: the hand-written kernels against their plain
 versions, the card's encoders and quant table against the CPU's, every
 search engine on the card against the same search on the CPU, and the
-dense LM on the card against the CPU and its bit-exact resume.
+dense LM on the card against the CPU and its bit-exact resume, and a
+recsys model and GIN's neighbour sum on the card against the CPU and
+bit-equal run to run.
 
 Every test here is marked ``cuda`` and skips without a CUDA card.  The file
 imports no JAX, so it runs where only PyTorch is installed:
@@ -1173,3 +1175,114 @@ def test_lm_resume_bit_exact_on_card(gen, tmp_path):
     assert int(ob.step) == 12
     for x, y in zip(tree_leaves(pa.tree()), tree_leaves(pb.tree())):
         assert torch.equal(x, y)
+
+
+# ------------------------------------------- recsys and GIN (phase M)
+def _fp32_products():
+    """TF32 off for the f32 models' products -> the previous setting."""
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return was
+
+
+def test_recsys_card_matches_cpu(gen):
+    """chip_smoke's M0 for BST at its smoke config: logits, loss, user
+    embedding and gradients on the card against the CPU (float32, TF32
+    off), one AdamW step fed the CPU's gradients, and two identical
+    training steps on the card bit-equal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import recsys_batch
+    from repro_torch.models.recsys.models import bce_loss
+    from repro_torch.train import (AdamWConfig, adamw_init, adamw_update,
+                                   make_train_step)
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    arch = get_arch("bst")
+    cfg = arch.smoke_cfg
+    cpu = arch.init_fn(cfg, device="cpu", seed=1)
+    card = arch.init_fn(cfg, device="cuda", seed=1).load_tree(cpu.tree())
+    nb = recsys_batch(np.random.default_rng(0), 64, 1, [cfg.item_vocab],
+                      seq_len=cfg.seq_len)
+    b = {d: {k: torch.from_numpy(v).to(d) for k, v in nb.items()}
+         for d in ("cpu", "cuda")}
+    models = {"cpu": cpu, "cuda": card}
+    was = _fp32_products()
+    try:
+        with torch.no_grad():
+            lg = {d: arch.forward_fn(m, b[d], cfg).cpu() for d, m in models.items()}
+            us = {d: arch.user_fn(m, b[d], cfg).cpu() for d, m in models.items()}
+        loss, grads = {}, {}
+        for d, m in models.items():
+            l = bce_loss(arch.forward_fn, m, b[d], cfg)
+            l.backward()
+            loss[d] = float(l.detach())
+            grads[d] = m.tree(grads=True)
+            m.zero_grad(set_to_none=True)
+        assert float((lg["cuda"] - lg["cpu"]).abs().max()) <= 1e-5 * float(lg["cpu"].abs().max())
+        assert float((us["cuda"] - us["cpu"]).abs().max()) <= 1e-5 * float(us["cpu"].abs().max())
+        assert abs(loss["cuda"] - loss["cpu"]) <= 1e-6 * abs(loss["cpu"])
+        ga, gb = (torch.cat([g.double().reshape(-1).cpu() for g in tree_leaves(grads[d])])
+                  for d in ("cpu", "cuda"))
+        assert abs(float(ga.norm()) - float(gb.norm())) <= 1e-5 * float(ga.norm())
+        assert float(ga @ gb) / float(ga.norm() * gb.norm()) >= 0.99999
+        new = {}
+        for d, m in models.items():
+            tree = m.tree()
+            new[d] = adamw_update(tree_map(lambda t: t.to(d), grads["cpu"]),
+                                  adamw_init(tree), tree, AdamWConfig(), 0.5)
+        for x, y in zip(tree_leaves(new["cuda"]), tree_leaves(new["cpu"])):
+            assert float((x.cpu() - y).abs().max()) <= 1e-6 * max(float(y.abs().max()), 1e-30)
+        runs = []
+        for _ in range(2):
+            m = arch.init_fn(cfg, device="cuda", seed=1)
+            step = make_train_step(lambda mm, bb: bce_loss(arch.forward_fn, mm, bb, cfg),
+                                   AdamWConfig(lr=1e-2))
+            o = adamw_init(m)
+            for _ in range(2):
+                m, o, _ = step(m, o, b["cuda"])
+            runs.append(tree_leaves({"p": m.tree(), "o": o}))
+        assert all(torch.equal(x, y) for x, y in zip(*runs))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
+def test_gin_aggregate_bit_equal_on_card(gen):
+    """GIN's neighbour sum on the card: two runs of the forward and the
+    backward to ``h`` bit-equal (sorted bags, no atomics), and within
+    1e-5 of the CPU's; two identical training steps bit-equal."""
+    from repro_torch.models.gnn import gin
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.train.tree import tree_leaves
+
+    n, e, d = 20_000, 400_000, 64
+    src = torch.randint(-1, n, (e,), generator=gen, device="cuda")
+    dst = torch.randint(-1, n, (e,), generator=gen, device="cuda")
+    h0 = torch.randn((n, d), generator=gen, device="cuda")
+    g = torch.randn((n, d), generator=gen, device="cuda")
+    outs = []
+    for _ in range(2):
+        h = h0.clone().requires_grad_()
+        agg = gin._aggregate(h, gin.edge_plan(src, dst, n), n)
+        (agg * g).sum().backward()
+        outs.append((agg.detach(), h.grad))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    want = gin._aggregate(h0.cpu(), gin.edge_plan(src.cpu(), dst.cpu(), n), n)
+    assert float((outs[0][0].cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    cfg = gin.GINConfig(n_layers=2, d_in=d, n_classes=5)
+    batch = {"x": h0, "edge_src": src.int(), "edge_dst": dst.int(),
+             "labels": torch.randint(0, 5, (n,), generator=gen, device="cuda"),
+             "label_mask": torch.ones(n, device="cuda")}
+    was = _fp32_products()
+    try:
+        runs = []
+        for _ in range(2):
+            m = gin.init_params(cfg, device="cuda", seed=3)
+            step = make_train_step(lambda mm, bb: gin.node_loss(mm, bb, cfg),
+                                   AdamWConfig(lr=1e-2))
+            o = adamw_init(m)
+            for _ in range(2):
+                m, o, _ = step(m, o, batch)
+            runs.append(tree_leaves({"p": m.tree(), "o": o}))
+        assert all(torch.equal(x, y) for x, y in zip(*runs))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was

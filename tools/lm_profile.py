@@ -61,9 +61,10 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def profile(name, fn) -> dict:
+def profile(name, fn, classify=kernel_class) -> dict:
     """A warm-up call, a call timed on the host clock (profiler off), then
-    a profiled call for the kernels' device times."""
+    a profiled call for the kernels' device times, summed by
+    ``classify(kernel name)``."""
     fn()
     torch.cuda.synchronize()
     t = time.monotonic()
@@ -78,7 +79,7 @@ def profile(name, fn) -> dict:
     times = kernel_times(prof)
     by_class = {}
     for k, us in times.items():
-        c = kernel_class(k)
+        c = classify(k)
         by_class[c] = by_class.get(c, 0.0) + us / 1e3
     top = sorted(times.items(), key=lambda kv: -kv[1])[:TOP]
     device_ms = sum(times.values()) / 1e3

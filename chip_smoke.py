@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases K      # the launcher runs only
     python3 chip_smoke.py --phases L      # the LM and its training only
     python3 chip_smoke.py --phases M      # the recsys models and GIN only
+    python3 chip_smoke.py --phases N      # the MoE LMs only
 
 It builds the hand-written kernels from the sources in this checkout (one
 nvcc per library, all started together), holds each against its plain
@@ -26,8 +27,10 @@ plane (routing, failover, health, restore and background merges) and
 reads their device bytes, cost rows and diagnostics bundle, and runs
 the port's serving launcher as an operator would, trains, resumes,
 prefills and decodes the dense LM qwen2-0.5b at its published widths,
-and trains and serves the four recsys models and GIN at theirs, the
-paper's two-phase search retrieving from 1,000,000 candidates.
+trains and serves the four recsys models and GIN at theirs, the
+paper's two-phase search retrieving from 1,000,000 candidates, and
+trains, resumes, prefills and decodes the two MoE LMs, mixtral-8x22b and
+llama4-maverick, at their published widths.
 
 Phases, each printing one JSON line (D and G one per engine, then a
 summary):
@@ -323,6 +326,51 @@ summary):
      xDeepFM's train_batch at accum 2 and its serve_bulk in row chunks of
      16,384 (CIN's (B, D, H*m) product); checks are gathered and raised
      at the phase's end.
+  N  the two MoE LMs, run last with every earlier phase's tensors
+     released, bf16 products accumulated in f32 and the allocator's
+     segments expandable (restored after): N0 mixtral-smoke and
+     llama4-smoke from one seeded CPU tree on the card against the CPU,
+     the card run on the CPU's routing (``NRoutes`` forcing ``moe.route``;
+     the routing it picks on its own counted against the CPU's): logits
+     (<= 2e-2 of the largest), aux (<= 1e-4), lm_loss (<= 2e-3), gradients
+     (norm within 1e-2, cosine >= 0.999) and one step of the arch's
+     optimizer (AdamW, Adafactor) fed the CPU's gradients (<= 1e-6), two
+     identical training steps run twice on the card, every leaf
+     bit-equal; one moe_ffn at mixtral's layer widths (D 6,144, F 16,384,
+     8 experts, top-2, 256 bf16 tokens, cf 8.0) on the card against the
+     CPU: routing equal wherever the top-2 gap exceeds 1e-5 (the tokens
+     under it counted), y within 1e-2 of the largest; N1 the cuts at
+     train_4k's length, 4 donated steps of global batch 16 x 4,096 each:
+     mixtral at 1 of its 56 layers (2,906,714,112 parameters, f32 AdamW,
+     accum 8) and llama4 at one super-block of 12 with 16 of its 128
+     experts (6,850,682,880 parameters, bf16, Adafactor, accum 16), each
+     the smallest accum in {4, 8, 16} under about 75 GB
+     (``tools/moe_profile.py``): step-0 loss within 0.5 of ln V + 0.01,
+     seconds a step, tokens a second, peak memory, the share of (token,
+     choice) pairs dropped at cf 1.25; N2 llama4's cut through L2's
+     protocol under torch.use_deterministic_algorithms (batch 2 x 4,096,
+     accum 2, 6 steps straight, outside the loop, against 3 through
+     run_train_loop, a checkpoint and a resume to 6, every parameter
+     and Adafactor leaf bit-equal; checkpoint bytes and seconds; the
+     checkpoints, 27.4 GB each, in /dev/shm, host memory checked first,
+     so the script's disk writes stay small); N3, serving at kv_chunk
+     256, mixtral at 8 of its layers in bf16 (20,435,140,608
+     parameters): a 32,768-token prefill, one 65,536-token forward (two
+     moe_token_chunk chunks a layer, counted), serve_step against
+     forward at 4 x 4,096 at cf E / top_k so nothing drops, on the
+     routing the prefill gave its tokens (relative error < 0.05; its own
+     routing's error and flips reported), a 512-token prefill at batch
+     64 into a 32,768-slot cache (its bytes predicted and checked) and
+     16 greedy decode steps at cf 1.25 (ms a step, pairs dropped a
+     step); llama4's resumed cut: the 32,768-token prefill and the
+     decode at batch 64;
+     N4 ``python -m repro_torch.launch.train --arch <id> --smoke --steps
+     20 --ckpt-every 10`` then ``--steps 30`` for both ids, resuming at 20
+     (run beside N0-N3).  The MoE path launches none of the five search
+     kernels (checked).  Cuts: mixtral trains 1 of 56 layers and serves
+     8, llama4 runs one super-block of 12 with 16 of 128 experts,
+     train_4k at batch 16 (256), prefill_32k at batch 1 (32),
+     decode_32k at batch 64 (128).
 Then the ``kernels`` line (launches summed over the phases' main paths,
 phase K's as its runs printed them,
 and by phase; each library's largest ptxas stack frame
@@ -4248,15 +4296,15 @@ def l3_serve(model, dev) -> dict:
     return out
 
 
-def l4_launcher(root) -> dict:
-    """``python -m repro_torch.launch.train`` on the card, then again on
-    the same checkpoint directory with more steps: the second run must
-    resume at the first's last step."""
+def l4_launcher(root, arch=L_ARCH, tag="L4") -> dict:
+    """``python -m repro_torch.launch.train --arch <arch>`` on the card,
+    then again on the same checkpoint directory with more steps: the
+    second run must resume at the first's last step."""
     here = pathlib.Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(here / "src"))
     runs = []
     for steps in L_LAUNCHER_STEPS:
-        argv = ["--arch", L_ARCH, "--smoke", "--steps", str(steps),
+        argv = ["--arch", arch, "--smoke", "--steps", str(steps),
                 "--ckpt-every", "10", "--ckpt-dir", str(root / "ck")]
         t = time.monotonic()
         r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
@@ -4270,14 +4318,14 @@ def l4_launcher(root) -> dict:
                      "resumed": [ln for ln in lines if ln.startswith("resuming")],
                      "last": lines[-2:], "stderr": r.stderr[-2000:]})
     first, second = runs
-    check(first["rc"] == 0 and second["rc"] == 0, f"L4 runs {runs}")
+    check(first["rc"] == 0 and second["rc"] == 0, f"{tag} runs {runs}")
     check(not first["resumed"] and first["steps_printed"][0] == 0
-          and first["last"][-1] == "done", f"L4 first run {first}")
+          and first["last"][-1] == "done", f"{tag} first run {first}")
     resume = L_LAUNCHER_STEPS[0]
     check(second["resumed"] and second["resumed"][0].startswith(
         f"resuming at step {resume} ")
           and second["steps_printed"][0] == resume
-          and second["last"][-1] == "done", f"L4 second run {second}")
+          and second["last"][-1] == "done", f"{tag} second run {second}")
     return {"runs": runs, "resumed_at": resume}
 
 
@@ -4948,9 +4996,637 @@ def phase_m(smi, dev="cuda") -> tuple:
     return line, launches
 
 
+# ----------------------------------------------------------------- phase N
+N_MIXTRAL, N_LLAMA4 = "mixtral-8x22b", "llama4-maverick-400b-a17b"
+N_ARCHS = (N_MIXTRAL, N_LLAMA4)
+N_TRAIN_CUT = {N_MIXTRAL: dict(n_layers=1),          # 1 of its 56 layers
+               N_LLAMA4: dict(n_layers=4,            # one super-block of 12,
+                              moe_experts=16)}       # 16 of its 128 experts
+N_PARAMS = {N_MIXTRAL: 2_906_714_112, N_LLAMA4: 6_850_682_880}
+N_SEQ, N_BATCH, N_STEPS = 4_096, 16, 4     # train_4k's length, batch 16
+N_ACCUM = {N_MIXTRAL: 8, N_LLAMA4: 16}     # the smallest in {4, 8, 16} whose
+                                           # step stays under ~75 GB
+N2_BATCH, N2_ACCUM, N2_STEPS = 2, 2, 6     # llama4's cut: 6 against 3 + 3
+N_SERVE_LAYERS = 8                         # mixtral serves 8 of 56, in bf16
+N_SERVE_PARAMS = 20_435_140_608
+N_PREFILL = 32_768                         # prefill_32k's length, batch 1
+N_LONG = 65_536                            # two moe_token_chunk chunks
+N_CHECK_SEQ, N_CHECK_BATCH = 4_096, 4      # serve_step against forward
+N_CHECK_CHUNK = 4_096                      # its moe_token_chunk (memory)
+N_SERVE_KV_CHUNK = 256                     # serving's kv_chunk (1,024 in the
+                                           # configs): attention holds (S, H,
+                                           # kv_chunk) f32 scores of every
+                                           # query chunk at once, 5.4-6.4 GB
+                                           # a tensor at 32,768 x 40-48 heads
+N_DECODE_BATCH = 64                        # decode_32k at batch 64 (128)
+N_DECODE_CACHE, N_DECODE_PROMPT, N_DECODE_STEPS = 32_768, 512, 16
+N0_BATCH, N0_SEQ = 4, 64                   # the smoke models card vs CPU
+N0_MOE_TOKENS, N0_MOE_CF = 256, 8.0        # one moe_ffn at mixtral's widths
+N_GAP = 1e-5                               # routing held equal above it
+# the CPU parity tests' bounds (tests/test_torch_moe.py): logits, aux,
+# loss, gradient norm and cosine, one optimizer step fed the same
+# gradients; y and aux of the one moe_ffn
+N0_LOGITS, N0_AUX, N0_LOSS = 2e-2, 1e-4, 2e-3
+N0_GRAD_NORM, N0_GRAD_COS, N0_STEP = 1e-2, 0.999, 1e-6
+N0_MOE_Y = 1e-2
+
+
+class NRoutes:
+    """Taps ``repro_torch.models.transformer.moe.route`` while entered:
+    each call's MoE layer (its index in ``model.layers``), token count,
+    top-k and the expert counts of its (token, choice) pairs, and with
+    ``keep`` its probabilities and choices.  ``force`` ({layer: choices})
+    replaces a layer's choices by the given ones, gates recomputed from
+    the call's own probabilities (``moe.gate_values``): how the card runs
+    the CPU's routing, which bf16 noise could otherwise flip at near
+    ties."""
+
+    def __init__(self, model=None, keep=False, force=None):
+        from repro_torch.models.transformer import moe
+
+        self.moe, self.keep, self.force = moe, keep, force
+        self.layer = {} if model is None else {
+            id(layer.moe["router"]): i for i, layer in enumerate(model.layers)
+            if layer.kind.moe}
+        self.calls = []
+
+    def __enter__(self):
+        real = self.real = self.moe.route
+
+        def route(p, x, top_k):
+            probs, idx, gates = real(p, x, top_k)
+            i = self.layer.get(id(p["router"]))
+            if self.force is not None:
+                idx = self.force[i].to(x.device)
+                gates = self.moe.gate_values(probs, idx)
+            E = probs.shape[1]
+            counts = (idx.reshape(-1, 1)
+                      == torch.arange(E, device=x.device)).sum(0)
+            call = {"layer": i, "T": x.shape[0], "k": top_k, "counts": counts}
+            if self.keep:
+                call.update(probs=probs.detach(), idx=idx)
+            self.calls.append(call)
+            return probs, idx, gates
+
+        self.moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
+
+    def first(self) -> dict:
+        """{layer: the choices of its first call}."""
+        out = {}
+        for c in self.calls:
+            out.setdefault(c["layer"], c["idx"])
+        return out
+
+    def dropped(self, cf: float) -> tuple:
+        """-> (pairs dropped, pairs) over the calls at capacity factor cf."""
+        dropped = pairs = 0
+        for c in self.calls:
+            E = c["counts"].numel()
+            cap = max(1, math.ceil(c["T"] * c["k"] / E * cf))
+            dropped += int(torch.clamp(c["counts"] - cap, min=0).sum())
+            pairs += c["T"] * c["k"]
+        return dropped, pairs
+
+
+def n_gaps(probs, k: int):
+    """Each token's gap between its k-th and (k+1)-th probability."""
+    s = torch.sort(probs.float(), dim=-1, descending=True).values
+    return s[:, k - 1] - s[:, k]
+
+
+def n_flips(got: dict, want: dict, want_probs: dict, k: int) -> dict:
+    """Tokens whose choices differ, by layer, with the smallest and largest
+    of their gaps in ``want_probs``."""
+    out = {}
+    for i, w in want.items():
+        diff = (got[i].cpu() != w.cpu()).any(-1)
+        gaps = n_gaps(want_probs[i].cpu(), k)[diff]
+        out[str(i)] = {"tokens": int(diff.sum()),
+                       "gaps": [float(gaps.min()), float(gaps.max())]
+                       if len(gaps) else []}
+    return out
+
+
+def n_cfg(model, cfg):
+    """Give ``model`` and each of its layers ``cfg`` (a field change that
+    keeps the parameters' shapes) -> the previous one."""
+    was = model.cfg
+    model.cfg = cfg
+    for layer in model.layers:
+        layer.cfg = cfg
+    return was
+
+
+def n0_smoke(arch_id, dev) -> dict:
+    """The arch's smoke model on ``dev`` against the CPU, params carried
+    from one seeded CPU tree, the card running the CPU's routing: logits,
+    aux, lm_loss, gradients, and one step of the arch's optimizer fed the
+    CPU's gradients, within the CPU tests' bounds; the routing the card
+    picks on its own counted against the CPU's; two identical training
+    steps run twice on the card, every leaf bit-equal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import model as lm
+    from repro_torch.train import (AdamWConfig, adafactor_init,
+                                   adafactor_update, adamw_init, adamw_update,
+                                   make_train_step)
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    arch = get_arch(arch_id)
+    cfg = arch.smoke()
+    init, update = {"adamw": (adamw_init, adamw_update),
+                    "adafactor": (adafactor_init, adafactor_update)}[arch.optimizer]
+    cpu = lm.init_params(cfg, device="cpu", seed=1)
+    card = lm.LM(cfg, device=dev).load_tree(cpu.tree())
+    batch = {"cpu": l_batch(5, N0_BATCH, N0_SEQ, cfg.vocab, "cpu")}
+    batch["card"] = {k: v.to(dev) for k, v in batch["cpu"].items()}
+    models = {"cpu": cpu, "card": card}
+    with NRoutes(cpu, keep=True) as tap, torch.no_grad():
+        lg_cpu, aux_cpu = cpu(batch["cpu"]["tokens"])
+    want, want_p = tap.first(), {c["layer"]: c["probs"] for c in tap.calls}
+    with NRoutes(card, keep=True) as tap, torch.no_grad():
+        card(batch["card"]["tokens"])
+    flips = n_flips(tap.first(), want, want_p, cfg.moe_top_k)
+    with NRoutes(card, force=want), torch.no_grad():
+        lg_card, aux_card = card(batch["card"]["tokens"])
+    out = {"logits_rel": l_rel(lg_card, lg_cpu),
+           "aux": {"cpu": float(aux_cpu), "card": float(aux_card)},
+           "unforced_flips": flips}
+    loss, grads = {}, {}
+    for name, m in models.items():
+        with NRoutes(m, force=None if name == "cpu" else want):
+            l = lm.lm_loss(m, batch[name])
+            l.backward()
+        loss[name] = float(l.detach())
+        grads[name] = m.tree(grads=True)
+        m.zero_grad(set_to_none=True)
+    out["loss"] = loss
+    out["loss_rel"] = abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"])
+    flat = {n: torch.cat([g.double().reshape(-1).cpu() for g in tree_leaves(t)])
+            for n, t in grads.items()}
+    na, nb = float(flat["cpu"].norm()), float(flat["card"].norm())
+    out["grad_norm_rel"] = abs(na - nb) / na
+    out["grad_cos"] = float(flat["cpu"] @ flat["card"]) / (na * nb)
+    new = {}
+    for name, m in models.items():             # the CPU's gradients on both
+        d = next(m.parameters()).device
+        tree = m.tree()
+        new[name] = update(tree_map(lambda t: t.to(d), grads["cpu"]),
+                           init(tree), tree, AdamWConfig(), 0.5)
+    pairs = list(zip(tree_leaves(new["card"]), tree_leaves(new["cpu"])))
+    out[f"{arch.optimizer}_rel"] = max(l_rel(a, b) for a, b in pairs
+                                       if b.abs().max() > 0)
+    check(out["logits_rel"] <= N0_LOGITS, f"N0 {arch_id} logits {out}")
+    check(abs(out["aux"]["card"] - out["aux"]["cpu"])
+          <= N0_AUX * abs(out["aux"]["cpu"]), f"N0 {arch_id} aux {out}")
+    check(out["loss_rel"] <= N0_LOSS, f"N0 {arch_id} loss {loss}")
+    check(out["grad_norm_rel"] <= N0_GRAD_NORM and out["grad_cos"] >= N0_GRAD_COS,
+          f"N0 {arch_id} gradients {out}")
+    check(out[f"{arch.optimizer}_rel"] <= N0_STEP, f"N0 {arch_id} step {out}")
+    runs = []
+    for _ in range(2):
+        m = lm.init_params(cfg, device=dev, seed=2)
+        step = make_train_step(lambda mm, b: lm.lm_loss(mm, b),
+                               AdamWConfig(lr=1e-2), accum=2,
+                               optimizer=arch.optimizer)
+        o = init(m)
+        for i in range(2):
+            m, o, _ = step(m, o, l_batch(10 + i, N0_BATCH, N0_SEQ, cfg.vocab, dev))
+        runs.append(tree_leaves({"p": m.tree(), "o": o}))
+    out["repeat_leaves"] = len(runs[0])
+    out["repeat_bit_equal"] = all(torch.equal(a, b) for a, b in zip(*runs))
+    check(out["repeat_bit_equal"], f"N0 {arch_id}: two identical runs differ")
+    return out
+
+
+def n0_moe(dev, gen) -> dict:
+    """One moe_ffn at mixtral's layer widths (D 6,144, F 16,384, 8 experts,
+    top-2, ``N0_MOE_TOKENS`` bf16 tokens, cf 8.0: nothing drops) on the
+    card against the CPU: routing equal on every token whose top-2 gap
+    exceeds ``N_GAP`` (those under it counted), y on the tokens routed
+    alike within ``N0_MOE_Y`` of the largest, aux within ``N0_AUX`` where
+    no first choice differs."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer.moe import moe_ffn, moe_init
+
+    cfg = get_arch(N_MIXTRAL).cfg
+    p = moe_init(cfg.d_model, cfg.d_ff, cfg.moe_experts, 0, gen, device=dev)
+    x = torch.randn((N0_MOE_TOKENS, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    t = time.monotonic()
+    with NRoutes(keep=True) as tap_cpu:
+        y_cpu, aux_cpu = moe_ffn({k: v.cpu() for k, v in p.items()}, x.cpu(),
+                                 cfg.moe_top_k, N0_MOE_CF)
+    cpu_s = time.monotonic() - t
+    with NRoutes(keep=True) as tap:
+        y, aux = moe_ffn(p, x, cfg.moe_top_k, N0_MOE_CF)
+    ms = cuda_ms(lambda: moe_ffn(p, x, cfg.moe_top_k, N0_MOE_CF), 5)
+    want, got = tap_cpu.calls[0], tap.calls[0]
+    gaps = n_gaps(want["probs"], cfg.moe_top_k)
+    same = (got["idx"].cpu() == want["idx"]).all(-1)
+    above = gaps > N_GAP
+    first_same = bool((got["idx"][:, 0].cpu() == want["idx"][:, 0]).all())
+    out = {"tokens": N0_MOE_TOKENS, "capacity_factor": N0_MOE_CF,
+           "tokens_under_gap": int((~above).sum()),
+           "tokens_routed_apart": int((~same).sum()),
+           "min_gap": float(gaps.min()),
+           "y_rel": l_rel(y.cpu()[same], y_cpu[same]),
+           "aux": {"cpu": float(aux_cpu), "card": float(aux)},
+           "card_ms": ms, "cpu_s": cpu_s}
+    check(bool(same[above].all()),
+          f"N0 moe_ffn: routing differs above the gap {N_GAP}: {out}")
+    check(out["y_rel"] <= N0_MOE_Y, f"N0 moe_ffn y {out}")
+    check(not first_same or abs(float(aux) - float(aux_cpu))
+          <= N0_AUX * abs(float(aux_cpu)), f"N0 moe_ffn aux {out}")
+    return out
+
+
+def n_train_cfg(arch_id):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch(arch_id).cfg, **N_TRAIN_CUT[arch_id])
+
+
+def n1_train(arch_id, dev) -> dict:
+    """``N_STEPS`` steps of the arch's cut at train_4k's length, global
+    batch ``N_BATCH`` at accum ``N_ACCUM``, the arch's optimizer (donated)
+    and a cosine schedule, from init_params seeded on ``dev``: step-0 loss
+    within 0.5 of ln V + 0.01 (uniform routing gives aux about 1),
+    seconds a step, tokens a second, peak memory, the share of (token,
+    choice) pairs dropped at the arch's capacity factor."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import model as lm
+    from repro_torch.train import (AdamWConfig, adafactor_init, adamw_init,
+                                   cosine_schedule, make_train_step)
+
+    arch = get_arch(arch_id)
+    cfg = n_train_cfg(arch_id)
+    check(cfg.param_count() == N_PARAMS[arch_id],
+          f"N1 {arch_id}: {cfg.param_count()} parameters")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    model = lm.init_params(cfg, device=dev, seed=0)
+    opt = (adamw_init if arch.optimizer == "adamw" else adafactor_init)(model)
+    init_s = time.monotonic() - t0
+    accum = N_ACCUM[arch_id]
+    step = make_train_step(lambda m, b: lm.lm_loss(m, b), AdamWConfig(),
+                           accum=accum, optimizer=arch.optimizer,
+                           lr_schedule=cosine_schedule(1, N_STEPS), donate=True)
+    times, losses, norms = [], [], []
+    with NRoutes(model) as tap:
+        for i in range(N_STEPS):
+            batch = l_batch(400 + i, N_BATCH, N_SEQ, cfg.vocab, dev)
+            l_sync(dev)
+            t = time.monotonic()
+            model, opt, m = step(model, opt, batch)
+            l_sync(dev)
+            times.append(time.monotonic() - t)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    dropped, pairs = tap.dropped(cfg.capacity_factor)
+    want = math.log(cfg.vocab) + 0.01
+    check(abs(losses[0] - want) <= 0.5,
+          f"N1 {arch_id} step-0 loss {losses[0]}, ln V + 0.01 = {want}")
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"N1 {arch_id} losses {losses}, grad norms {norms}")
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    out = {"params": sum(p.numel() for p in model.parameters()),
+           "param_dtype": cfg.param_dtype, "optimizer": arch.optimizer,
+           "accum": accum, "tokens_a_step": N_BATCH * N_SEQ, "init_s": init_s,
+           "step_s": times, "step_s_median_after_first": steady,
+           "tokens_per_s": N_BATCH * N_SEQ / steady, "loss": losses,
+           "ln_vocab_plus_aux": want, "grad_norm": norms,
+           "dropped_pair_share": dropped / pairs,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def n_mem_available() -> int:
+    """The host's available memory, bytes (/proc/meminfo)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def n2_resume(dev) -> tuple:
+    """llama4's cut, the reference's test_resume_is_bit_exact with L2's
+    protocol under torch.use_deterministic_algorithms: batch ``N2_BATCH`` x
+    ``N_SEQ`` at accum ``N2_ACCUM``, Adafactor (donated), ``N2_STEPS``
+    steps straight (the same step function, outside the loop) against
+    half through run_train_loop, a checkpoint and a resume to the end;
+    every parameter and Adafactor leaf equal bit for bit.  The two
+    checkpoints (27.4 GB each: bf16 stored widened to f32) go to a
+    temporary directory in /dev/shm (host memory), removed at the end,
+    so the script's disk writes stay small.  -> (the line, the resumed
+    model)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.models.transformer import model as lm
+    from repro_torch.train import (AdamWConfig, TrainLoopConfig,
+                                   adafactor_init, cosine_schedule,
+                                   make_train_step, run_train_loop)
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    cfg = n_train_cfg(N_LLAMA4)
+    root = pathlib.Path(tempfile.mkdtemp(prefix="phase_n2_", dir="/dev/shm"))
+    fs, free = filesystem(root)
+    need = 2 * 4 * cfg.param_count()       # two steps kept, bf16 stored as f32
+    avail = n_mem_available()
+    check(min(free, avail) >= need + 24 * 2**30,
+          f"N2 needs {need} B and room to copy a model under {root}, {fs}: "
+          f"{free} B free, {avail} B of host memory available")
+    torch.cuda.reset_peak_memory_stats()
+    base = make_train_step(lambda m, b: lm.lm_loss(m, b), AdamWConfig(),
+                           accum=N2_ACCUM, optimizer="adafactor",
+                           lr_schedule=cosine_schedule(1, N2_STEPS), donate=True)
+    step_s = []
+
+    def step(m, o, b):
+        t = time.monotonic()
+        out = base(m, o, b)
+        l_sync(dev)
+        step_s.append(time.monotonic() - t)
+        return out
+
+    def fresh():
+        m = lm.init_params(cfg, device=dev, seed=0)
+        return m, adafactor_init(m)
+
+    def make_batch(i):
+        return l_batch(500 + i, N2_BATCH, N_SEQ, cfg.vocab, dev)
+
+    def run(steps, name, every):
+        n = len(step_s)
+        t = time.monotonic()
+        model, opt, _ = run_train_loop(step, *fresh(), make_batch,
+                                       TrainLoopConfig(steps, str(root / name),
+                                                       ckpt_every=every))
+        return ({"params": model, "opt": opt},
+                time.monotonic() - t - sum(step_s[n:]), len(step_s) - n)
+
+    half = N2_STEPS // 2
+    torch.use_deterministic_algorithms(True)
+    try:
+        # the straight run steps outside the loop: its checkpoint would
+        # only be written and thrown away (27.4 GB, about 30 s)
+        model, opt = fresh()
+        for i in range(N2_STEPS):
+            model, opt, _ = step(model, opt, make_batch(i))
+        # on the host: two cuts do not fit the card beside the runs' state
+        straight = tree_map(lambda t: t.to("cpu", copy=True),
+                            {"params": model.tree(), "opt": opt})
+        del model, opt
+        n_a = len(step_s)
+        _, save_s, _ = run(half, "b", half)
+        ckpt = root / "b" / f"step_{half:08d}"
+        ckpt_bytes = sum(f.stat().st_size for f in ckpt.iterdir())
+        ckpt_files = len(list(ckpt.iterdir()))
+        resumed, resume_s, n_b = run(N2_STEPS, "b", half)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    model = resumed["params"]
+    resumed["params"] = model.tree()
+    leaves = list(zip(tree_leaves(straight), tree_leaves(resumed)))
+    differ = [k for k, (a, b) in enumerate(leaves)
+              if not torch.equal(a, b.cpu())]
+    check(n_a == N2_STEPS and n_b == N2_STEPS - half,
+          f"N2 ran {n_a} and {n_b} steps: the resume did not start at {half}")
+    check(not differ, f"N2: {len(differ)} of {len(leaves)} leaves (params, "
+          "then Adafactor's) differ after the resume")
+    return {"params": cfg.param_count(), "steps": N2_STEPS, "resumed_at": half,
+            "leaves": len(leaves), "bit_equal": True,
+            "checkpoint_bytes": ckpt_bytes, "checkpoint_files": ckpt_files,
+            "save_s": save_s, "restore_and_save_s": resume_s,
+            "step_s_median": sorted(step_s)[len(step_s) // 2],
+            "filesystem": fs, "host_bytes_available_before": avail,
+            "peak_bytes": torch.cuda.max_memory_allocated()}, model
+
+
+def n_kv_bytes(cfg, batch: int, max_seq: int) -> int:
+    """Bytes of an init_cache's k and v (bf16), from the config."""
+    return sum(2 * cfg.n_super * batch * cfg.cache_len(kind, max_seq)
+               * cfg.n_kv_heads * cfg.d_head * 2 for kind in cfg.sub_kinds())
+
+
+def n3_prefill(model, dev, tag) -> dict:
+    """A ``N_PREFILL``-token prefill at batch 1: seconds, finite logits."""
+    from repro_torch.models.transformer import model as lm
+
+    toks = l_batch(600, 1, N_PREFILL, model.cfg.vocab, dev)["tokens"]
+    l_sync(dev)
+    t = time.monotonic()
+    logits, cache = lm.prefill(model, toks, N_PREFILL)
+    l_sync(dev)
+    out = {"prefill_tokens": N_PREFILL, "prefill_s": time.monotonic() - t}
+    check(logits.shape == (1, 1, model.cfg.vocab)
+          and bool(torch.isfinite(logits.float()).all()), f"N3 {tag} prefill")
+    return out
+
+
+def n3_decode(model, dev, tag) -> dict:
+    """A ``N_DECODE_PROMPT``-token prefill at batch ``N_DECODE_BATCH`` into
+    an ``N_DECODE_CACHE``-slot cache (its bytes predicted from the config
+    and checked), then ``N_DECODE_STEPS`` greedy steps at the model's
+    capacity factor: ms a step, (token, choice) pairs dropped a step."""
+    from repro_torch.models.transformer import model as lm
+
+    cfg = model.cfg
+    toks = l_batch(602, N_DECODE_BATCH, N_DECODE_PROMPT, cfg.vocab, dev)["tokens"]
+    l_sync(dev)
+    t = time.monotonic()
+    logits, cache = lm.prefill(model, toks, N_DECODE_CACHE)
+    l_sync(dev)
+    out = {"decode_prefill_s": time.monotonic() - t}
+    kv = [c[k] for c in cache.values() for k in ("k", "v")]
+    out["cache_bytes"] = sum(x.numel() * x.element_size() for x in kv)
+    want = n_kv_bytes(cfg, N_DECODE_BATCH, N_DECODE_CACHE)
+    check(out["cache_bytes"] == want,
+          f"N3 {tag} cache {out['cache_bytes']} B, want {want}")
+    nxt = logits.argmax(-1)
+    ms, taps = [], []
+    for i in range(N_DECODE_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with NRoutes(model) as tap:
+            start.record()
+            logits, cache = lm.serve_step(model, cache, nxt, N_DECODE_PROMPT + i)
+            nxt = logits.argmax(-1)
+            end.record()
+        ms.append((start, end))
+        taps.append(tap)
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in ms]
+    check(bool(torch.isfinite(logits.float()).all()), f"N3 {tag} decode logits")
+    med = sorted(ms)[len(ms) // 2]
+    out.update(decode_batch=N_DECODE_BATCH, decode_cache_slots=N_DECODE_CACHE,
+               decode_ms=ms, decode_ms_median=med,
+               decode_tokens_per_s=N_DECODE_BATCH * 1e3 / med,
+               dropped_pairs_a_step=[tap.dropped(cfg.capacity_factor)[0]
+                                     for tap in taps])
+    return out
+
+
+def n3_mixtral(dev) -> dict:
+    """mixtral at ``N_SERVE_LAYERS`` layers in bf16: the prefill; one
+    forward at ``N_LONG`` tokens (two moe_token_chunk chunks a layer,
+    counted); serve_step against forward at N_CHECK_BATCH x N_CHECK_SEQ at
+    capacity factor E / top_k, so nothing drops, on the routing the
+    prefill gave each token (relative error < 0.05, the reference's
+    bound; the decode's own routing and its error reported beside it: at
+    these widths one expert flipped at a near tie moves a logit by tens
+    of percent); the decode."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import model as lm
+
+    cfg = dataclasses.replace(get_arch(N_MIXTRAL).cfg, n_layers=N_SERVE_LAYERS,
+                              param_dtype="bfloat16", kv_chunk=N_SERVE_KV_CHUNK)
+    check(cfg.param_count() == N_SERVE_PARAMS, f"N3 {cfg.param_count()}")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.monotonic()
+    model = lm.init_params(cfg, device=dev, seed=0)
+    out = {"params": sum(p.numel() for p in model.parameters()),
+           "init_s": time.monotonic() - t}
+    out.update(n3_prefill(model, dev, "mixtral"))
+    toks = l_batch(601, 1, N_LONG, cfg.vocab, dev)["tokens"]
+    with NRoutes(model) as tap, torch.inference_mode():
+        l_sync(dev)
+        t = time.monotonic()
+        logits, _ = model(toks, last_only=True)
+        l_sync(dev)
+    out["long_forward_s"] = time.monotonic() - t
+    chunks = [c["T"] for c in tap.calls]
+    check(chunks == [cfg.moe_token_chunk] * (2 * N_SERVE_LAYERS)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"N3 mixtral {N_LONG}-token forward: MoE calls of {chunks} tokens")
+    out["long_forward_moe_calls"] = len(chunks)
+    del logits
+    was = n_cfg(model, dataclasses.replace(
+        cfg, capacity_factor=cfg.moe_experts / cfg.moe_top_k,
+        moe_token_chunk=N_CHECK_CHUNK))
+    try:
+        toks = l_batch(603, N_CHECK_BATCH, N_CHECK_SEQ, cfg.vocab, dev)["tokens"]
+        with NRoutes(model, keep=True) as tap:
+            want, cache = lm.prefill(model, toks, N_CHECK_SEQ)
+        # a layer's chunks are the batch's sequences, in order: the last
+        # row of each is the token serve_step takes again
+        last = {}
+        for c in tap.calls:
+            last.setdefault(c["layer"], []).append(c["idx"][-1])
+        check(all(len(v) == N_CHECK_BATCH for v in last.values()),
+              f"N3 mixtral: prefill's MoE calls {[c['T'] for c in tap.calls]}")
+        force = {i: torch.stack(v) for i, v in last.items()}
+        with NRoutes(model, keep=True) as own:
+            got_own, _ = lm.serve_step(model, cache, toks[:, -1:],
+                                       N_CHECK_SEQ - 1)
+        with NRoutes(model, force=force) as forced:
+            got, _ = lm.serve_step(model, cache, toks[:, -1:], N_CHECK_SEQ - 1)
+        cf = model.cfg.capacity_factor
+        out.update(serve_step_vs_forward_rel=l_rel(got, want),
+                   serve_step_unforced_rel=l_rel(got_own, want),
+                   serve_step_tokens_routed_apart={
+                       str(i): int((own.first()[i] != force[i]).any(-1).sum())
+                       for i in force},
+                   serve_step_check_dropped=tap.dropped(cf)[0]
+                   + forced.dropped(cf)[0] + own.dropped(cf)[0])
+        del cache
+    finally:
+        n_cfg(model, was)
+    check(out["serve_step_vs_forward_rel"] < 0.05
+          and out["serve_step_check_dropped"] == 0,
+          f"N3 mixtral serve_step vs forward {out}")
+    out.update(n3_decode(model, dev, "mixtral"))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def phase_n(smi, dev="cuda") -> tuple:
+    """The two MoE LMs on the card (see the module doc); every check
+    raises.  -> (the phase line, the five kernels' launches: all 0, the
+    MoE path reaches none of them)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import launch_counts
+
+    torch.cuda.empty_cache()
+    # the cuts' steps hold 60-75 GB in blocks of a few GB: grow segments
+    # rather than strand freed blocks (restored at the end)
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    reset_launches()
+    t_phase = time.monotonic()
+    gen = torch.Generator(device=dev).manual_seed(29)
+    root = pathlib.Path(tempfile.mkdtemp(prefix="phase_n_"))
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    # bf16 products accumulate in f32 end to end, as the reference's
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    pool = ThreadPoolExecutor(1)
+    line = {"phase": "N", "device": smi}
+    try:
+        n4 = pool.submit(lambda: {a: l4_launcher(root / f"n4_{a}", a, "N4")
+                                  for a in N_ARCHS})
+        t = time.monotonic()
+        line["N0"] = {a: n0_smoke(a, dev) for a in N_ARCHS}
+        line["N0"]["moe_ffn_mixtral_widths"] = n0_moe(dev, gen)
+        line["N0"]["s"] = time.monotonic() - t
+        progress(f"N0: {line['N0']}")
+        line["N1"] = {}
+        for a in N_ARCHS:
+            line["N1"][a] = n1_train(a, dev)
+            progress(f"N1 {a}: {line['N1'][a]}")
+        line["N2"], model = n2_resume(dev)
+        progress(f"N2: {line['N2']}")
+        torch.cuda.reset_peak_memory_stats()
+        n_cfg(model, dataclasses.replace(model.cfg, kv_chunk=N_SERVE_KV_CHUNK))
+        line["N3"] = {N_LLAMA4: n3_prefill(model, dev, "llama4")}
+        line["N3"][N_LLAMA4].update(n3_decode(model, dev, "llama4"))
+        line["N3"][N_LLAMA4]["peak_bytes"] = torch.cuda.max_memory_allocated()
+        del model
+        torch.cuda.empty_cache()
+        line["N3"][N_MIXTRAL] = n3_mixtral(dev)
+        progress(f"N3: {line['N3']}")
+        torch.cuda.empty_cache()
+        line["N4"] = n4.result()
+    finally:
+        pool.shutdown(wait=True)
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    launches = launch_counts()
+    check(not any(launches.values()),
+          f"N: the MoE path launched a search kernel: {launches}")
+    line.update(launches=launches, phase_s=time.monotonic() - t_phase,
+                cuts={N_MIXTRAL: f"trains {N_TRAIN_CUT[N_MIXTRAL]['n_layers']} "
+                                 f"of 56 layers, serves {N_SERVE_LAYERS} in bf16",
+                      N_LLAMA4: "one super-block of 12 (4 of 48 layers), 16 "
+                                "of 128 experts",
+                      "train_4k": f"batch {N_BATCH}, not 256 (accum "
+                                  f"{N_ACCUM[N_MIXTRAL]} / {N_ACCUM[N_LLAMA4]})",
+                      "prefill_32k": "batch 1 (32)",
+                      "decode_32k": f"batch {N_DECODE_BATCH} (128)",
+                      "serving kv_chunk": f"{N_SERVE_KV_CHUNK} (1,024; memory "
+                                          "only, the same attention)"})
+    return line, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="ABCDEFGHIJKLM",
+    ap.add_argument("--phases", default="ABCDEFGHIJKLMN",
                     help="letters of the phases to run, each described in "
                          "the module doc: A kernels against their plain "
                          "versions, B encoders, C-D engines, E quality, F "
@@ -4960,7 +5636,10 @@ def main(argv=None) -> int:
                          "bit-exactly, prefilled and decoded at qwen2-0.5b's "
                          "widths, M the recsys models and GIN trained and "
                          "served at their published widths, with the "
-                         "paper's retrieval over 1,000,000 candidates")
+                         "paper's retrieval over 1,000,000 candidates, N "
+                         "the MoE LMs mixtral-8x22b and llama4-maverick "
+                         "trained, resumed, prefilled and decoded at their "
+                         "published widths")
     args = ap.parse_args(argv)
     if "J" in args.phases and not {"C", "I"} <= set(args.phases):
         ap.error("phase J serves phase C's index and holds its answers to "
@@ -5115,6 +5794,9 @@ def main(argv=None) -> int:
             a_err.get("code_match", 0.0),
             *(r["code_match_side_check"]["max_abs_err"]
               for r in line["M3"].values()))
+    if "N" in args.phases:
+        line, by_phase["N"] = phase_n(smi)
+        emit(line)
     ck = c["kernel"] if c else (a["first_shape"] if a else {})
     entries = [{
         "name": "fused_phase1", "route": "cuda",

@@ -5,8 +5,9 @@ fault-tolerant loop.
         --smoke --steps 20 --device cpu
 
 ``--smoke`` trains the arch's reduced config (data -> step -> checkpoint
--> resume) on ``--device`` (``cuda`` unless asked otherwise): an LM's
-``smoke()`` config on token streams, gin-tu's ``full_graph_sm`` config
+-> resume) on ``--device`` (``cuda`` unless asked otherwise) with the
+arch's optimizer (Adafactor for llama4, AdamW for the rest): an LM's
+``smoke()`` config on token streams (the two MoE LMs' included), gin-tu's ``full_graph_sm`` config
 cut to 16 features and 4 classes on random 128-node graphs, a recsys
 model's ``smoke_cfg`` on click batches.  The JAX package's launcher
 refuses a run without it, and so does this one.
@@ -99,7 +100,8 @@ def main(argv=None):
     if not args.smoke:
         raise SystemExit(
             "full-scale training runs through chip_smoke.py's phases L (the "
-            "LM) and M (recsys and GIN); use --smoke here")
+            "dense LM), M (recsys and GIN) and N (the MoE LMs); use --smoke "
+            "here")
 
     ckpt_dir = f"{args.ckpt_dir}_{args.arch}"
     params, loss, make_batch = _smoke_setup(arch, args.batch_size, args.device)
@@ -108,7 +110,8 @@ def main(argv=None):
     step = make_train_step(
         loss, AdamWConfig(lr=args.lr), optimizer=optimizer,
         lr_schedule=cosine_schedule(warmup=max(args.steps // 10, 1),
-                                    total=args.steps))
+                                    total=args.steps),
+        donate=True)    # the loop never reuses a step's state
     start = latest_step(ckpt_dir)
     if start is not None:
         print(f"resuming at step {start} from {ckpt_dir}")

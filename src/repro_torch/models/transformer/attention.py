@@ -16,7 +16,12 @@ and a KV chunk skips the query chunks that lie wholly before it.  That
 skip changes no bit: such a chunk is fully masked for those rows, whose
 running max is already real (each row's own position sits in an earlier
 KV chunk), so its p is exp(-1e30 - m) = 0, its correction exp(0) = 1,
-and it adds exact zeros to the sums and the gradients.
+and it adds exact zeros to the sums and the gradients.  A KV chunk also
+skips the query chunks wholly past its reach (beyond the window of
+``swa``, in a later block of ``chunked``): for those rows it comes
+before any key they may see, and the first such key's correction
+exp(-1e30 - m) = 0 wipes whatever it added, exactly, so skipping it
+changes no bit either.
 
 Scores are f32 from bf16 operands, as the reference's
 ``preferred_element_type``: q and k are upcast (exact) and multiplied in
@@ -90,6 +95,15 @@ def _repeat_kv(x: torch.Tensor, G: int) -> torch.Tensor:
     return x[:, :, :, None, :].expand(B, C, KV, G, dh).reshape(B, C, KV * G, dh)
 
 
+def _last_query(k: int, kind: str, window: int, S: int) -> int:
+    """One past the last query position that may attend to key ``k``."""
+    if kind == "swa" and window > 0:
+        return min(S, k + window)
+    if kind == "chunked" and window > 0:
+        return min(S, (k // window + 1) * window)
+    return S
+
+
 # ----------------------------------------------------- streaming chunked attn
 def attention(
     q: torch.Tensor,   # (B, S, H, dh)
@@ -120,15 +134,16 @@ def attention(
                    device=q.device)
     l = torch.zeros((B, nq, H, q_chunk), dtype=torch.float32, device=q.device)
     for j in range(nkv):
-        i0 = (j * kv_chunk) // q_chunk            # first query chunk it reaches
         lo, hi = j * kv_chunk, (j + 1) * kv_chunk
+        i0 = lo // q_chunk                        # first query chunk it reaches
+        i1 = -(-_last_query(hi - 1, kind, window, S) // q_chunk)
         kpos = torch.arange(lo, hi, device=q.device)
         kfull = _repeat_kv(k[:, lo:hi], G).float()  # (B, Ckv, H, dh)
         vfull = _repeat_kv(v[:, lo:hi], G)
-        s = torch.einsum("bnqhd,bchd->bnhqc", qr[:, i0:], kfull) * scale
+        s = torch.einsum("bnqhd,bchd->bnhqc", qr[:, i0:i1], kfull) * scale
         s = _softcap(s, softcap)
-        s = s + _mask_bias(qpos[i0:], kpos, kind, window)[None, :, None]
-        mi, li, ai = m[:, i0:], l[:, i0:], acc[:, i0:]
+        s = s + _mask_bias(qpos[i0:i1], kpos, kind, window)[None, :, None]
+        mi, li, ai = m[:, i0:i1], l[:, i0:i1], acc[:, i0:i1]
         m_new = torch.maximum(mi, s.amax(-1))     # (B, n, H, Cq)
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(mi - m_new)
@@ -136,10 +151,10 @@ def attention(
         pv = torch.einsum("bnhqc,bchd->bnqhd", p.to(v.dtype).float(),
                           vfull.float())
         acc_new = ai * corr.transpose(-1, -2)[..., None] + pv
-        if i0:
-            m = torch.cat([m[:, :i0], m_new], 1)
-            l = torch.cat([l[:, :i0], l_new], 1)
-            acc = torch.cat([acc[:, :i0], acc_new], 1)
+        if i0 or i1 < nq:
+            m = torch.cat([m[:, :i0], m_new, m[:, i1:]], 1)
+            l = torch.cat([l[:, :i0], l_new, l[:, i1:]], 1)
+            acc = torch.cat([acc[:, :i0], acc_new, acc[:, i1:]], 1)
         else:
             m, l, acc = m_new, l_new, acc_new
     out = acc / torch.clamp(l, min=1e-30).transpose(-1, -2)[..., None]

@@ -1,4 +1,4 @@
-"""Decoder-only LM covering the assigned dense transformer architectures.
+"""Decoder-only LM covering the assigned transformer architectures.
 
 The JAX package's ``models/transformer/model.py`` as an ``nn.Module``.
 Heterogeneity (attention pattern, MoE cadence) is a *sub-layer period*:
@@ -8,17 +8,22 @@ are a ``ModuleList`` in layer order, and :meth:`LM.tree` /
 :meth:`LM.load_tree` read and write the reference's stacked tree (what
 the optimizers, checkpoints and ``repro_torch.interop`` work on).
 
-Param/compute dtypes: f32 master params, bf16 matmul compute (each matmul
-casts its f32 weight), f32 norms, softmax and loss reductions.  Training
-recomputes each super-block in the backward
-(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
+Param/compute dtypes: f32 master params (bf16 where ``param_dtype``
+says so: each leaf is drawn in f32 and cast, as the reference casts its
+tree), bf16 matmul compute (each matmul casts its weight), f32 norms,
+softmax and loss reductions.  Training recomputes each super-block in
+the backward (``torch.utils.checkpoint``), as the reference's
+``jax.checkpoint``; a super-block returns its hidden state and its MoE
+layers' aux losses, summed in layer order as the reference's scan carry.
 Serving (``prefill``, ``serve_step``) runs under ``torch.inference_mode``
 and writes the KV cache in place.
 
-MoE layers (``moe_experts > 0``) wait for their own slice (ROADMAP Queue 1
-item 9, slice 14): such a config raises ``NotImplementedError``.
-``seq_parallel_attn`` shards query chunks over a model axis in the
-reference; on one device that is ``attention``'s math, which runs.
+MoE layers (``kind.moe``) hold a ``moe`` sub-tree instead of ``ffn`` and
+run ``moe.moe_ffn`` (``moe_local.moe_ffn_local`` where ``moe_dispatch``
+is ``local``) over the B*S (prefill, training) or B (decode) tokens they
+are given, with the capacity that count gives.  ``seq_parallel_attn``
+shards query chunks over a model axis in the reference; on one device
+that is ``attention``'s math, which runs.
 """
 
 from __future__ import annotations
@@ -34,12 +39,11 @@ from torch import nn
 from ..common import (CDTYPE, act_fn, dense_init, div, embed_init, rms_norm,
                       seeded, softmax_xent)
 from .attention import LayerKind, attention, decode_attention, rope
+from .moe import moe_ffn, moe_init
+from .moe_local import moe_ffn_local
 
 __all__ = ["LMConfig", "LM", "init_params", "forward", "lm_loss", "prefill",
            "serve_step", "init_cache"]
-
-MOE_SLICE = ("MoE layers (moe_experts > 0) are not ported yet: ROADMAP "
-             "Queue 1 item 9, slice 14 (moe.py, moe_local.py)")
 
 
 # ---------------------------------------------------------------------- config
@@ -153,9 +157,13 @@ BIAS_LEAVES = ("bq", "bk", "bv")
 FFN_LEAVES = ("wg", "wu", "wd")
 
 
+def _pdtype(cfg: LMConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
 class Block(nn.Module):
-    """One sub-layer: pre-norm attention and a gated FFN, of one kind.
-    Parameters carry the reference's leaf names and shapes."""
+    """One sub-layer: pre-norm attention and a gated FFN or an MoE FFN, of
+    one kind.  Parameters carry the reference's leaf names and shapes."""
 
     def __init__(self, cfg: LMConfig, kind: LayerKind, generator=None,
                  device="cuda"):
@@ -163,15 +171,16 @@ class Block(nn.Module):
         H, KV, dh, D, F = (cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
                            cfg.d_model, cfg.d_ff)
         self.cfg, self.kind = cfg, kind
+        dt = _pdtype(cfg)
 
         def dense(shape, scale=None):
             if generator is None:
-                return nn.Parameter(torch.empty(shape, device=device))
+                return nn.Parameter(torch.empty(shape, dtype=dt, device=device))
             return nn.Parameter(dense_init(shape, generator, scale=scale,
-                                           device=device))
+                                           device=device).to(dt))
 
         def zeros(shape):
-            return nn.Parameter(torch.zeros(shape, device=device))
+            return nn.Parameter(torch.zeros(shape, dtype=dt, device=device))
 
         self.ln1, self.ln2 = zeros((D,)), zeros((D,))
         self.wq = dense((D, H, dh))
@@ -181,16 +190,35 @@ class Block(nn.Module):
         if cfg.qkv_bias:
             self.bq, self.bk, self.bv = (zeros((H, dh)), zeros((KV, dh)),
                                          zeros((KV, dh)))
-        self.ffn = nn.ParameterDict({"wg": dense((D, F)), "wu": dense((D, F)),
-                                     "wd": dense((F, D))})
+        if kind.moe:
+            p = moe_init(D, F, cfg.moe_experts, cfg.moe_shared, generator,
+                         dt, device)
+            shared = p.pop("shared", None)
+            self.moe = nn.ParameterDict(p)
+            if shared is not None:
+                self.moe_shared = nn.ParameterDict(shared)
+        else:
+            self.ffn = nn.ParameterDict({"wg": dense((D, F)),
+                                         "wu": dense((D, F)),
+                                         "wd": dense((F, D))})
         self.act = act_fn(cfg.act)
+
+    def moe_tree(self) -> Dict[str, Any]:
+        """The reference's ``moe`` leaf dict (live parameters)."""
+        out = dict(self.moe.items())
+        if self.cfg.moe_shared:
+            out["shared"] = dict(self.moe_shared.items())
+        return out
 
     def leaves(self) -> Dict[str, Any]:
         """The reference's leaf dict of this sub-layer (unstacked)."""
         out = {k: getattr(self, k) for k in BLOCK_LEAVES}
         if self.cfg.qkv_bias:
             out.update({k: getattr(self, k) for k in BIAS_LEAVES})
-        out["ffn"] = {k: self.ffn[k] for k in FFN_LEAVES}
+        if self.kind.moe:
+            out["moe"] = self.moe_tree()
+        else:
+            out["ffn"] = {k: self.ffn[k] for k in FFN_LEAVES}
         return out
 
     def qkv(self, x, positions):
@@ -215,12 +243,23 @@ class Block(nn.Module):
         return o.reshape(B, S, -1) @ self.wo.to(o.dtype).reshape(-1, self.cfg.d_model)
 
     def mlp(self, x):
+        """-> (y, the MoE aux loss, None in a dense layer)."""
+        cfg = self.cfg
+        if self.kind.moe:
+            B, S, D = x.shape
+            args = (self.moe_tree(), x.reshape(B * S, D), cfg.moe_top_k,
+                    cfg.capacity_factor, cfg.act)
+            if cfg.moe_dispatch == "local":
+                y, aux = moe_ffn_local(*args)
+            else:
+                y, aux = moe_ffn(*args, token_chunk=cfg.moe_token_chunk)
+            return y.reshape(B, S, D), aux
         f = self.ffn
         y = self.act(x @ f["wg"].to(x.dtype)) * (x @ f["wu"].to(x.dtype))
-        return y @ f["wd"].to(x.dtype)
+        return y @ f["wd"].to(x.dtype), None
 
     def forward(self, h, positions):
-        """Training/prefill over the full sequence -> (h, (k, v))."""
+        """Training/prefill over the full sequence -> (h, aux|None, (k, v))."""
         cfg = self.cfg
         x = rms_norm(h, self.ln1)
         q, k, v = self.qkv(x, positions)
@@ -228,7 +267,8 @@ class Block(nn.Module):
                       softcap=cfg.softcap_attn, q_chunk=cfg.q_chunk,
                       kv_chunk=cfg.kv_chunk)
         h = h + self.out_proj(o)
-        return h + self.mlp(rms_norm(h, self.ln2)), (k, v)
+        y, aux = self.mlp(rms_norm(h, self.ln2))
+        return h + y, aux, (k, v)
 
 
 class LM(nn.Module):
@@ -240,31 +280,37 @@ class LM(nn.Module):
     def __init__(self, cfg: LMConfig, generator: Optional[torch.Generator] = None,
                  device="cuda"):
         super().__init__()
-        if cfg.moe_experts:
-            raise NotImplementedError(MOE_SLICE)
         self.cfg = cfg
         kinds = cfg.sub_kinds()
         self.layers = nn.ModuleList(
             Block(cfg, kinds[i % cfg.period], generator, device)
             for i in range(cfg.n_layers))
+        dt = _pdtype(cfg)
         shape = (cfg.vocab, cfg.d_model)
         self.embed = nn.Parameter(
-            embed_init(shape, generator, device=device) if generator is not None
-            else torch.empty(shape, device=device))
-        self.ln_f = nn.Parameter(torch.zeros((cfg.d_model,), device=device))
+            embed_init(shape, generator, device=device).to(dt)
+            if generator is not None
+            else torch.empty(shape, dtype=dt, device=device))
+        self.ln_f = nn.Parameter(torch.zeros((cfg.d_model,), dtype=dt,
+                                             device=device))
         if not cfg.tied_embeddings:
             shape = (cfg.d_model, cfg.vocab)
             self.unembed = nn.Parameter(
-                dense_init(shape, generator, device=device)
-                if generator is not None else torch.empty(shape, device=device))
-        if cfg.param_dtype != "float32":
-            self.to(getattr(torch, cfg.param_dtype))
+                dense_init(shape, generator, device=device).to(dt)
+                if generator is not None
+                else torch.empty(shape, dtype=dt, device=device))
 
     # ------------------------------------------------ the reference's tree
     def tree(self, grads: bool = False) -> Dict[str, Any]:
         """The reference's parameter tree, leaves stacked over ``n_super``
-        (copies; ``grads=True`` stacks the ``.grad`` tensors)."""
-        get = (lambda p: p.grad) if grads else (lambda p: p.detach())
+        (copies, but views where ``n_super`` is 1; ``grads=True`` stacks
+        the ``.grad`` tensors)."""
+        return self.tree_of((lambda p: p.grad) if grads
+                            else (lambda p: p.detach()))
+
+    def tree_of(self, get) -> Dict[str, Any]:
+        """The reference's tree of ``get(parameter)``, stacked as
+        :meth:`tree`."""
         P = self.cfg.period
         blocks = {}
         for p_i in range(P):
@@ -306,14 +352,16 @@ class LM(nn.Module):
             logits = cap * torch.tanh(div(logits, cap))
         return logits
 
-    def _super_block(self, s: int, h, positions, cache):
+    def _super_block(self, s: int, h, aux, positions, cache):
         P = self.cfg.period
         S = h.shape[1]
         for p_i in range(P):
-            h, (k, v) = self.layers[s * P + p_i](h, positions)
+            h, a, (k, v) = self.layers[s * P + p_i](h, positions)
+            if a is not None:
+                aux = aux + a
             if cache is not None:
                 _fill_cache(cache[f"sub{p_i}"], s, k, v, S)
-        return h
+        return h, aux
 
     def forward(self, tokens, cache: Optional[dict] = None,
                 last_only: bool = False):
@@ -325,16 +373,16 @@ class LM(nn.Module):
         h = self.embed_tokens(tokens)
         positions = torch.arange(S, device=tokens.device)[None, :]
         recompute = torch.is_grad_enabled() and cache is None
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for s in range(self.cfg.n_super):
             if recompute:
-                h = torch.utils.checkpoint.checkpoint(
-                    self._super_block, s, h, positions, None,
+                h, aux = torch.utils.checkpoint.checkpoint(
+                    self._super_block, s, h, aux, positions, None,
                     use_reentrant=False, preserve_rng_state=False)
             else:
-                h = self._super_block(s, h, positions, cache)
+                h, aux = self._super_block(s, h, aux, positions, cache)
         if last_only:
             h = h[:, -1:]
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         return self.logits(h), aux
 
 
@@ -343,6 +391,8 @@ def _map_stack(subs: list, get) -> Dict[str, Any]:
     for key, val in subs[0].items():
         if isinstance(val, dict):
             out[key] = _map_stack([s[key] for s in subs], get)
+        elif len(subs) == 1:
+            out[key] = get(val).unsqueeze(0)
         else:
             out[key] = torch.stack([get(s[key]) for s in subs])
     return out
@@ -352,7 +402,7 @@ def _map_copy(leaves: dict, stacked: dict, j: int) -> None:
     for key, val in leaves.items():
         if isinstance(val, dict):
             _map_copy(val, stacked[key], j)
-        else:
+        elif stacked[key][j].data_ptr() != val.data_ptr():   # not a view of val
             val.copy_(stacked[key][j])
 
 
@@ -455,5 +505,5 @@ def serve_step(model: LM, cache, tokens, cur_pos: int):
                              kind=layer.kind.attn, window=cfg.window,
                              softcap=cfg.softcap_attn)
         h = h + layer.out_proj(o)
-        h = h + layer.mlp(rms_norm(h, layer.ln2))
+        h = h + layer.mlp(rms_norm(h, layer.ln2))[0]
     return model.logits(h), cache

@@ -60,6 +60,7 @@ def run_train_loop(
         if step is not None:
             params = load_tree(params, state["params"])
             opt_state, start_step = state["opt"], step
+        del state       # a model's restored copy: written into it, not kept
     durations: list = []
     metrics = {}
     for step in range(start_step, cfg.total_steps):

@@ -5,7 +5,10 @@ package's ``train/optimizer.py`` formulas on trees of tensors.
 arithmetic differently and does not clip, so the reference's formulas are
 written out leaf by leaf.  Updates are functional: they return new trees
 (a model's tree is ``model.tree()``, stacked as the reference's, so
-Adafactor factors and clips the same leaves).
+Adafactor factors and clips the same leaves).  With ``donate=True`` (JAX's
+``donate_argnums``) each leaf's new parameter and state are written into
+the given ones as the leaf is done, and those trees are returned: the
+same bits, without a second copy of the parameters and the state.
 """
 
 from __future__ import annotations
@@ -61,33 +64,48 @@ def _clip_scale(gn, clip_norm):
     return torch.clamp(div(clip_norm, torch.clamp(gn, min=1e-9)), max=1.0)
 
 
+def _write(p, new) -> torch.Tensor:
+    """``new`` (f32; ``p`` itself where ``p`` is f32) into ``p``, rounded
+    to its dtype."""
+    if new is not p:
+        p.copy_(new)
+    return p
+
+
 def adamw_update(
     grads,
     state: AdamWState,
     params,
     cfg: AdamWConfig,
     lr_scale: torch.Tensor | float = 1.0,
+    donate: bool = False,
 ) -> Tuple[Any, AdamWState]:
     step = state.step + 1
     gn = global_norm(grads)
     scale = _clip_scale(gn, cfg.clip_norm)
-    grads = tree_map(lambda g: g.float() * scale, grads)
-
-    mu = tree_map(lambda m, g: cfg.b1 * m + (1 - cfg.b1) * g, state.mu, grads)
-    nu = tree_map(lambda v, g: cfg.b2 * v + (1 - cfg.b2) * g * g, state.nu, grads)
     bc1 = 1 - cfg.b1 ** step.float()
     bc2 = 1 - cfg.b2 ** step.float()
     lr = cfg.lr * lr_scale
 
-    def upd(p, m, v):
-        mhat = m / bc1
-        vhat = v / bc2
-        return (p.float()
-                - lr * (mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p)
-                ).to(p.dtype)
+    # the reference's formulas, each op in place on the leaf's own copies
+    # (its given tensors where donated): the same roundings in the same
+    # order, a few leaf-sized temporaries at a time
+    def upd(p, g, m, v):
+        if not donate:
+            p, m, v = p.clone(), m.clone(), v.clone()
+        g = g.float() * scale
+        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)            # b1 m + (1 - b1) g
+        v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)        # b2 v + (1 - b2) g g
+        del g
+        u = (v / bc2).sqrt_().add_(cfg.eps)              # sqrt(vhat) + eps
+        u = (m / bc1).div_(u)                            # mhat / (...)
+        u.add_(cfg.weight_decay * p).mul_(lr)            # lr (... + wd p)
+        return _write(p, p.float().sub_(u)), m, v
 
-    new_params = tree_map(upd, params, mu, nu)
-    return new_params, AdamWState(step=step, mu=mu, nu=nu)
+    out = tree_map(upd, params, grads, state.mu, state.nu)
+    # ``out`` holds a 3-tuple at each of ``params``' leaves
+    pick = lambda i: tree_map(lambda _, o: o[i], params, out)
+    return pick(0), AdamWState(step=step, mu=pick(1), nu=pick(2))
 
 
 # --------------------------------------------------------------- Adafactor
@@ -120,7 +138,7 @@ def adafactor_init(params) -> AdafactorState:
 
 def adafactor_update(
     grads, state: AdafactorState, params, cfg: AdamWConfig,
-    lr_scale: torch.Tensor | float = 1.0,
+    lr_scale: torch.Tensor | float = 1.0, donate: bool = False,
 ) -> Tuple[Any, AdafactorState]:
     step = state.step + 1
     t = step.float()
@@ -129,25 +147,28 @@ def adafactor_update(
     clip = _clip_scale(gn, cfg.clip_norm)
     lr = cfg.lr * lr_scale
 
-    def upd(p, g, vr, vc, v):
+    def upd(p, g, vr, vc, v):        # in place, as adamw_update's
+        if not donate:
+            p, vr, vc, v = p.clone(), vr.clone(), vc.clone(), v.clone()
         g = g.float() * clip
-        g2 = g * g + 1e-30
+        g2 = (g * g).add_(1e-30)
         if _factored(p):
-            vr_n = beta2 * vr + (1 - beta2) * g2.mean(-1)
-            vc_n = beta2 * vc + (1 - beta2) * g2.mean(-2)
-            denom = (vr_n[..., None] * vc_n[..., None, :]
-                     / torch.clamp(vr_n.mean(-1)[..., None, None], min=1e-30))
-            u = g * torch.rsqrt(denom + 1e-30)
-            v_n = v
+            vr.mul_(beta2).add_((1 - beta2) * g2.mean(-1))
+            vc.mul_(beta2).add_((1 - beta2) * g2.mean(-2))
+            del g2
+            denom = vr[..., None] * vc[..., None, :]
+            denom.div_(torch.clamp(vr.mean(-1)[..., None, None], min=1e-30))
+            u = g.mul_(denom.add_(1e-30).rsqrt_())      # g rsqrt(denom + eps)
+            del denom
         else:
-            v_n = beta2 * v + (1 - beta2) * g2
-            u = g * torch.rsqrt(v_n + 1e-30)
-            vr_n, vc_n = vr, vc
+            v.mul_(beta2).add_((1 - beta2) * g2)
+            del g2
+            u = g.mul_(torch.rsqrt(v + 1e-30))
         # update clipping (RMS(u) <= 1)
         rms_u = torch.sqrt(torch.mean(u * u) + 1e-30)
-        u = u / torch.clamp(rms_u, min=1.0)
-        new_p = (p.float() - lr * (u + cfg.weight_decay * p)).to(p.dtype)
-        return new_p, vr_n, vc_n, v_n
+        u.div_(torch.clamp(rms_u, min=1.0))
+        u.add_(cfg.weight_decay * p).mul_(lr)            # lr (u + wd p)
+        return _write(p, p.float().sub_(u)), vr, vc, v
 
     out = tree_map(upd, params, grads, state.vr, state.vc, state.v)
     # ``out`` holds a 4-tuple at each of ``params``' leaves

@@ -1,7 +1,9 @@
 """repro_torch's architecture registry and training launcher, on the CPU.
 
-* the registry holds the ids ported so far, and refuses the others;
-* the smoke and full configs equal the JAX package's field for field,
+* the registry holds the ten assigned ids, and refuses ``vectordb-wiki``
+  (the dry-run slice's);
+* the smoke and full configs equal the JAX package's field for field
+  (the dense and the MoE LMs),
   and so do the ``LMArch`` records (optimizer, skipped shapes, accum,
   the ``SHAPES`` table), the ``RecsysArch`` records (config, smoke
   config, ``seq``, ``SHAPES``; the four models' full parameter counts)
@@ -10,11 +12,11 @@
   configs (pure arithmetic; the MoE ones as ``LMConfig`` values), and the
   port's module holds that many parameters plus the QKV biases and
   ``ln_f``, which the count leaves out;
-* a config with MoE layers raises, naming the slice it waits for;
 * the training launcher (``repro_torch.launch.train``'s ``main``, as
   ``python -m`` runs it) with ``--smoke --device cpu`` trains 4 steps,
-  then resumes to 6 from its checkpoint, for qwen2-0.5b, din and gin-tu;
-  it refuses a run without ``--smoke`` and an arch not ported yet.
+  then resumes to 6 from its checkpoint, for qwen2-0.5b, both MoE LMs
+  (each with its optimizer: AdamW, Adafactor), din and gin-tu; it
+  refuses a run without ``--smoke`` and an arch not ported yet.
 """
 
 import dataclasses
@@ -25,6 +27,7 @@ from contextlib import redirect_stdout
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as JAX_ARCH_IDS
 from repro.configs import arch_shapes as jax_arch_shapes
 from repro.configs import get_arch as jax_arch
 from repro_torch.configs import ARCH_IDS, arch_shapes, get_arch
@@ -54,15 +57,15 @@ def _port_cfg(jcfg) -> LMConfig:
 
 
 def test_registry():
-    assert sorted(ARCH_IDS) == sorted(DENSE + ["gin-tu"] + RS_IDS)
+    assert sorted(ARCH_IDS) == sorted(LM_IDS + ["gin-tu"] + RS_IDS)
+    assert sorted(ARCH_IDS) == sorted(JAX_ARCH_IDS)
     for arch_id in ARCH_IDS:
         assert arch_shapes(arch_id) == jax_arch_shapes(arch_id)
     assert arch_shapes("qwen2-0.5b") == ["train_4k", "prefill_32k", "decode_32k"]
     assert arch_shapes("din") == ["train_batch", "serve_p99", "serve_bulk",
                                   "retrieval_cand"]
-    for arch_id in ("mixtral-8x22b", "llama4-maverick-400b-a17b", "vectordb-wiki"):
-        with pytest.raises(KeyError, match="not ported"):
-            get_arch(arch_id)
+    with pytest.raises(KeyError, match="not ported"):
+        get_arch("vectordb-wiki")
 
 
 @pytest.mark.parametrize("arch_id", RS_IDS)
@@ -89,7 +92,7 @@ def test_gin_config_equals_the_reference():
             ref.cfg_for(shape))
 
 
-@pytest.mark.parametrize("arch_id", DENSE)
+@pytest.mark.parametrize("arch_id", LM_IDS)
 def test_configs_equal_the_references(arch_id):
     arch, ref = get_arch(arch_id), jax_arch(arch_id)
     assert dataclasses.asdict(arch.cfg) == dataclasses.asdict(ref.cfg)
@@ -125,13 +128,6 @@ def test_module_holds_the_counted_parameters(arch_id):
     assert full.param_count() + 24 * (14 + 2 * 2) * 64 == 494_031_872
 
 
-@pytest.mark.parametrize("arch_id", ["mixtral-8x22b", "llama4-maverick-400b-a17b"])
-def test_moe_guard_raises(arch_id):
-    cfg = _port_cfg(jax_arch(arch_id).smoke())
-    with pytest.raises(NotImplementedError, match="slice 14"):
-        LM(cfg, device="cpu")
-
-
 def _train(*argv) -> str:
     out = io.StringIO()
     with redirect_stdout(out):
@@ -145,6 +141,11 @@ def test_launch_train_smoke_and_resume(tmp_path):
 
 @pytest.mark.parametrize("arch_id", ["din", "gin-tu"])
 def test_launch_train_smoke_and_resume_recsys_and_gnn(tmp_path, arch_id):
+    _smoke_and_resume(tmp_path, arch_id)
+
+
+@pytest.mark.parametrize("arch_id", ["mixtral-8x22b", "llama4-maverick-400b-a17b"])
+def test_launch_train_smoke_and_resume_moe(tmp_path, arch_id):
     _smoke_and_resume(tmp_path, arch_id)
 
 
@@ -167,6 +168,6 @@ def test_launch_train_refuses_full_scale(tmp_path, capsys):
         launch_train.main(["--arch", "qwen2-0.5b", "--device", "cpu",
                            "--ckpt-dir", str(tmp_path / "ck")])
     with pytest.raises(SystemExit) as exc:
-        launch_train.main(["--arch", "mixtral-8x22b", "--smoke", "--device", "cpu"])
+        launch_train.main(["--arch", "vectordb-wiki", "--smoke", "--device", "cpu"])
     assert exc.value.code == 2 and "invalid choice" in capsys.readouterr().err
     assert not os.path.exists(tmp_path / "ck_qwen2-0.5b")

@@ -1,9 +1,10 @@
 """repro_torch on the card: the hand-written kernels against their plain
 versions, the card's encoders and quant table against the CPU's, every
 search engine on the card against the same search on the CPU, and the
-dense LM on the card against the CPU and its bit-exact resume, and a
+dense LM on the card against the CPU and its bit-exact resume, a
 recsys model and GIN's neighbour sum on the card against the CPU and
-bit-equal run to run.
+bit-equal run to run, and the MoE FFN on the card against the CPU with
+the MoE LMs' training steps bit-equal under deterministic algorithms.
 
 Every test here is marked ``cuda`` and skips without a CUDA card.  The file
 imports no JAX, so it runs where only PyTorch is installed:
@@ -11,9 +12,17 @@ imports no JAX, so it runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import math
+import os
+
 import numpy as np
 import pytest
-import torch
+
+# the MoE steps run under torch.use_deterministic_algorithms, which needs
+# cuBLAS's workspace fixed before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 from repro_torch.core import encoding as tenc
 from repro_torch.core import quantize as tquant
@@ -1286,3 +1295,66 @@ def test_gin_aggregate_bit_equal_on_card(gen):
         assert all(torch.equal(x, y) for x, y in zip(*runs))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = was
+
+
+# ------------------------------------------------ the MoE LMs (phase N)
+def test_moe_ffn_card_matches_cpu(gen):
+    """chip_smoke's N0 moe_ffn at a smaller size (D 1,024, F 2,048, 8
+    experts, top-2, 512 bf16 tokens, cf 1.25 so tokens drop): routing and
+    kept slots equal wherever the top-2 gap exceeds 1e-5, y on the tokens
+    routed alike within 1e-2 of the largest (a bf16 ulp), aux within
+    1e-4 where no first choice differs."""
+    from repro_torch.models.transformer import moe
+
+    p = moe.moe_init(1024, 2048, 8, 1, gen, device="cuda")
+    x = torch.randn((512, 1024), generator=gen, device="cuda").to(torch.bfloat16)
+    pc = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict)
+              else v.cpu()) for k, v in p.items()}
+    y, aux = moe.moe_ffn(p, x, 2, 1.25)
+    yc, auxc = moe.moe_ffn(pc, x.cpu(), 2, 1.25)
+    probs, idx, _ = moe.route(p, x, 2)
+    probs_c, idx_c, _ = moe.route(pc, x.cpu(), 2)
+    s = torch.sort(probs_c, dim=-1, descending=True).values
+    clear = (s[:, 1] - s[:, 2]) > 1e-5
+    same = (idx.cpu() == idx_c).all(-1)
+    assert bool(same[clear].all())
+    C = math.ceil(512 * 2 / 8 * 1.25)
+    plan = moe.dispatch_plan(idx, 8, C)
+    plan_c = moe.dispatch_plan(idx_c, 8, C)
+    if bool(same.all()):
+        assert torch.equal(plan[3].cpu(), plan_c[3])
+        assert abs(float(aux) - float(auxc)) <= 1e-4 * abs(float(auxc))
+    assert float((y.cpu()[same].float() - yc[same].float()).abs().max()) <= \
+        1e-2 * float(yc.float().abs().max())
+
+
+def test_moe_lm_steps_bit_equal_on_card(gen):
+    """Two training steps of mixtral-smoke (AdamW) and llama4-smoke
+    (Adafactor), twice on the card under torch.use_deterministic_algorithms:
+    every parameter and optimizer leaf bit-equal (no op of the MoE path
+    adds by atomics, and none raises in deterministic mode)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import model as lm
+    from repro_torch.train import (AdamWConfig, adafactor_init, adamw_init,
+                                   make_train_step)
+    from repro_torch.train.tree import tree_leaves
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        for arch_id in ("mixtral-8x22b", "llama4-maverick-400b-a17b"):
+            arch = get_arch(arch_id)
+            init = adamw_init if arch.optimizer == "adamw" else adafactor_init
+            runs = []
+            for _ in range(2):
+                m = lm.init_params(arch.smoke(), device="cuda", seed=3)
+                step = make_train_step(lambda mm, b: lm.lm_loss(mm, b),
+                                       AdamWConfig(lr=1e-2), accum=2,
+                                       optimizer=arch.optimizer, donate=True)
+                o = init(m)
+                for i in range(2):
+                    m, o, _ = step(m, o, _lm_batch(30 + i, 8, 64,
+                                                   arch.smoke().vocab, "cuda"))
+                runs.append(tree_leaves({"p": m.tree(), "o": o}))
+            assert all(torch.equal(a, b) for a, b in zip(*runs)), arch_id
+    finally:
+        torch.use_deterministic_algorithms(False)

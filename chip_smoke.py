@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases L      # the LM and its training only
     python3 chip_smoke.py --phases M      # the recsys models and GIN only
     python3 chip_smoke.py --phases N      # the MoE LMs only
+    python3 chip_smoke.py --phases O      # the dry run's cells only
 
 It builds the hand-written kernels from the sources in this checkout (one
 nvcc per library, all started together), holds each against its plain
@@ -30,7 +31,9 @@ prefills and decodes the dense LM qwen2-0.5b at its published widths,
 trains and serves the four recsys models and GIN at theirs, the
 paper's two-phase search retrieving from 1,000,000 candidates, and
 trains, resumes, prefills and decodes the two MoE LMs, mixtral-8x22b and
-llama4-maverick, at their published widths.
+llama4-maverick, at their published widths, and runs the dry run's
+cells of the paper's own system at full width against their meta
+traces, with an elastic move of a training run to the host and back.
 
 Phases, each printing one JSON line (D and G one per engine, then a
 summary):
@@ -371,6 +374,31 @@ summary):
      8, llama4 runs one super-block of 12 with 16 of 128 experts,
      train_4k at batch 16 (256), prefill_32k at batch 1 (32),
      decode_32k at batch 64 (128).
+  O  the dry-run slice, run last: O1 vectordb-wiki's three cells
+     (``configs/vectordb_wiki.py``: ``search_b128``, ``search_b1``,
+     ``encode_4m``) on 4,181,504 seeded Gaussian unit rows x 400 and 128
+     noisy copies of rows among the first 65,536: first each cell's fn on
+     those 65,536 rows on the card and on the CPU (codes of the bucketize
+     kernel against its plain version under the bucketize contract, the
+     search pages equal, ids equal but in runs of scores within 2e-5,
+     scores within it), then at full size once as the main path (one
+     bucketize launch and no other, checked; every source row at rank
+     1), then each cell under the op census of
+     ``launch/op_analysis.py``, timed (median of 3) with its peak memory,
+     and the bucketize kernel, its plain version and its bound at
+     4,181,504 x 400; O2 ``launch/dryrun.run_cell`` for the three cells
+     on ``make_local_mesh(1, 1)``: input bytes equal to O1's real
+     arguments (8,363,212,800 / 8,363,009,600 / 6,690,406,400 B) and the
+     meta trace's FLOPs and dot FLOPs equal to O1's card census, the
+     records on the 16 x 16 and 2 x 16 x 16 meshes (their bytes a device
+     checked), and qwen2-0.5b's prefill_32k and decode_32k traced; O3
+     qwen2-0.5b at its published widths, AdamW, 2 x 4,096 at accum 1:
+     four steps straight against two, the parameters and AdamW state
+     moved to a (1, 1) mesh on the CPU and back by
+     ``train/elastic.resize_data_axis``, and two more, under
+     torch.use_deterministic_algorithms: losses, parameters and moments
+     bit-equal.  Checks are gathered and raised at the phase's end.
+     Cuts: O3 trains at batch 2 (train_4k's 256 at accum 8).
 Then the ``kernels`` line (launches summed over the phases' main paths,
 phase K's as its runs printed them,
 and by phase; each library's largest ptxas stack frame
@@ -4478,20 +4506,21 @@ def m_to(b, dev) -> dict:
 
 
 class MChecks:
-    """Phase M's checks: each failure is kept, and the phase raises them
-    all at its end (one run reports every bound it broke)."""
+    """A phase's checks (M's, O's): each failure is kept, and the phase
+    raises them all at its end (one run reports every bound it broke)."""
 
-    def __init__(self):
+    def __init__(self, phase: str = "M"):
+        self.phase = phase
         self.failed = []
 
     def __call__(self, cond: bool, what: str) -> None:
         if not cond:
             self.failed.append(what)
-            progress(f"M check failed: {what}")
+            progress(f"{self.phase} check failed: {what}")
 
     def raise_any(self) -> None:
-        check(not self.failed, f"phase M: {len(self.failed)} checks failed: "
-              f"{self.failed}")
+        check(not self.failed, f"phase {self.phase}: {len(self.failed)} "
+              f"checks failed: {self.failed}")
 
 
 def m0_compare(models, batches, loss_fn, outputs, mcheck, ctx) -> dict:
@@ -5624,9 +5653,312 @@ def phase_n(smi, dev="cuda") -> tuple:
     return line, launches
 
 
+
+# ----------------------------------------------------------------- phase O
+O_PREFIX = 65_536                  # O1's parity rows, the card against the CPU
+O_REPS = 3                         # timed calls of a search cell, after a warm-up
+O_TIE_TOL = 2e-5                   # the codes tolerance (rtol = atol = 1e-5) at |s| <= 1
+O_INPUT_BYTES = {"search_b128": 8_363_212_800, "search_b1": 8_363_009_600,
+                 "encode_4m": 6_690_406_400}
+O_MESH_BYTES = {                   # input_bytes_per_device on the pods
+    "single_16x16": {"search_b128": 522_892_800, "search_b1": 522_689_600,
+                     "encode_4m": 418_150_400},
+    "multi_2x16x16": {"search_b128": 261_548_800, "search_b1": 261_345_600,
+                      "encode_4m": 209_075_200}}
+O_LM_SHAPES = ("prefill_32k", "decode_32k")   # qwen2-0.5b's meta traces in O2
+O_BATCH = 2                        # O3: qwen2-0.5b, 2 x 4,096 at accum 1,
+O_STEPS = 4                        # resized between steps 2 and 3
+
+
+def o_census(fn, *args):
+    """``fn(*args)`` on the card under the op census -> (out, census)."""
+    from repro_torch.launch.op_analysis import analyze
+
+    out, census = analyze(fn, *args)
+    torch.cuda.synchronize()
+    return out, census
+
+
+def o_cells(wiki, vecs, codes, queries) -> dict:
+    """The three cells' functions and real arguments, as their cells
+    hold them."""
+    import functools
+
+    search = functools.partial(wiki._search, page=PAGE, k=K, trim=0.05)
+    return {"search_b128": (search, (vecs, codes, queries)),
+            "search_b1": (search, (vecs, codes, queries[:1])),
+            "encode_4m": (wiki._encode, (vecs,))}
+
+
+def o1_parity(wiki, vecs, queries, ocheck) -> dict:
+    """Each cell's fn on the first O_PREFIX rows, on the card and on the
+    CPU: codes (the kernel against its plain version) under the bucketize
+    contract, the search cells' pages equal, their ids equal but in runs
+    of near-tied scores, and their scores within the codes tolerance."""
+    from repro_torch.core.rerank import rerank_topk
+
+    pre = vecs[:O_PREFIX]
+    codes = wiki._encode(pre)                       # the kernel
+    want = wiki._encode(pre.cpu())                  # its plain version
+    diff = (codes.cpu().long() - want.long()).abs()
+    share, worst = float((diff == 0).float().mean()), int(diff.max())
+    ocheck(share >= 0.9999 and worst <= 1,
+           f"O1 encode prefix: {share} of codes equal, worst {worst}")
+    out = {"rows": O_PREFIX, "encode": {
+        "codes_equal_share": share, "codes_differing": int((diff != 0).sum()),
+        "max_abs_err": worst}}
+    pre_cpu, codes_cpu = pre.cpu(), codes.cpu()
+    for name, Q in (("search_b128", N_QUERIES), ("search_b1", 1)):
+        qs = queries[:Q]
+        ids, scores = wiki._search(pre, codes, qs, PAGE, K, 0.05)
+        _, cand = wiki._page(codes, qs, PAGE, 0.05)
+        q_cpu, cand_cpu = wiki._page(codes_cpu, qs.cpu(), PAGE, 0.05)
+        page_equal = torch.equal(cand.cpu(), cand_cpu)
+        ocheck(page_equal, f"O1 {name}: the card's page differs from the CPU's")
+        want_ids, want_s = rerank_topk(pre_cpu, cand_cpu, q_cpu, K + 1)
+        ok, tied = m_same_up_to_near_ties(ids.cpu(), scores.cpu(), want_ids,
+                                          want_s, O_TIE_TOL)
+        ocheck(ok, f"O1 {name}: ids or scores differ from the CPU's")
+        err = float((scores.cpu() - want_s[:, :K]).abs().max())
+        out[name] = {"page_equal": page_equal, "ids_equal_but_near_ties": ok,
+                     "ranks_in_near_ties": tied, "max_abs_err": err,
+                     "ids_equal": torch.equal(ids.cpu(), want_ids[:, :K])}
+    return out
+
+
+def o1_full(wiki, vecs, src, queries, ocheck) -> tuple:
+    """The three cells at full size: the main path once (launches counted),
+    then each cell under the op census (its warm-up), timed, its peak
+    memory.  -> (the O1 line's cells, codes, launches, census by cell,
+    real argument bytes by cell)."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.bucketize import kernel as bk_kernel
+    from repro_torch.kernels.bucketize import ref as bk_ref
+    from repro_torch.obs import cost
+
+    reset_launches()
+    codes = wiki._encode(vecs)                                  # encode_4m
+    ids128, _ = wiki._search(vecs, codes, queries, PAGE, K, 0.05)
+    ids1, _ = wiki._search(vecs, codes, queries[:1], PAGE, K, 0.05)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    ocheck(launches == {**dict.fromkeys(launches, 0),
+                        "bucketize": bk_kernel.KERNELS_PER_CALL},
+           f"O1: the cells launched {launches}, want one bucketize")
+    hits = (ids128[:, 0].cpu() == src).float().mean().item()
+    ocheck(hits == 1.0 and int(ids1[0, 0]) == int(src[0]),
+           f"O1: source row at rank 1 for {hits} of the queries")
+    cells, census, nbytes = {}, {}, {}
+    for name, (fn, args) in o_cells(wiki, vecs, codes, queries).items():
+        nbytes[name] = sum(t.numel() * t.element_size() for t in args)
+        ocheck(nbytes[name] == O_INPUT_BYTES[name],
+               f"O1 {name}: arguments hold {nbytes[name]} B")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _, census[name] = o_census(fn, *args)
+        peak = torch.cuda.max_memory_allocated()
+        ms = [m_ms(lambda: fn(*args), "cuda") for _ in range(O_REPS)]
+        cells[name] = {"ms_median": m_median(ms), "ms": ms,
+                       "peak_bytes": peak, "peak_over_args_bytes": peak - base,
+                       "argument_bytes": nbytes[name],
+                       "flops": census[name]["flops"],
+                       "dot_flops": census[name]["dot_flops"]}
+    scale, dt = float(wiki.ENCODER.scale), wiki.ENCODER.code_dtype
+    bk_ms = cuda_ms(lambda: bk_kernel.bucketize_cuda(vecs, "round", scale,
+                                                     dt), O_REPS)
+
+    def bk_plain():
+        for lo in range(0, vecs.shape[0], 1 << 18):
+            bk_ref.bucketize_ref(vecs[lo:lo + (1 << 18)], "round", scale, dt)
+
+    bound, by = cost.bound_ms(cost.bucketize_work(vecs.shape[0],
+                                                  vecs.shape[1], 1))
+    cells["encode_4m"]["kernel"] = {
+        "B": vecs.shape[0], "n": vecs.shape[1],
+        "launches": launches["bucketize"], "ms": bk_ms,
+        "plain_ms": cuda_ms(bk_plain, 1), "bound_ms": bound, "bound_by": by,
+        "library_ms": None}
+    cells["rank1_share"] = hits
+    return cells, codes, launches, census, nbytes
+
+
+def o2_dryrun(census, nbytes, ocheck) -> dict:
+    """``launch/dryrun.run_cell`` for the three cells on a (1, 1) mesh on
+    the card (meta traces), held to O1's real bytes and card census; the
+    records on the production meshes from the same traces; qwen2-0.5b's
+    serving cells traced beside them."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+
+    out = str(pathlib.Path(__file__).resolve().parent / "build" / "dryrun_O")
+    local = make_local_mesh(1, 1)
+    arch = get_arch("vectordb-wiki")
+    line = {}
+    for shape in type(arch).SHAPES:
+        meta = {}
+        rec = dryrun.run_cell(arch.cell(shape, local), local, "local_1x1",
+                              out, force=True, census=meta)
+        got = {"input_bytes_per_device": rec["input_bytes_per_device"],
+               "flops": rec["flops_per_device"],
+               "dot_flops": rec["dot_flops_per_device"],
+               "trace_s": rec["trace_s"]}
+        ocheck(got["input_bytes_per_device"] == nbytes[shape],
+               f"O2 {shape}: {got['input_bytes_per_device']} B on (1, 1), "
+               f"the card's arguments {nbytes[shape]} B")
+        ocheck((got["flops"], got["dot_flops"]) == (
+            census[shape]["flops"], census[shape]["dot_flops"]),
+            f"O2 {shape}: meta census {got} against the card's "
+            f"{census[shape]}")
+        for multi in (False, True):
+            mesh = make_production_mesh(multi_pod=multi)
+            name = "multi_2x16x16" if multi else "single_16x16"
+            prod = dryrun.run_cell(arch.cell(shape, mesh), mesh, name, out,
+                                   force=True, census=meta)
+            got[name] = prod["input_bytes_per_device"]
+            ocheck(got[name] == O_MESH_BYTES[name][shape],
+                   f"O2 {shape} on {name}: {got[name]} B a device")
+        line[shape] = got
+    qwen = get_arch(L_ARCH)
+    for shape in O_LM_SHAPES:
+        rec = dryrun.run_cell(qwen.cell(shape, local), local, "local_1x1",
+                              out, force=True)
+        line[f"{L_ARCH} {shape}"] = {
+            k: rec[k] for k in ("flops_per_device", "dot_flops_per_device",
+                                "bytes_per_device", "input_bytes_per_device",
+                                "trace_s")}
+    return line
+
+
+def o3_elastic(ocheck) -> dict:
+    """qwen2-0.5b at its published widths, AdamW, batch O_BATCH x L_SEQ at
+    accum 1: O_STEPS steps straight, against half of them, the parameters
+    and AdamW state moved to a (1, 1) mesh on the CPU and back through
+    ``train/elastic.resize_data_axis`` (the card's copies freed between),
+    and the rest; under ``torch.use_deterministic_algorithms`` the losses,
+    parameters and moments bit-equal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import lm_param_spec
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.transformer import model as lm
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.train.elastic import resize_data_axis
+    from repro_torch.train.tree import tree_leaves
+
+    cfg = get_arch(L_ARCH).cfg
+    step = make_train_step(lm.lm_loss, AdamWConfig())
+    batches = [l_batch(300 + i, O_BATCH, L_SEQ, cfg.vocab, "cuda")
+               for i in range(O_STEPS)]
+    card, host = make_local_mesh(1, 1), make_local_mesh(1, 1, device="cpu")
+    moved = {}
+
+    def rule(mesh):
+        return lambda path, leaf: lm_param_spec(path, leaf, mesh)
+
+    def resize(model, state):
+        t = time.monotonic()
+        tree = resize_data_axis(model.tree(), card, host, rule(host))
+        state = resize_data_axis(state, card, host, rule(host))
+        del model
+        torch.cuda.synchronize()
+        moved["to_host_s"] = time.monotonic() - t
+        leaves = tree_leaves((tree, state))
+        moved["leaves"] = len(leaves)
+        moved["bytes"] = sum(x.numel() * x.element_size() for x in leaves)
+        ocheck(all(x.device.type == "cpu" for x in leaves),
+               "O3: a leaf stayed on the card")
+        moved["card_bytes_while_on_host"] = torch.cuda.memory_allocated()
+        t = time.monotonic()
+        tree = resize_data_axis(tree, host, card, rule(card))
+        state = resize_data_axis(state, host, card, rule(card))
+        model = lm.LM(cfg, None, device="cuda").load_tree(tree)
+        torch.cuda.synchronize()
+        moved["to_card_s"] = time.monotonic() - t
+        return model, state
+
+    def run(elastic):
+        model = lm.init_params(cfg, device="cuda", seed=0)
+        state, losses, step_s = adamw_init(model), [], []
+        for i, b in enumerate(batches):
+            if elastic and i == O_STEPS // 2:
+                model, state = resize(model, state)
+            t = time.monotonic()
+            model, state, metrics = step(model, state, b)
+            torch.cuda.synchronize()
+            step_s.append(time.monotonic() - t)
+            losses.append(metrics["loss"])
+        return losses, (model.tree(), state), step_s
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.use_deterministic_algorithms(True)
+    try:
+        l_a, s_a, step_s = run(False)
+        l_b, s_b, _ = run(True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    pairs = list(zip(tree_leaves(s_a), tree_leaves(s_b)))
+    differ = [k for k, (a, b) in enumerate(pairs) if not torch.equal(a, b)]
+    same_loss = all(torch.equal(a, b) for a, b in zip(l_a, l_b))
+    ocheck(same_loss and not differ,
+           f"O3: losses equal {same_loss}, {len(differ)} of {len(pairs)} "
+           "leaves differ after the resize")
+    return {"steps": O_STEPS, "resized_after": O_STEPS // 2,
+            "batch": [O_BATCH, L_SEQ], "losses": [float(x) for x in l_a],
+            "bit_equal": same_loss and not differ, "leaves": len(pairs),
+            "step_s_median": m_median(step_s), **moved,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_o(smi) -> tuple:
+    """The dry-run slice on the card (see the module doc); checks are
+    gathered and raised at the phase's end.  -> (the phase line, the five
+    kernels' launches on its main path: one bucketize)."""
+    from repro_torch.configs import vectordb_wiki as wiki
+    from repro_torch.core.rerank import normalize
+
+    torch.cuda.empty_cache()
+    ocheck = MChecks("O")
+    t_phase = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    t = time.monotonic()
+    vecs = normalize(torch.randn((wiki.N_DOCS, wiki.N_FEATURES),
+                                 generator=gen, device="cuda"))
+    src = torch.randint(0, O_PREFIX, (N_QUERIES,), generator=gen,
+                        device="cuda")
+    queries = vecs[src] + torch.randn((N_QUERIES, N_FEATURES), generator=gen,
+                                      device="cuda") * NOISE
+    torch.cuda.synchronize()
+    line = {"phase": "O", "device": smi, "rows_s": time.monotonic() - t}
+    t = time.monotonic()
+    line["O1"] = {"parity": o1_parity(wiki, vecs, queries, ocheck)}
+    line["O1"]["parity"]["s"] = time.monotonic() - t
+    progress(f"O1 parity: {line['O1']['parity']}")
+    t = time.monotonic()
+    cells, codes, launches, census, nbytes = o1_full(wiki, vecs, src.cpu(),
+                                                     queries, ocheck)
+    line["O1"].update(cells, s=time.monotonic() - t)
+    progress(f"O1: {cells}")
+    del vecs, codes, queries
+    torch.cuda.empty_cache()
+    t = time.monotonic()
+    line["O2"] = o2_dryrun(census, nbytes, ocheck)
+    line["O2"]["s"] = time.monotonic() - t
+    progress(f"O2: {line['O2']}")
+    t = time.monotonic()
+    line["O3"] = o3_elastic(ocheck)
+    line["O3"]["s"] = time.monotonic() - t
+    progress(f"O3: {line['O3']}")
+    torch.cuda.empty_cache()
+    line.update(launches=launches, phase_s=time.monotonic() - t_phase)
+    ocheck.raise_any()
+    return line, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="ABCDEFGHIJKLMN",
+    ap.add_argument("--phases", default="ABCDEFGHIJKLMNO",
                     help="letters of the phases to run, each described in "
                          "the module doc: A kernels against their plain "
                          "versions, B encoders, C-D engines, E quality, F "
@@ -5639,7 +5971,9 @@ def main(argv=None) -> int:
                          "paper's retrieval over 1,000,000 candidates, N "
                          "the MoE LMs mixtral-8x22b and llama4-maverick "
                          "trained, resumed, prefilled and decoded at their "
-                         "published widths")
+                         "published widths, O the dry run: vectordb-wiki's "
+                         "three cells at full width, their meta traces "
+                         "against the card, and an elastic continue")
     args = ap.parse_args(argv)
     if "J" in args.phases and not {"C", "I"} <= set(args.phases):
         ap.error("phase J serves phase C's index and holds its answers to "
@@ -5797,6 +6131,14 @@ def main(argv=None) -> int:
     if "N" in args.phases:
         line, by_phase["N"] = phase_n(smi)
         emit(line)
+    if "O" in args.phases:
+        line, by_phase["O"] = phase_o(smi)
+        emit(line)
+        a_err["bucketize"] = max(a_err.get("bucketize", 0.0),
+                                 line["O1"]["parity"]["encode"]["max_abs_err"])
+        # the encode_4m cell's kernel numbers stand in where phase D did
+        # not run
+        kd.setdefault("bucketize", line["O1"]["encode_4m"]["kernel"])
     ck = c["kernel"] if c else (a["first_shape"] if a else {})
     entries = [{
         "name": "fused_phase1", "route": "cuda",

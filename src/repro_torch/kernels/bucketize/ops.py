@@ -11,7 +11,7 @@ encoder half (two for a ``CombinedEncoder``).  Calls made straight to
 :func:`.kernel.bucketize_cuda`, as a comparison with the plain version
 does, are not counted.  The count is guarded by a lock: batchers on
 several threads launch at once.  Each call, on either path, first files
-its work as a cost row (:func:`repro_torch.obs.cost.record_kernel`).
+its work as a cost row (:func:`repro_torch.obs.cost.kernel_call`).
 """
 
 from __future__ import annotations
@@ -36,14 +36,14 @@ def bucketize(x: torch.Tensor, mode: str, param: float,
               out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
     """Fused normalize + quantize of (B, n) rows under one mode."""
     global launches
-    cost.record_kernel("bucketize", cost.bucketize_work(
-        x.shape[0], x.shape[-1], out_dtype.itemsize))
-    if x.is_cuda:
-        out = kernel.bucketize_cuda(x, mode, param, out_dtype)
-        with _lock:
-            launches += kernel.KERNELS_PER_CALL
-        return out
-    return ref.bucketize_ref(x, mode, param, out_dtype)
+    with cost.kernel_call("bucketize", cost.bucketize_work(
+            x.shape[0], x.shape[-1], out_dtype.itemsize)):
+        if x.is_cuda:
+            out = kernel.bucketize_cuda(x, mode, param, out_dtype)
+            with _lock:
+                launches += kernel.KERNELS_PER_CALL
+            return out
+        return ref.bucketize_ref(x, mode, param, out_dtype)
 
 
 def encode(x: torch.Tensor, encoder: Encoder) -> torch.Tensor:

@@ -11,7 +11,7 @@ on the card.  Calls made straight to :func:`.kernel.code_match_cuda`, as a
 comparison with the plain version does, are not counted.  The count is
 guarded by a lock: batchers on several threads launch at once.  Each call,
 on either path, first files its work as a cost row
-(:func:`repro_torch.obs.cost.record_kernel`).
+(:func:`repro_torch.obs.cost.kernel_call`).
 """
 
 from __future__ import annotations
@@ -39,19 +39,20 @@ def code_match(
 ) -> torch.Tensor:
     """(Q, d) f32 weighted code-equality scores."""
     global launches
-    cost.record_kernel("code_match", cost.code_match_work(
-        doc_codes.shape[0], qcodes.shape[0], qcodes.shape[1],
-        doc_codes.element_size()))
-    if doc_codes.is_cuda:
-        out = kernel.code_match_cuda(doc_codes, qcodes, col_weights)
-        with _lock:
-            launches += kernel.KERNELS_PER_CALL
+    with cost.kernel_call("code_match", cost.code_match_work(
+            doc_codes.shape[0], qcodes.shape[0], qcodes.shape[1],
+            doc_codes.element_size())):
+        if doc_codes.is_cuda:
+            out = kernel.code_match_cuda(doc_codes, qcodes, col_weights)
+            with _lock:
+                launches += kernel.KERNELS_PER_CALL
+            return out
+        Q, C = qcodes.shape
+        block = max(1, _CPU_ELEMENTS // max(1, Q * C))
+        d = doc_codes.shape[0]
+        out = torch.empty((Q, d), dtype=torch.float32,
+                          device=doc_codes.device)
+        for lo in range(0, d, block):
+            out[:, lo:lo + block] = ref.code_match_ref(
+                doc_codes[lo:lo + block], qcodes, col_weights)
         return out
-    Q, C = qcodes.shape
-    block = max(1, _CPU_ELEMENTS // max(1, Q * C))
-    d = doc_codes.shape[0]
-    out = torch.empty((Q, d), dtype=torch.float32, device=doc_codes.device)
-    for lo in range(0, d, block):
-        out[:, lo:lo + block] = ref.code_match_ref(doc_codes[lo:lo + block],
-                                                   qcodes, col_weights)
-    return out

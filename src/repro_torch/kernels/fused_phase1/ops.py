@@ -23,7 +23,7 @@ straight to :mod:`.kernel`, as a comparison with the plain version does,
 are not counted.  A run resets them to 0 to show that a path went through
 the kernels.  The counts are guarded by a lock: batchers on several
 threads launch at once.  Each call, on either path, first files its work
-as a cost row (:func:`repro_torch.obs.cost.record_kernel`).
+as a cost row (:func:`repro_torch.obs.cost.kernel_call`).
 """
 
 from __future__ import annotations
@@ -59,18 +59,18 @@ def fused_phase1(
     global launches
     d, C = doc_codes.shape
     page = int(min(page, d))
-    cost.record_kernel("fused_phase1", cost.fused_phase1_work(
-        d, qcodes.shape[0], C, page, doc_codes.element_size(),
-        live is not None))
-    if doc_codes.is_cuda:
-        out = kernel.fused_phase1_cuda(doc_codes, qcodes, col_weights, page,
-                                       live)
-        with _lock:
-            launches += kernel.KERNELS_PER_CALL
-        return out
-    s, i = ref.fused_phase1_stream(doc_codes, qcodes, col_weights, page,
-                                   live, block=_CPU_BLOCK_D)
-    return s, torch.clamp(i, max=d - 1)
+    with cost.kernel_call("fused_phase1", cost.fused_phase1_work(
+            d, qcodes.shape[0], C, page, doc_codes.element_size(),
+            live is not None)):
+        if doc_codes.is_cuda:
+            out = kernel.fused_phase1_cuda(doc_codes, qcodes, col_weights,
+                                           page, live)
+            with _lock:
+                launches += kernel.KERNELS_PER_CALL
+            return out
+        s, i = ref.fused_phase1_stream(doc_codes, qcodes, col_weights, page,
+                                       live, block=_CPU_BLOCK_D)
+        return s, torch.clamp(i, max=d - 1)
 
 
 def fused_phase1_quant(
@@ -87,14 +87,14 @@ def fused_phase1_quant(
     global quant_launches
     d, n = codes8.shape
     page = int(min(page, d))
-    cost.record_kernel("fused_phase1_quant", cost.quant_work(
-        d, queries.shape[0], n, page, live is not None))
-    if codes8.is_cuda:
-        out = kernel.fused_phase1_quant_cuda(codes8, scale, zero, queries,
-                                             page, live)
-        with _lock:
-            quant_launches += kernel.KERNELS_PER_CALL
-        return out
-    s, i = ref.fused_phase1_quant_stream(codes8, scale, zero, queries, page,
-                                         live, block=_CPU_BLOCK_D)
-    return s, torch.clamp(i, max=d - 1)
+    with cost.kernel_call("fused_phase1_quant", cost.quant_work(
+            d, queries.shape[0], n, page, live is not None)):
+        if codes8.is_cuda:
+            out = kernel.fused_phase1_quant_cuda(codes8, scale, zero,
+                                                 queries, page, live)
+            with _lock:
+                quant_launches += kernel.KERNELS_PER_CALL
+            return out
+        s, i = ref.fused_phase1_quant_stream(codes8, scale, zero, queries,
+                                             page, live, block=_CPU_BLOCK_D)
+        return s, torch.clamp(i, max=d - 1)

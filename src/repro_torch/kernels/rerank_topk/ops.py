@@ -19,7 +19,7 @@ the CUDA kernels this wrapper launched, one per call on the card, and
 :func:`.kernel.rerank_scores_cuda`, as a comparison with the plain version
 does, are not counted.  Both counts are guarded by one lock: batchers on
 several threads launch at once.  Each scoring call, on either path, first
-files its work as a cost row (:func:`repro_torch.obs.cost.record_kernel`),
+files its work as a cost row (:func:`repro_torch.obs.cost.kernel_call`),
 counting every one of the Q * P candidate rows: the wrapper reads no ids.
 """
 
@@ -58,14 +58,15 @@ def rerank_scores(cand_vecs: torch.Tensor,
     if cand_vecs.dim() != 3:
         raise ValueError("cand_vecs must be a contiguous (Q, P, n) tensor")
     Q, P, n = cand_vecs.shape
-    cost.record_kernel("rerank_topk", cost.rerank_work(Q, P, n, Q * P))
-    if not cand_vecs.is_cuda:
-        return ref.rerank_scores_ref(cand_vecs, queries)
-    if not cand_vecs.is_contiguous():
-        raise ValueError("cand_vecs must be a contiguous (Q, P, n) tensor")
-    ids = torch.arange(Q * P, dtype=torch.int32,
-                       device=cand_vecs.device).view(Q, P)
-    return _launch(cand_vecs.view(Q * P, n), ids, queries)
+    with cost.kernel_call("rerank_topk", cost.rerank_work(Q, P, n, Q * P)):
+        if not cand_vecs.is_cuda:
+            return ref.rerank_scores_ref(cand_vecs, queries)
+        if not cand_vecs.is_contiguous():
+            raise ValueError("cand_vecs must be a contiguous (Q, P, n) "
+                             "tensor")
+        ids = torch.arange(Q * P, dtype=torch.int32,
+                           device=cand_vecs.device).view(Q, P)
+        return _launch(cand_vecs.view(Q * P, n), ids, queries)
 
 
 def candidate_scores(vectors: torch.Tensor, cand_ids: torch.Tensor,
@@ -73,13 +74,13 @@ def candidate_scores(vectors: torch.Tensor, cand_ids: torch.Tensor,
     """(d, n) table, (Q, P) ids, (Q, n) queries -> (Q, P) scores of the
     rows ``vectors[cand_ids]``, never gathered on the card."""
     Q, P = cand_ids.shape
-    cost.record_kernel("rerank_topk", cost.rerank_work(
-        Q, P, vectors.shape[-1], Q * P))
-    if vectors.is_cuda:
-        if cand_ids.dtype != torch.int32 or not cand_ids.is_contiguous():
-            cand_ids = cand_ids.to(torch.int32).contiguous()
-        return _launch(vectors, cand_ids, queries)
-    return ref.candidate_scores_ref(vectors, cand_ids, queries)
+    with cost.kernel_call("rerank_topk", cost.rerank_work(
+            Q, P, vectors.shape[-1], Q * P)):
+        if vectors.is_cuda:
+            if cand_ids.dtype != torch.int32 or not cand_ids.is_contiguous():
+                cand_ids = cand_ids.to(torch.int32).contiguous()
+            return _launch(vectors, cand_ids, queries)
+        return ref.candidate_scores_ref(vectors, cand_ids, queries)
 
 
 def rerank_topk(

@@ -13,7 +13,8 @@ model's ``smoke_cfg`` on click batches.  The JAX package's launcher
 refuses a run without it, and so does this one.
 Checkpoints go to ``<--ckpt-dir>_<arch>``; a second run on the same
 directory resumes from its newest complete step.  The arch ids are the
-ones ported so far (``repro_torch.configs.ARCH_IDS``).
+ten assigned ones (``repro_torch.configs.ARCH_IDS``; ``vectordb-wiki``
+trains nothing).
 """
 
 from __future__ import annotations

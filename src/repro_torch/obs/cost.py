@@ -35,6 +35,7 @@ committed byte-model ratio of ``BENCH_kernel_scale.json`` (its
 
 from __future__ import annotations
 
+import contextlib
 import json
 import threading
 from typing import Dict, List, NamedTuple, Optional, Tuple
@@ -42,7 +43,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 from . import compile_watch as cw
 
 __all__ = [
-    "CostTable", "Work", "record_kernel", "missing_cost_regions",
+    "CostTable", "Work", "record_kernel", "kernel_call", "kernel_listener", "missing_cost_regions",
     "roofline", "kernel_byte_ratio", "verify_kernel_claim", "bound_ms",
     "fused_phase1_work", "quant_work", "code_match_work", "codes_work",
     "bucketize_work", "rerank_work", "HBM_BYTES_PER_S",
@@ -193,6 +194,42 @@ def record_kernel(program: str, work: Work) -> None:
     else:
         watch, region, sig = cw.active_watch(), cw._UNATTRIBUTED, ()
     watch.costs.record(region, sig, program, work)
+
+
+# listeners told of each kernel call's extent on this thread (the dry
+# run's op analysis: a hand-written kernel is one op of its analytic work,
+# and its plain version's torch ops inside the call are not counted apart)
+_LISTENERS = threading.local()
+
+
+@contextlib.contextmanager
+def kernel_listener(listener):
+    """Tell ``listener`` (``enter(program, work)``, ``exit()``) of every
+    :func:`kernel_call` on this thread while the block runs."""
+    stack = getattr(_LISTENERS, "stack", None)
+    if stack is None:
+        stack = _LISTENERS.stack = []
+    stack.append(listener)
+    try:
+        yield listener
+    finally:
+        stack.remove(listener)
+
+
+@contextlib.contextmanager
+def kernel_call(program: str, work: Work):
+    """One call of a kernel wrapper: :func:`record_kernel`, then the
+    wrapper's body (the kernel, or its plain version) inside the block,
+    its extent told to the listeners of :func:`kernel_listener`."""
+    record_kernel(program, work)
+    listeners = list(getattr(_LISTENERS, "stack", ()))
+    for lst in listeners:
+        lst.enter(program, work)
+    try:
+        yield
+    finally:
+        for lst in reversed(listeners):
+            lst.exit()
 
 
 # ------------------------------------------------------------- derived views

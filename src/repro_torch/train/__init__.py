@@ -1,8 +1,9 @@
 """The training substrate: optimizers, accumulation, checkpoints, the loop.
 
 ``compression`` holds top-k with error feedback and int8 quantization;
-``elastic`` waits for the dry-run slice (ROADMAP Queue 1 item 9, slice
-17).
+``elastic`` (imported as ``repro_torch.train.elastic``: it reads the
+sharding rules, which read ``train.tree``) re-places a tree on another
+mesh.
 """
 
 from .checkpoint import AsyncCheckpointer, latest_step, restore_checkpoint, save_checkpoint

@@ -9,11 +9,12 @@ tree through its ``tree()`` method and leaves it through ``load_tree``.
 
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, NamedTuple
 
 import torch
 
-__all__ = ["tree_leaves", "tree_map", "as_tree", "load_tree"]
+__all__ = ["tree_leaves", "tree_map", "tree_map_with_path", "as_tree",
+           "load_tree", "DictKey", "SequenceKey", "GetAttrKey"]
 
 
 def _children(t):
@@ -44,14 +45,7 @@ def tree_leaves(tree) -> List[Any]:
 def tree_map(fn: Callable, tree, *rest):
     """``fn`` over the leaves of ``tree`` and the same leaves of ``rest``
     (trees of ``tree``'s structure)."""
-    if tree is None:
-        return None
-    kids = _children(tree)
-    if kids is None:
-        return fn(tree, *rest)
-    others = [_children(r) for r in rest]
-    return _rebuild(tree, [tree_map(fn, k, *(o[i] for o in others))
-                           for i, k in enumerate(kids)])
+    return tree_map_with_path(lambda _path, *leaves: fn(*leaves), tree, *rest)
 
 
 def as_tree(params):
@@ -65,3 +59,44 @@ def load_tree(params, tree):
     if isinstance(params, torch.nn.Module):
         return params.load_tree(tree)
     return tree
+
+
+# ----------------------------------------------------------------- paths
+class DictKey(NamedTuple):
+    """A dict entry on a leaf's path (JAX's ``DictKey``: ``.key``)."""
+    key: Any
+
+
+class SequenceKey(NamedTuple):
+    """A list or tuple position on a leaf's path (``.idx``)."""
+    idx: int
+
+
+class GetAttrKey(NamedTuple):
+    """A NamedTuple field on a leaf's path (``.name``)."""
+    name: str
+
+
+def _path_keys(t) -> list:
+    if isinstance(t, dict):
+        return [DictKey(k) for k in sorted(t)]
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return [GetAttrKey(f) for f in t._fields]
+    return [SequenceKey(i) for i in range(len(t))]
+
+
+def tree_map_with_path(fn: Callable, tree, *rest):
+    """``fn(path, leaf, *others)`` over the leaves of ``tree`` in JAX's
+    flatten order; ``path`` is a tuple of :class:`DictKey`,
+    :class:`SequenceKey` and :class:`GetAttrKey`, as JAX's key paths."""
+    def go(path, t, others):
+        if t is None:
+            return None
+        kids = _children(t)
+        if kids is None:
+            return fn(path, t, *others)
+        subs = [_children(o) for o in others]
+        keys = _path_keys(t)
+        return _rebuild(t, [go(path + (keys[i],), k, [s[i] for s in subs])
+                            for i, k in enumerate(kids)])
+    return go((), tree, rest)

@@ -1,7 +1,7 @@
 """repro_torch's architecture registry and training launcher, on the CPU.
 
-* the registry holds the ten assigned ids, and refuses ``vectordb-wiki``
-  (the dry-run slice's);
+* the registry holds the ten assigned ids, and ``vectordb-wiki`` (the
+  paper's own system) with the reference's shapes and constants;
 * the smoke and full configs equal the JAX package's field for field
   (the dense and the MoE LMs),
   and so do the ``LMArch`` records (optimizer, skipped shapes, accum,
@@ -16,7 +16,8 @@
   ``python -m`` runs it) with ``--smoke --device cpu`` trains 4 steps,
   then resumes to 6 from its checkpoint, for qwen2-0.5b, both MoE LMs
   (each with its optimizer: AdamW, Adafactor), din and gin-tu; it
-  refuses a run without ``--smoke`` and an arch not ported yet.
+  refuses a run without ``--smoke`` and ``vectordb-wiki``, which trains
+  nothing.
 """
 
 import dataclasses
@@ -64,8 +65,15 @@ def test_registry():
     assert arch_shapes("qwen2-0.5b") == ["train_4k", "prefill_32k", "decode_32k"]
     assert arch_shapes("din") == ["train_batch", "serve_p99", "serve_bulk",
                                   "retrieval_cand"]
-    with pytest.raises(KeyError, match="not ported"):
-        get_arch("vectordb-wiki")
+    from repro.configs import vectordb_wiki as jwiki
+    from repro_torch.configs import vectordb_wiki as wiki
+    arch, ref = get_arch("vectordb-wiki"), jax_arch("vectordb-wiki")
+    assert type(arch).SHAPES == type(ref).SHAPES
+    assert arch_shapes("vectordb-wiki") == jax_arch_shapes("vectordb-wiki") == [
+        "search_b128", "search_b1", "encode_4m"]
+    assert (wiki.N_DOCS, wiki.N_FEATURES, wiki.ENCODER.precision) == (
+        jwiki.N_DOCS, jwiki.N_FEATURES, jwiki.ENCODER.precision)
+    assert wiki.ENCODER.code_dtype == torch.int8
 
 
 @pytest.mark.parametrize("arch_id", RS_IDS)

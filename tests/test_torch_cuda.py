@@ -3,8 +3,10 @@ versions, the card's encoders and quant table against the CPU's, every
 search engine on the card against the same search on the CPU, and the
 dense LM on the card against the CPU and its bit-exact resume, a
 recsys model and GIN's neighbour sum on the card against the CPU and
-bit-equal run to run, and the MoE FFN on the card against the CPU with
-the MoE LMs' training steps bit-equal under deterministic algorithms.
+bit-equal run to run, the MoE FFN on the card against the CPU with
+the MoE LMs' training steps bit-equal under deterministic algorithms,
+and vectordb-wiki's encode cell and ``train/elastic.py``'s moves between
+the card and the host.
 
 Every test here is marked ``cuda`` and skips without a CUDA card.  The file
 imports no JAX, so it runs where only PyTorch is installed:
@@ -1358,3 +1360,57 @@ def test_moe_lm_steps_bit_equal_on_card(gen):
             assert all(torch.equal(a, b) for a, b in zip(*runs)), arch_id
     finally:
         torch.use_deterministic_algorithms(False)
+
+
+# --------------------------------------------- the dry-run slice (phase O)
+def test_encode_4m_kernel_vs_plain_odd_rows(gen):
+    """vectordb-wiki's ``_encode`` on the card at an odd row count: one
+    bucketize launch; bit-equal to the plain version on rows whose sums
+    of squares are exact in any order (every entry a multiple of 1/8 below
+    2, so both norms round the same), and under the bucketize contract on
+    Gaussian rows, where the two sum in different orders."""
+    from repro_torch.configs import vectordb_wiki as wiki
+
+    B, n = 40_001, wiki.N_FEATURES
+    exact = torch.randint(-15, 16, (B, n), generator=gen, device="cuda")
+    exact = exact.float() / 8
+    gauss = torch.randn((B, n), generator=gen, device="cuda")
+    for x, bit_equal in ((exact, True), (gauss, False)):
+        before = bk_ops.launches
+        got = wiki._encode(x)
+        assert bk_ops.launches == before + bk_kernel.KERNELS_PER_CALL
+        want = bk_ref.bucketize_ref(x, "round", 100.0, torch.int8)
+        assert got.dtype == torch.int8 and got.shape == (B, n)
+        if bit_equal:
+            assert torch.equal(got, want)
+        else:
+            _assert_codes(got, want)
+
+
+def test_reshard_card_to_cpu_and_back_bit_equal(gen):
+    """``train/elastic.py``: a tree with an AdamW state (bf16 and f32
+    leaves, an int32 step) to a (1, 1) mesh on the CPU and back to the
+    card: every leaf on the mesh's device, its dtype and bits unchanged,
+    the NamedTuple kept."""
+    from repro_torch.dist import P
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train.elastic import reshard_tree, resize_data_axis
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.tree import tree_leaves
+
+    params = {"w": torch.randn((64, 96), generator=gen, device="cuda")
+              .to(torch.bfloat16),
+              "b": [torch.randn((96,), generator=gen, device="cuda")]}
+    tree = {"params": params, "opt": AdamWState(
+        step=torch.tensor(3, dtype=torch.int32, device="cuda"),
+        mu=params, nu=params)}
+    card, host = make_local_mesh(1, 1), make_local_mesh(1, 1, device="cpu")
+    rule = lambda path, leaf: P()
+    on_host = reshard_tree(tree, host, rule)
+    back = resize_data_axis(on_host, host, card, rule)
+    assert isinstance(back["opt"], AdamWState)
+    for a, h, b in zip(tree_leaves(tree), tree_leaves(on_host),
+                       tree_leaves(back)):
+        assert h.device.type == "cpu" and b.device.type == "cuda"
+        assert a.dtype == h.dtype == b.dtype
+        assert torch.equal(a, b) and torch.equal(a.cpu(), h)

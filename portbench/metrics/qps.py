@@ -1,0 +1,5 @@
+"""Queries answered in the window over the window's seconds."""
+
+
+def read(run):
+    return run.qps

@@ -1,0 +1,9 @@
+"""95th percentile latency of every query sent in the window, over all of
+them (open loop: from when it was due; closed loop: from when it was
+sent)."""
+
+from portbench.harness.stats import percentile
+
+
+def read(run):
+    return percentile(run.latency_ms, 95)

@@ -40,7 +40,9 @@ The swap discipline is what makes this safe under live traffic:
   of the served index;
 * the swap is a compare-and-swap on that snapshot -- if an ingest or
   delete landed meanwhile (``self.index`` moved), the stale rebuild is
-  simply dropped and the next tick retries against fresh state;
+  dropped, counted in ``maintenance.merges.discarded`` (or
+  ``maintenance.compactions.discarded``), and the next tick retries
+  against fresh state;
 * in-flight batches finish on the index they dequeued with; no query is
   ever dropped or served a half-built index.
 
@@ -91,6 +93,7 @@ import numpy as np
 
 from repro_torch.obs.compile_watch import watch_region
 from repro_torch.obs.metrics import default_registry
+from repro_torch.obs.tracing import MERGE_KINDS, MERGE_OUTCOMES, to_ns
 
 __all__ = ["MaintenanceDaemon", "TieredMergePolicy"]
 
@@ -261,7 +264,10 @@ class MaintenanceDaemon:
 
     def _apply(self, g: int, batcher, snapshot, plan: dict) -> int:
         """Run one planned pass: rebuild outside the engine lock, install
-        via CAS, record, commit.  Returns 1 if the pass was applied."""
+        via CAS, record, commit.  Returns 1 if the pass was applied.  A
+        rebuild that an ingest or delete raced is thrown away and counted
+        in ``maintenance.merges.discarded`` (a compaction in
+        ``maintenance.compactions.discarded``)."""
         kind = plan["kind"]
         t0 = time.monotonic()
         try:
@@ -285,16 +291,24 @@ class MaintenanceDaemon:
                 entry["tombstone_ratio"] = plan["tombstone_ratio"]
             self.failures.append(entry)
             self.metrics.counter("maintenance.failures", group=g).inc()
+            self._span(g, kind, t0, time.monotonic(), "failed")
             return 0
-        duration = time.monotonic() - t0
+        t1 = time.monotonic()
+        duration = t1 - t0
         try:
             swapped = batcher.swap_index(rebuilt, expected=snapshot)
         except RuntimeError:
+            self._span(g, kind, t0, t1, "discarded")
             return 0                                  # engine closed mid-sweep
         if not swapped:
             # CAS miss: an ingest/delete raced the rebuild -- the next
             # sweep re-evaluates the fresh index
+            self.metrics.counter(
+                "maintenance.merges.discarded" if kind == "merge"
+                else "maintenance.compactions.discarded", group=g).inc()
+            self._span(g, kind, t0, t1, "discarded")
             return 0
+        self._span(g, kind, t0, t1, "applied")
         self._quarantine.pop(g, None)
         if kind == "merge":
             run = snapshot.segments[plan["start"]:plan["start"]
@@ -326,6 +340,16 @@ class MaintenanceDaemon:
                 "maintenance.compact.duration_s").observe(duration)
         self._commit(g, rebuilt)
         return 1
+
+    def _span(self, g: int, kind: str, t0: float, t1: float,
+              outcome: str) -> None:
+        """The rebuild as a ``maintenance.merge`` span, while the
+        registry's timeline records."""
+        tl = self.metrics.timeline
+        if tl.recording():
+            tl.record("maintenance.merge", to_ns(t0), to_ns(t1), group=g,
+                      arg0=MERGE_OUTCOMES.index(outcome),
+                      arg1=MERGE_KINDS.index(kind))
 
     def _commit(self, g: int, compacted) -> None:
         """Roll a commit point for the state that won the CAS (the ES

@@ -397,29 +397,39 @@ class ClusterEngine:
 
     # ------------------------------------------------------------- routing
     def _pick(self, stream, exclude=(), trace=NULL_TRACE) -> int:
-        up = [g for g in self.health.up_groups() if g not in exclude]
-        if not up:
-            raise RuntimeError("no healthy replica group available")
-        least = min(up, key=lambda g: self._batchers[g].pending)
-        if stream is None:
-            return least
-        with self._lock:
-            pinned = self._streams.get(stream)
-            if pinned is None:
-                self._streams[stream] = pinned = least
-            self._streams.move_to_end(stream)
-            while len(self._streams) > self.max_stream_pins:
-                self._streams.popitem(last=False)
-        if (pinned in up
-                and self._batchers[pinned].pending <= self.spill_threshold):
-            return pinned
-        if pinned in up and least != pinned:
-            # the pinned group is healthy but over the spill threshold:
-            # this request overflows to the least-loaded copy (adaptive
-            # replica selection) -- a routing event worth metering
-            self._c_spills.inc()
-            trace.event("spill", from_group=pinned, to_group=least)
-        return least                      # spill; the pin itself persists
+        """The group a request goes to (pin, spill or least loaded); a
+        ``router.pick`` span on the calling thread while the timeline
+        records."""
+        tl = self.metrics.timeline
+        t0 = time.monotonic_ns() if tl.recording() else None
+        try:
+            up = [g for g in self.health.up_groups() if g not in exclude]
+            if not up:
+                raise RuntimeError("no healthy replica group available")
+            least = min(up, key=lambda g: self._batchers[g].pending)
+            if stream is None:
+                return least
+            with self._lock:
+                pinned = self._streams.get(stream)
+                if pinned is None:
+                    self._streams[stream] = pinned = least
+                self._streams.move_to_end(stream)
+                while len(self._streams) > self.max_stream_pins:
+                    self._streams.popitem(last=False)
+            if (pinned in up and self._batchers[pinned].pending
+                    <= self.spill_threshold):
+                return pinned
+            if pinned in up and least != pinned:
+                # the pinned group is healthy but over the spill
+                # threshold: this request overflows to the least-loaded
+                # copy (adaptive replica selection) -- a routing event
+                # worth metering
+                self._c_spills.inc()
+                trace.event("spill", from_group=pinned, to_group=least)
+            return least                  # spill; the pin itself persists
+        finally:
+            if t0 is not None:
+                tl.record("router.pick", t0, time.monotonic_ns())
 
     def submit(self, query_vec: np.ndarray, stream=None) -> Future:
         """Route one query -> Future of (ids, scores).

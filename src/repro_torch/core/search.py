@@ -34,7 +34,9 @@ every tensor there.
 ``search(profile=node)`` annotates a
 :class:`repro_torch.obs.profile.ProfileNode` with encode / phase1 /
 rescore children, each phase fenced by :func:`profile_phase`; without a
-profile no fence is added.
+profile no fence is added.  Under an engine's timeline sink the same
+boundaries close the spans ``search.encode``, ``search.phase1`` and
+``search.rescore``, unfenced (:func:`repro_torch.obs.tracing.phase_clock`).
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.obs import cost
+from repro_torch.obs.tracing import phase_clock
 
 from .codes import score_codes, score_onehot
 from .encoding import Encoder, RoundingEncoder
@@ -270,6 +273,7 @@ class VectorIndex:
         names and attributes; ``kernel`` is the engine for the fused
         engines, else ``"composed"``)."""
         t_prof = time.monotonic() if profile is not None else 0.0
+        clock = phase_clock()
         queries = torch.atleast_2d(torch.as_tensor(
             queries, dtype=torch.float32, device=self.device))
         page = min(page, self.n_docs)
@@ -281,6 +285,8 @@ class VectorIndex:
             if profile is not None:
                 t_prof = profile_phase(profile, "encode", t_prof,
                                        self.device, n_queries=q.shape[0])
+            if clock is not None:
+                clock.close("search.encode")
             qt = self.quantized
             _, cand = fp_ops.fused_phase1_quant(qt.codes, qt.scale, qt.zero,
                                                 q, page=page)
@@ -290,6 +296,8 @@ class VectorIndex:
             if profile is not None:
                 t_prof = profile_phase(profile, "encode", t_prof,
                                        self.device, n_queries=q.shape[0])
+            if clock is not None:
+                clock.close("search.encode")
             if engine == "fused":
                 from repro_torch.kernels.fused_phase1 import ops as fp_ops
 
@@ -304,9 +312,13 @@ class VectorIndex:
                 profile, "phase1", t_prof, self.device, engine=engine,
                 kernel=engine if engine in FUSED_ENGINES else "composed",
                 page=page, k=k, candidates=cand.numel())
+        if clock is not None:
+            clock.close("search.phase1", 1, 1)     # one shard, one table
         ids, scores = rerank_topk(self.vectors, cand, q, k)
         if profile is not None:
             profile_phase(profile, "rescore", t_prof, self.device, k=k)
+        if clock is not None:
+            clock.close("search.rescore")
         return ids, scores
 
     def shard(self, mesh=None, **kwargs):

@@ -101,6 +101,7 @@ from repro_torch.core.search import (_SENTINEL, FUSED_ENGINES, VectorIndex,
                                      encode_table, phase1_engine_scores,
                                      profile_phase)
 from repro_torch.obs.compile_watch import watch_region
+from repro_torch.obs.tracing import phase_clock
 
 __all__ = ["ShardedVectorIndex", "Segment", "DEFAULT_SEAL_THRESHOLD"]
 
@@ -627,6 +628,7 @@ class ShardedVectorIndex:
         n_act = self.n_active
         if n_act == 0:
             return self
+        clock = phase_clock()
         w = int(self._seg_slots_used(n_act, self.n_shards).max())
         svec, scod, sgid, sliv = (t[:, :w].clone() for t in (
             self.seg_vectors, self.seg_codes, self.seg_gids, self.seg_live))
@@ -639,7 +641,10 @@ class ShardedVectorIndex:
             active_tombstones=0, **self._empty_active(
                 self.n_shards, self.n_features, self.codes.shape[-1],
                 self.codes.dtype, self.device))
-        return self._carry_quant(out, base=True)
+        out = self._carry_quant(out, base=True)
+        if clock is not None:
+            clock.close("ingest.seal")
+        return out
 
     def delete(self, ids) -> "ShardedVectorIndex":
         """Tombstone documents by global id -> a new index.
@@ -847,10 +852,13 @@ class ShardedVectorIndex:
         group that served rows, ``base``, one ``gen{i}`` per sealed segment
         and ``active``, each with its candidate count: a read of the page's
         ids to the host, made in profile mode only), merge_select and
-        rescore."""
+        rescore.  Under an engine's timeline sink the same boundaries
+        close ``search.encode``, ``search.phase1`` (args: shards,
+        generations), ``search.merge`` and ``search.rescore``, unfenced."""
         if merge not in ("gather", "stream"):
             raise ValueError(f"unknown merge transport {merge!r}")
         t_prof = time.monotonic() if profile is not None else 0.0
+        clock = phase_clock()
         R = self.n_replicas
         if live_groups is None:
             groups = tuple(range(R))
@@ -880,6 +888,8 @@ class ShardedVectorIndex:
         if profile is not None:
             t_prof = profile_phase(profile, "encode", t_prof, self.device,
                                    n_queries=n_q, groups=U)
+        if clock is not None:
+            clock.close("search.encode")
         if max_postings == "auto":
             max_postings = max(1, self.max_df)
         L = (self.docs_per_shard if max_postings is None
@@ -904,15 +914,17 @@ class ShardedVectorIndex:
         q = q[:n_q]
         generations = len(self.segments) + (
             1 if self.n_appended and self.seg_capacity else 0)
-        if profile is None:
-            return _merge_phase(gid, s2, cvec, q, k, generations=generations)
-        profile_phase(profile, "phase1", t_prof, self.device, engine=engine,
-                      kernel=engine if engine in FUSED_ENGINES
-                      else "composed", page=page, page_loc=page_loc, k=k,
-                      merge=merge)
-        self._count_candidates(profile.children[-1], gid, n_q, groups, B)
+        if profile is not None:
+            profile_phase(profile, "phase1", t_prof, self.device,
+                          engine=engine, kernel=engine if engine
+                          in FUSED_ENGINES else "composed", page=page,
+                          page_loc=page_loc, k=k, merge=merge)
+            self._count_candidates(profile.children[-1], gid, n_q, groups,
+                                   B)
+        if clock is not None:
+            clock.close("search.phase1", self.n_shards, generations)
         return _merge_phase(gid, s2, cvec, q, k, profile=profile,
-                            generations=generations)
+                            generations=generations, clock=clock)
 
     def _count_candidates(self, node, gid, n_q, groups, B) -> None:
         """The phase1 node's children, as the reference makes them: the
@@ -1109,11 +1121,14 @@ def _take(pos, gid, s2, cvec):
             torch.gather(cvec, 1, pos[..., None].expand(-1, -1, n)))
 
 
-def _merge_phase(gid, s2, cvec, q, k, profile=None, generations=0):
+def _merge_phase(gid, s2, cvec, q, k, profile=None, generations=0,
+                 clock=None):
     """Stable top-``k`` over the page's exact cosines, then the reported
     scores from the (Q, k, n) einsum of ``exact_scores``; slots whose
     score is -inf report (id=-1, score=-inf).  With a ``profile`` the two
-    steps are its ``merge_select`` and ``rescore`` children."""
+    steps are its ``merge_select`` and ``rescore`` children; with a
+    timeline ``clock`` they close ``search.merge`` and
+    ``search.rescore``."""
     t_prof = time.monotonic() if profile is not None else 0.0
     with watch_region("search.merge_select",
                       sig=(tuple(gid.shape), k, generations)):
@@ -1123,6 +1138,8 @@ def _merge_phase(gid, s2, cvec, q, k, profile=None, generations=0):
     if profile is not None:
         t_prof = profile_phase(profile, "merge_select", t_prof, q.device,
                                k=k, generations=generations)
+    if clock is not None:
+        clock.close("search.merge")
     check_fp32_matmul(hits)
     with watch_region("search.rescore", sig=(tuple(q.shape), k)):
         scores = torch.einsum("qkn,qn->qk", hits, q)
@@ -1134,6 +1151,8 @@ def _merge_phase(gid, s2, cvec, q, k, profile=None, generations=0):
                                          value=_NEG_INF)
     if profile is not None:
         profile_phase(profile, "rescore", t_prof, q.device, k=k)
+    if clock is not None:
+        clock.close("search.rescore")
     return top_ids, scores
 
 

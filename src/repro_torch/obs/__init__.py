@@ -12,7 +12,16 @@ answers are bit-identical with the plane on or off.  The JAX package's
   counters, gauges and log-bucketed histograms (ES ``_nodes/stats``);
 * :mod:`~repro_torch.obs.tracing` -- sampled per-request span traces
   with ring retention; ``Tracer(annotate=True)`` opens
-  ``torch.profiler.record_function`` ranges around the dispatch;
+  ``torch.profiler.record_function`` ranges around the dispatch; and the
+  serving path's :class:`~repro_torch.obs.tracing.Timeline`
+  (``registry.timeline``): a fixed ring of 2**18 spans in numpy arrays
+  -- ``batcher.wait`` / ``batcher.form`` / ``search.launch`` /
+  ``search.answer_wait`` / ``batcher.deliver`` tiling each batcher loop,
+  ``search.encode`` / ``search.phase1`` / ``search.merge`` /
+  ``search.rescore`` under the launch, ``ingest.add`` / ``ingest.seal``,
+  ``maintenance.merge`` and ``router.pick`` -- on ``time.monotonic_ns``,
+  written only while a ``torch.profiler`` session records, and carried
+  with its clock anchor in ``registry.snapshot()["timeline"]``;
 * :mod:`~repro_torch.obs.profile` -- ``_search?profile=true`` trees
   (``engine.search(..., profile=True)``);
 * :mod:`~repro_torch.obs.slowlog` -- the tail-captured slow log;

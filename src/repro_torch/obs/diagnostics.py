@@ -27,7 +27,7 @@ section                   contents (ES analogue)
 ``slowlog``               the slow-log ring, NOT cleared (dumping
                           diagnostics must not eat the evidence)
 ``traces``                the tracer ring, when sampling is on
-``metrics``               full registry snapshot
+``metrics``               full registry snapshot, less its timeline
 ``metrics_history``       the exporter's recent collection ring, when
                           an exporter is polling
 ========================  ==============================================
@@ -124,7 +124,8 @@ def diagnostics_bundle(engine, *, exporter=None,
         "traces": (None if tracer is None
                    else {"entries": tracer.dump(),
                          "stats": tracer.stats()}),
-        "metrics": engine.metrics.snapshot(),
+        "metrics": {k: v for k, v in engine.metrics.snapshot().items()
+                    if k != "timeline"},
         "metrics_history": (exporter.history()
                             if exporter is not None else []),
     }

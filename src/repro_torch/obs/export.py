@@ -15,7 +15,8 @@ byte, for the same snapshot.  This module is that one seam:
   completed``; the registry's ``"k=v,k=v"`` label strings become
   ``{k="v",...}`` label sets.
 * :class:`MetricsExporter` -- a bounded in-memory history ring of
-  ``{"t_monotonic", "metrics"}`` snapshot records, optionally mirrored
+  ``{"t_monotonic", "metrics"}`` snapshot records (the registry's
+  ``timeline`` section left out), optionally mirrored
   to an append-only JSONL file, optionally collected periodically by a
   background thread.
 
@@ -160,8 +161,9 @@ class MetricsExporter:
     def collect(self) -> dict:
         """Take one snapshot record: append to the ring (and the JSONL
         sink when configured) and return it."""
-        rec = {"t_monotonic": time.monotonic(),
-               "metrics": self.registry.snapshot()}
+        snap = self.registry.snapshot()
+        snap.pop("timeline", None)          # spans are not history
+        rec = {"t_monotonic": time.monotonic(), "metrics": snap}
         with self._lock:
             self._ring.append(rec)
             f = self._file

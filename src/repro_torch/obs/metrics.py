@@ -16,7 +16,7 @@ series, the way ES stats key by node/index/shard):
 
 Design constraints, in order:
 
-1. **Off the device.**  Nothing here touches torch; instruments record
+1. **Off the device.**  Nothing here touches the card; instruments record
    host-side timestamps taken around the search dispatch only, so
    instrumentation can never change what a kernel computes.
 2. **Low overhead.**  One ``threading.Lock`` acquisition and O(1) work
@@ -42,6 +42,8 @@ import math
 import threading
 from bisect import bisect_left
 from typing import Dict, Tuple
+
+from .tracing import Timeline
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "default_registry"]
@@ -243,12 +245,16 @@ class MetricsRegistry:
     the same series object comes back every time, so call sites may
     either cache the instrument (hot paths do) or look it up ad hoc.
     ``enabled`` flips all recording on/off without touching call sites.
+    ``timeline`` is the serving path's span ring
+    (:class:`~repro_torch.obs.tracing.Timeline`), recording only while a
+    ``torch.profiler`` session records.
     """
 
     def __init__(self, enabled: bool = True):
         self.enabled = enabled
         self._lock = threading.Lock()
         self._instruments: Dict[Tuple, _Instrument] = {}
+        self.timeline = Timeline(self)
 
     def _get(self, cls, name: str, labels: dict) -> _Instrument:
         key = (cls.__name__, name, _labels_key(labels))
@@ -303,7 +309,9 @@ class MetricsRegistry:
     def snapshot(self) -> dict:
         """{"counters": {name: {label_str: value}}, "gauges": {...},
         "histograms": {name: {label_str: {count,sum,min,max,mean,pXX}}}}
-        -- label_str is "k=v,k=v" ("" for unlabelled series)."""
+        -- label_str is "k=v,k=v" ("" for unlabelled series) -- and,
+        while the timeline holds spans, "timeline":
+        :meth:`~repro_torch.obs.tracing.Timeline.snapshot`."""
         with self._lock:
             items = list(self._instruments.items())
         out = {"counters": {}, "gauges": {}, "histograms": {}}
@@ -313,6 +321,9 @@ class MetricsRegistry:
             label_str = ",".join(f"{k}={v}" for k, v in labels)
             val = (inst.snapshot() if kind == "Histogram" else inst.value)
             out[section[kind]].setdefault(name, {})[label_str] = val
+        timeline = self.timeline.snapshot()
+        if timeline is not None:
+            out["timeline"] = timeline
         return out
 
 

@@ -24,17 +24,70 @@ admission is sampled: ``sample=1/16`` keeps one query in 16 (counter-
 based, deterministic -- no RNG on the hot path).  Unsampled queries get
 the singleton :data:`NULL_TRACE` whose every method is a no-op, so call
 sites never branch.
+
+**The serving path's timeline** (:class:`Timeline`, owned by a
+:class:`~repro_torch.obs.metrics.MetricsRegistry` as
+``registry.timeline``) is the other half: not one request's spans but
+every serving thread's, written where the work happens.  The span names,
+in :data:`SPAN_NAMES`:
+
+* ``batcher.wait`` (loop top to dequeue), ``batcher.form`` (dequeue to
+  dispatch), ``search.launch`` (dispatch to just before the answers'
+  copies), ``search.answer_wait`` (the two copies) and
+  ``batcher.deliver`` (futures resolved, the batch let go): they share
+  their edges, so they tile each batcher loop, and the spans of one
+  batch share its batch id;
+* ``search.encode``, ``search.phase1`` (its args: shards, generations),
+  ``search.merge`` and ``search.rescore``: children of ``search.launch``,
+  closed where ``profile_phase`` closes a phase but with no fence, so
+  they time the host's issue of the work, not the card's;
+* ``ingest.add`` (inside the engine lock) and its child
+  ``ingest.seal``; ``maintenance.merge`` (a rebuild, its args: outcome,
+  kind); ``router.pick`` (a routed submit's group choice).
+
+Each span is one row of a ring of :data:`TIMELINE_CAPACITY` rows of a
+preallocated numpy array (start and end in ``time.monotonic_ns``, name
+id, native thread id, span id, parent span id, batch id, group, two
+integer args), written by one ``struct.pack_into``: recording keeps no
+Python object, takes no lock, and a wrapped ring counts each
+overwritten span in the counter ``timeline.dropped``.  The index code
+cannot see the registry, so the engine sets a :class:`Sink` as the
+thread's active one around a dispatch or an add, and
+:func:`phase_clock` finds it there.
+
+The timeline records only while a ``torch.profiler`` session records
+and the registry is enabled.  The check is the profiler's process-wide
+flag, ``torch.autograd.profiler._is_profiler_enabled``, which a session
+sets for every thread (``torch._C._autograd._profiler_enabled()`` answers
+for the calling thread only, and is False on a batcher's thread while
+the main thread profiles).  Off, a span site costs that one check and
+allocates nothing, and nothing opens a profiler range.
+
+``registry.snapshot()`` carries a ``timeline`` section while spans are
+held (:meth:`Timeline.snapshot`), with an
+anchor pair -- ``time.time_ns()`` and ``time.monotonic_ns()`` read back
+to back -- that maps every span onto the profiler's clock, the wall
+clock of ``time.time_ns``: ``wall = t + anchor.wall_ns -
+anchor.monotonic_ns``.  The Prometheus text, the JSONL history and the
+diagnostics bundle leave the section out.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import struct
 import threading
 import time
 from collections import deque
 from typing import List, Optional
 
-__all__ = ["Span", "Trace", "Tracer", "NULL_TRACE", "annotation"]
+import numpy as np
+from torch.autograd import profiler as _autograd_profiler
+
+__all__ = ["Span", "Trace", "Tracer", "NULL_TRACE", "annotation",
+           "Timeline", "Sink", "PhaseClock", "phase_clock", "SPAN_NAMES",
+           "TIMELINE_CAPACITY", "to_ns"]
 
 
 def annotation(name: str, enabled: bool = True):
@@ -241,3 +294,186 @@ class Tracer:
             return {"seen": self._n_seen, "sampled": self._n_started,
                     "retained": len(self._ring),
                     "capacity": self._ring.maxlen, "sample": self.sample}
+
+
+# ------------------------------------------------------------- timeline
+SPAN_NAMES = ("batcher.wait", "batcher.form", "search.launch",
+              "search.encode", "search.phase1", "search.merge",
+              "search.rescore", "search.answer_wait", "batcher.deliver",
+              "ingest.add", "ingest.seal", "maintenance.merge",
+              "router.pick")
+_NAME_ID = {n: i for i, n in enumerate(SPAN_NAMES)}
+# what a span's two integer args hold, by span name (0 elsewhere)
+SPAN_ARGS = {"search.phase1": ("shards", "generations"),
+             "maintenance.merge": ("outcome", "kind")}
+MERGE_OUTCOMES = ("applied", "discarded", "failed")
+MERGE_KINDS = ("merge", "compact")
+TIMELINE_CAPACITY = 1 << 18
+_SPAN_ROW = np.dtype([("t0_ns", "<i8"), ("t1_ns", "<i8"), ("name", "<i4"),
+                      ("group", "<i4"), ("thread", "<i8"), ("span", "<i8"),
+                      ("parent", "<i8"), ("batch", "<i8"), ("arg0", "<i4"),
+                      ("arg1", "<i4")])
+# one row's bytes, field for field: a span is one C call that writes it
+_PACK_ROW = struct.Struct("<qqiiqqqqii").pack_into
+
+
+class _Local(threading.local):
+    sink: "Optional[Sink]" = None     # this thread's active Sink
+    tid = 0                           # its native id, read once
+
+
+_TLS = _Local()
+
+
+def _native_tid() -> int:
+    _TLS.tid = threading.get_native_id()     # a system call: read once
+    return _TLS.tid
+
+
+def to_ns(t: float) -> int:
+    """A ``time.monotonic()`` read in ``time.monotonic_ns()`` units (the
+    same clock), so a span takes the reads a histogram took."""
+    return round(t * 1e9)
+
+
+class Sink:
+    """Where the index code's spans go while the engine serves one batch
+    or one add on this thread: the timeline, the span they are children
+    of (``parent``, an id drawn when the sink is made), the batch and the
+    group.  ``with sink:`` makes it the thread's active sink;
+    ``t_copy`` is the engine's clock read just before the answers'
+    copies."""
+
+    __slots__ = ("timeline", "parent", "batch", "group", "t_copy", "_prev")
+
+    def __init__(self, timeline: "Timeline", batch: int, group: int):
+        self.timeline, self.batch, self.group = timeline, batch, group
+        self.parent = next(timeline._ids)
+        self.t_copy: Optional[float] = None
+
+    def __enter__(self):
+        self._prev = _TLS.sink
+        _TLS.sink = self
+        return self
+
+    def __exit__(self, *exc):
+        _TLS.sink = self._prev
+        return False
+
+
+class PhaseClock:
+    """Closes consecutive phases of one search or add as child spans of
+    the active sink's span: each from the last boundary to now."""
+
+    __slots__ = ("sink", "t")
+
+    def __init__(self, sink: Sink):
+        self.sink = sink
+        self.t = time.monotonic_ns()
+
+    def close(self, name: str, arg0: int = 0, arg1: int = 0) -> None:
+        t = time.monotonic_ns()
+        s = self.sink
+        s.timeline.record(name, self.t, t, parent=s.parent, batch=s.batch,
+                          group=s.group, arg0=arg0, arg1=arg1)
+        self.t = t
+
+
+def phase_clock() -> Optional[PhaseClock]:
+    """A :class:`PhaseClock` from now on this thread's active sink, or
+    None where the engine set none (no profiler was recording when the
+    batch or the add began).  Off, a search pays this one look-up."""
+    sink = _TLS.sink
+    return None if sink is None else PhaseClock(sink)
+
+
+class Timeline:
+    """The ring of the serving threads' spans (module docstring).
+    ``registry`` receives ``timeline.dropped``; ``capacity`` rows are
+    allocated at the first span recorded, never before."""
+
+    def __init__(self, registry, capacity: int = TIMELINE_CAPACITY):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.capacity = capacity
+        self._registry = registry
+        self._rows: Optional[np.ndarray] = None
+        self._bytes: Optional[memoryview] = None     # the rows' memory
+        self._alloc_lock = threading.Lock()
+        self._slots = itertools.count()
+        self._ids = itertools.count(1)        # span ids; 0 marks a free row
+        self._batches = itertools.count(1)
+
+    def recording(self) -> bool:
+        """Whether a span recorded now is kept: a ``torch.profiler``
+        session records and the registry is enabled."""
+        return (_autograd_profiler._is_profiler_enabled
+                and self._registry.enabled)
+
+    def new_batch(self) -> int:
+        """The next batch id (drawn for every batch, recorded or not: the
+        per-request traces carry it)."""
+        return next(self._batches)
+
+    def sink(self, batch: int = 0, group: Optional[int] = None) -> Sink:
+        return Sink(self, batch, -1 if group is None else group)
+
+    def record(self, name: str, t0_ns: int, t1_ns: int, *, span: int = 0,
+               parent: int = 0, batch: int = 0, group: int = -1,
+               arg0: int = 0, arg1: int = 0) -> None:
+        """Write one finished span (``span`` 0: draw its id)."""
+        buf = self._bytes if self._bytes is not None else self._allocate()
+        slot = next(self._slots)
+        if slot >= self.capacity:
+            self._registry.counter("timeline.dropped").inc()
+        # the whole row in one call: a snapshot sees it whole or not
+        _PACK_ROW(buf, (slot % self.capacity) * _SPAN_ROW.itemsize, t0_ns,
+                  t1_ns, _NAME_ID[name], group, _TLS.tid or _native_tid(),
+                  span or next(self._ids), parent, batch, arg0, arg1)
+
+    def record_batch(self, sink: Sink, t_top: Optional[float], t_deq: float,
+                     t_dispatch: float, t_done: float, t_end: float) -> None:
+        """The five batcher spans of one batch, from the engine's shared
+        ``time.monotonic()`` reads, so they tile its loop; ``t_top`` None
+        (the loop's top came before a profiler recorded) leaves out
+        ``batcher.wait``.  ``search.launch`` takes the sink's id, the
+        parent of the index's phases."""
+        t_copy = t_done if sink.t_copy is None else sink.t_copy
+        kw = dict(batch=sink.batch, group=sink.group)
+        if t_top is not None:
+            self.record("batcher.wait", to_ns(t_top), to_ns(t_deq), **kw)
+        self.record("batcher.form", to_ns(t_deq), to_ns(t_dispatch), **kw)
+        self.record("search.launch", to_ns(t_dispatch), to_ns(t_copy),
+                    span=sink.parent, **kw)
+        self.record("search.answer_wait", to_ns(t_copy), to_ns(t_done),
+                    **kw)
+        self.record("batcher.deliver", to_ns(t_done), to_ns(t_end), **kw)
+
+    def _allocate(self) -> memoryview:
+        with self._alloc_lock:
+            if self._rows is None:
+                rows = np.zeros(self.capacity, _SPAN_ROW)
+                self._bytes = memoryview(rows).cast("B")
+                self._rows = rows
+        return self._bytes
+
+    def snapshot(self) -> Optional[dict]:
+        """The held spans, oldest start first, as one array per field
+        under ``spans``, with the anchor, the name table, the args'
+        meanings and ``dropped``; None while no span is held."""
+        if self._rows is None:
+            return None
+        # bytes() copies under the interpreter lock, which no row write
+        # can interleave with (numpy's own copy may release it)
+        rows = np.frombuffer(bytes(self._bytes), _SPAN_ROW)
+        held = rows[rows["span"] > 0]
+        held = held[np.argsort(held["t0_ns"], kind="stable")]
+        wall = time.time_ns()
+        mono = time.monotonic_ns()
+        return {"anchor": {"wall_ns": wall, "monotonic_ns": mono},
+                "names": list(SPAN_NAMES),
+                "args": {n: list(a) for n, a in SPAN_ARGS.items()},
+                "codes": {"outcome": list(MERGE_OUTCOMES),
+                          "kind": list(MERGE_KINDS)},
+                "spans": {f: held[f].copy() for f in _SPAN_ROW.names},
+                "dropped": int(self._registry.value("timeline.dropped"))}

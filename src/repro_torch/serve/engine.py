@@ -40,13 +40,23 @@ shared ``dispatch`` node, its three phases cut from shared clock reads
 so they tile the root; the dispatch, ingest and delete run in
 ``compile_watch`` regions, and the dispatch in a
 ``torch.profiler.record_function`` range when the tracer annotates.
-All of it is host-side: the answers are bit-identical with the plane on
-or off, and a request without a profile adds no device synchronisation.
+While a ``torch.profiler`` session records, the worker writes its loop
+to the registry's timeline (:class:`~repro_torch.obs.tracing.Timeline`)
+as five spans a batch that tile it -- ``batcher.wait``,
+``batcher.form``, ``search.launch``, ``search.answer_wait``,
+``batcher.deliver`` -- from the same clock reads as the histograms, and
+sets a sink on its thread around the search and around an add, under
+which the index records its phases and ``ingest.add`` its seal; every
+batch draws a batch id, which its requests' trace spans carry as
+``batch``.  All of it is host-side: the answers are bit-identical with
+the plane on or off, and a request without a profile adds no device
+synchronisation.
 ``stats()`` is the ES ``_cat/thread_pool`` view of this engine.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import threading
 import time
@@ -61,9 +71,11 @@ from repro_torch.obs.compile_watch import active_watch
 from repro_torch.obs.metrics import default_registry
 from repro_torch.obs.profile import ProfileNode
 from repro_torch.obs.slowlog import start_request_trace
-from repro_torch.obs.tracing import annotation
+from repro_torch.obs.tracing import annotation, to_ns
 
 __all__ = ["BatchedSearchEngine"]
+
+_NO_SINK = contextlib.nullcontext()
 
 
 def _accepts_profile(index) -> bool:
@@ -188,12 +200,19 @@ class BatchedSearchEngine:
             first_id = self.index.n_ids
             donate = (self.donate_ingest and self._serving is None
                       and "donate" in inspect.signature(add).parameters)
+            tl = self.metrics.timeline
+            sink = tl.sink(group=self.group) if tl.recording() else None
             t0 = time.monotonic()
             with self.compile_watch.region("engine.ingest",
                                            sig=(tuple(np.shape(vectors)),)):
-                self.index = (add(vectors, donate=True) if donate
-                              else add(vectors))
-            latency = time.monotonic() - t0
+                with sink or _NO_SINK:
+                    self.index = (add(vectors, donate=True) if donate
+                                  else add(vectors))
+            t1 = time.monotonic()
+            latency = t1 - t0
+            if sink is not None:
+                tl.record("ingest.add", to_ns(t0), to_ns(t1),
+                          span=sink.parent, group=sink.group)
         # the stall submits see: measured inside the lock
         self.metrics.histogram("engine.ingest.latency_s",
                                **self._metric_labels).observe(latency)
@@ -301,7 +320,10 @@ class BatchedSearchEngine:
             qs = np.concatenate([qs, np.zeros((pad, qs.shape[1]), qs.dtype)])
         return qs
 
-    def _search(self, index, qs, profile=None):
+    def _search(self, index, qs, profile=None, sink=None):
+        """The batch's search and its answers' copies; with a timeline
+        ``sink`` the index's phases record under it, and ``sink.t_copy``
+        takes the clock just before the copies."""
         kwargs = {"merge": self.merge} if self.merge else {}
         if self.max_postings is not None:
             kwargs["max_postings"] = self.max_postings
@@ -317,9 +339,12 @@ class BatchedSearchEngine:
                     sig=(qs.shape, qs.dtype, self.engine, self.k,
                          self.page, self.merge or "gather")):
                 # the index puts the batch on its own device
-                ids, scores = index.search(
-                    torch.from_numpy(qs), k=self.k, page=self.page,
-                    trim=self.trim, engine=self.engine, **kwargs)
+                with sink or _NO_SINK:
+                    ids, scores = index.search(
+                        torch.from_numpy(qs), k=self.k, page=self.page,
+                        trim=self.trim, engine=self.engine, **kwargs)
+                if sink is not None:
+                    sink.t_copy = time.monotonic()
                 # the answers' two copies to the host: the batch's only
                 # synchronisation
                 ids = torch.as_tensor(ids).cpu()  # host-seam: answer
@@ -327,6 +352,8 @@ class BatchedSearchEngine:
                 return np.asarray(ids), np.asarray(scores)
 
     def _run(self):
+        tl = self.metrics.timeline
+        t_top = None        # the loop's top, read while the timeline records
         while True:
             got = self._next_batch()
             if got is None:
@@ -334,6 +361,8 @@ class BatchedSearchEngine:
             batch, index, t_deq = got
             if not batch:
                 continue
+            bid = tl.new_batch()
+            sink = tl.sink(bid, self.group) if tl.recording() else None
             # one t_deq for the whole batch: every wait below is
             # (t_deq - enqueue), the same clock read
             self._h_wait.observe_many([t_deq - it[2] for it in batch])
@@ -355,7 +384,7 @@ class BatchedSearchEngine:
                     t_dispatch = time.monotonic()
                     ids, scores = self._search(
                         index, qs, prof if prof is not None
-                        and _accepts_profile(index) else None)
+                        and _accepts_profile(index) else None, sink)
                 except Exception as exc:  # noqa: BLE001 - fwd to futures
                     t_done = time.monotonic()
                     error = exc
@@ -370,11 +399,13 @@ class BatchedSearchEngine:
                     if not tr:
                         continue
                     tr.span("queue_wait", t0=t_enq, t1=t_deq,
-                            group=self.group)
+                            group=self.group, batch=bid)
                     tr.span("batch_form", t0=t_deq, t1=t_dispatch,
-                            batch_size=len(batch), group=self.group)
+                            batch_size=len(batch), group=self.group,
+                            batch=bid)
                     tr.span("dispatch", t0=t_dispatch, t1=t_done,
                             group=self.group, batch_size=len(batch),
+                            batch=bid,
                             **({} if error is None
                                else {"error": repr(error)}))
                 if error is not None:
@@ -405,3 +436,10 @@ class BatchedSearchEngine:
                 with self._lock:
                     self._inflight = 0
                     self._serving = None
+                if sink is None:
+                    t_top = None
+                else:
+                    t_end = time.monotonic()
+                    tl.record_batch(sink, t_top, t_deq, t_dispatch, t_done,
+                                    t_end)
+                    t_top = t_end

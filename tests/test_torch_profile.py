@@ -15,7 +15,9 @@ VectorIndex and ShardedVectorIndex, on the CPU.
   build watch + ``profile=True`` give the bare engine's ids and scores
   bit for bit, for all six engines, on a flat index and on a
   ``ShardedVectorIndex`` with a sealed generation, an active buffer and
-  tombstones (the history of the JAX suite's ``sidx`` fixture);
+  tombstones (the history of the JAX suite's ``sidx`` fixture), and so
+  with a ``torch.profiler`` session recording, while the timeline writes
+  each batch's phase spans;
 * **trees reconcile** -- ``queue_wait`` + ``batch_form`` + ``dispatch``
   tile the root (float addition error only), and the segmented
   ``phase1`` node's ``base`` / ``gen{i}`` / ``active`` candidate counts
@@ -30,6 +32,7 @@ import time
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from repro.core import VectorIndex as JVectorIndex
 from repro.obs import CompileWatch as JCompileWatch
@@ -218,6 +221,38 @@ def test_engine_matches_reference_engine(jidx, index, queries, engine):
 # ------------------------------------------- instrumented == bare, flat
 @pytest.mark.parametrize("engine", ALL_ENGINES)
 def test_full_plane_bit_parity_flat(index, queries, engine):
+    _parity_flat(index, queries, engine)
+
+
+@pytest.mark.parametrize("engine", ALL_ENGINES)
+def test_full_plane_bit_parity_flat_profiler_recording(index, queries,
+                                                      engine):
+    """The same, while a ``torch.profiler`` session records: the
+    timeline's spans are written and the answers keep their bits."""
+    with _profiling():
+        reg = _parity_flat(index, queries, engine)
+    _assert_phase_spans(reg, ["search.encode", "search.phase1",
+                              "search.rescore"], len(queries))
+
+
+def _profiling():
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def _assert_phase_spans(reg, phases, n_batches):
+    """The timeline of ``n_batches`` one-query batches: each launch's
+    children are ``phases``, in order."""
+    tl = reg.snapshot()["timeline"]
+    names = [tl["names"][i] for i in tl["spans"]["name"]]
+    launches = [s for s, n in zip(tl["spans"]["span"], names)
+                if n == "search.launch"]
+    assert len(launches) == n_batches
+    for sid in launches:
+        kids = [n for n, p in zip(names, tl["spans"]["parent"]) if p == sid]
+        assert kids == phases
+
+
+def _parity_flat(index, queries, engine):
     bare = _bare(index, engine)
     inst, reg = _full(index, engine)
     try:
@@ -238,11 +273,26 @@ def test_full_plane_bit_parity_flat(index, queries, engine):
     assert reg.value("engine.requests.completed") == n
     assert reg.value("engine.kernel_path", engine=engine) == n
     assert reg.value("slowlog.captured") == reg.value("slowlog.seen") == n
+    return reg
 
 
 # -------------------------------------- instrumented == bare, segmented
 @pytest.mark.parametrize("engine", ALL_ENGINES)
 def test_full_plane_bit_parity_segmented(sidx, queries, engine):
+    _parity_segmented(sidx, queries, engine)
+
+
+@pytest.mark.parametrize("engine", ALL_ENGINES)
+def test_full_plane_bit_parity_segmented_profiler_recording(sidx, queries,
+                                                           engine):
+    with _profiling():
+        reg = _parity_segmented(sidx, queries, engine)
+    _assert_phase_spans(reg, ["search.encode", "search.phase1",
+                              "search.merge", "search.rescore"],
+                        len(queries))
+
+
+def _parity_segmented(sidx, queries, engine):
     assert sidx.n_segments == 1 and sidx.n_active == 0
     bare = _bare(sidx, engine)
     inst, reg = _full(sidx, engine)
@@ -288,6 +338,7 @@ def test_full_plane_bit_parity_segmented(sidx, queries, engine):
     assert st["index"]["n_tombstones"] == 2
     assert format_segments_line(st["index"]) == (
         f"segments base={N_DOCS} seg0=24-1 tombstones=2")
+    return reg
 
 
 def test_segmented_candidates_with_an_empty_generation(sidx, queries):
@@ -345,7 +396,8 @@ def test_trace_spans_complete_for_plain_query(index, queries):
     assert list(spans) == ["queue_wait", "batch_form", "dispatch"]
     assert spans["queue_wait"]["t1"] == spans["batch_form"]["t0"]
     assert spans["batch_form"]["t1"] == spans["dispatch"]["t0"]
-    assert spans["dispatch"]["attrs"] == {"group": None, "batch_size": 1}
+    assert spans["dispatch"]["attrs"] == {"group": None, "batch_size": 1,
+                                          "batch": 1}
 
 
 def test_slowlog_tail_capture_beats_head_sampling(index, queries):

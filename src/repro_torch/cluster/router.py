@@ -128,11 +128,18 @@ class _FailpointIndex:
         self._cell["fail"] = exc
 
     def search(self, *args, **kwargs):
+        with self.replay_guard():
+            return self.inner.search(*args, **kwargs)
+
+    def replay_guard(self):
+        """What ``search`` does around the inner search, which a batcher
+        also enters around each replay of a captured search
+        (:mod:`repro_torch.serve.graphs`): raise the planted failure, or
+        open the profiler range."""
         if self.fail is not None:
             raise self.fail
         name = self._cell["range"]
-        with annotation(name, name is not None):
-            return self.inner.search(*args, **kwargs)
+        return annotation(name, name is not None)
 
     def add_documents(self, vectors):
         return _FailpointIndex(self.inner.add_documents(vectors), self._cell)

@@ -93,13 +93,16 @@ def encode_table(vectors: torch.Tensor, encoder: Encoder,
 
 
 def profile_phase(profile, name: str, t0: float, device, **attrs) -> float:
-    """Close one phase of a profiled search: wait for ``device``'s queued
-    work (``torch.cuda.synchronize``; nothing to wait for on the CPU),
-    then add child ``name`` to ``profile`` with the wall seconds since
-    ``t0`` -> the clock read, the next phase's start.  The fence changes
-    when the host observes values, never the values."""
+    """Close one phase of a profiled search: wait for the work queued on
+    ``device``'s current stream, where the search runs (nothing to wait
+    for on the CPU), then add child ``name`` to ``profile`` with the wall
+    seconds since ``t0`` -> the clock read, the next phase's start.  The
+    fence changes when the host observes values, never the values.  It
+    waits for the stream, not the whole device: another batcher may be
+    capturing a CUDA graph (:mod:`repro_torch.serve.graphs`), and CUDA
+    forbids a device synchronise while any stream captures."""
     if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
     t = time.monotonic()
     profile.child(name, t - t0, **attrs)
     return t

@@ -32,20 +32,24 @@ _lock = threading.Lock()
 _CPU_ELEMENTS = 1 << 24
 
 
+def _count(n: int) -> None:
+    global launches
+    with _lock:
+        launches += n
+
+
 def code_match(
     doc_codes: torch.Tensor,    # (d, C) int
     qcodes: torch.Tensor,       # (Q, C) int
     col_weights: torch.Tensor,  # (Q, C) f32
 ) -> torch.Tensor:
     """(Q, d) f32 weighted code-equality scores."""
-    global launches
     with cost.kernel_call("code_match", cost.code_match_work(
             doc_codes.shape[0], qcodes.shape[0], qcodes.shape[1],
             doc_codes.element_size())):
         if doc_codes.is_cuda:
             out = kernel.code_match_cuda(doc_codes, qcodes, col_weights)
-            with _lock:
-                launches += kernel.KERNELS_PER_CALL
+            cost.count_launches(_count, kernel.KERNELS_PER_CALL)
             return out
         Q, C = qcodes.shape
         block = max(1, _CPU_ELEMENTS // max(1, Q * C))

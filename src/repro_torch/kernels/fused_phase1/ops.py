@@ -22,8 +22,11 @@ launched: each call on the card launches two, ``score_fold_kernel`` and
 straight to :mod:`.kernel`, as a comparison with the plain version does,
 are not counted.  A run resets them to 0 to show that a path went through
 the kernels.  The counts are guarded by a lock: batchers on several
-threads launch at once.  Each call, on either path, first files its work
-as a cost row (:func:`repro_torch.obs.cost.kernel_call`).
+threads launch at once.  They go through
+:func:`repro_torch.obs.cost.count_launches`, so a call made while a CUDA
+graph captures is counted again by each replay of the graph
+(:mod:`repro_torch.serve.graphs`).  Each call, on either path, first
+files its work as a cost row (:func:`repro_torch.obs.cost.kernel_call`).
 """
 
 from __future__ import annotations
@@ -47,6 +50,18 @@ _lock = threading.Lock()
 _CPU_BLOCK_D = 512
 
 
+def _count(n: int) -> None:
+    global launches
+    with _lock:
+        launches += n
+
+
+def _count_quant(n: int) -> None:
+    global quant_launches
+    with _lock:
+        quant_launches += n
+
+
 def fused_phase1(
     doc_codes: torch.Tensor,    # (d, C) int
     qcodes: torch.Tensor,       # (Q, C) int
@@ -56,7 +71,6 @@ def fused_phase1(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused fp32 phase-1 -> (scores (Q, page) f32, ids (Q, page) int32),
     with ``page`` clamped to the doc count."""
-    global launches
     d, C = doc_codes.shape
     page = int(min(page, d))
     with cost.kernel_call("fused_phase1", cost.fused_phase1_work(
@@ -65,8 +79,7 @@ def fused_phase1(
         if doc_codes.is_cuda:
             out = kernel.fused_phase1_cuda(doc_codes, qcodes, col_weights,
                                            page, live)
-            with _lock:
-                launches += kernel.KERNELS_PER_CALL
+            cost.count_launches(_count, kernel.KERNELS_PER_CALL)
             return out
         s, i = ref.fused_phase1_stream(doc_codes, qcodes, col_weights, page,
                                        live, block=_CPU_BLOCK_D)
@@ -84,7 +97,6 @@ def fused_phase1_quant(
     """Fused int8 phase-1 -> (scores (Q, page) f32, ids (Q, page) int32),
     with ``page`` clamped to the doc count.  Candidate selection only:
     callers rescore the page against the exact fp32 vectors."""
-    global quant_launches
     d, n = codes8.shape
     page = int(min(page, d))
     with cost.kernel_call("fused_phase1_quant", cost.quant_work(
@@ -92,8 +104,7 @@ def fused_phase1_quant(
         if codes8.is_cuda:
             out = kernel.fused_phase1_quant_cuda(codes8, scale, zero,
                                                  queries, page, live)
-            with _lock:
-                quant_launches += kernel.KERNELS_PER_CALL
+            cost.count_launches(_count_quant, kernel.KERNELS_PER_CALL)
             return out
         s, i = ref.fused_phase1_quant_stream(codes8, scale, zero, queries,
                                              page, live, block=_CPU_BLOCK_D)

@@ -15,6 +15,11 @@ never reads a tensor's values, so recording one adds no device
 synchronisation; the cost when nothing is new is a thread-local read and
 one dict lookup under a lock.
 
+A :class:`Tape` holds a thread's rows, and the launch counts of
+:func:`count_launches`, while work is recorded to be run later, as a
+CUDA graph's capture records the search that each replay runs
+(:mod:`repro_torch.serve.graphs`); it files them once for each run.
+
 The work models are this module's, one function a kernel, and they are
 also what ``chip_smoke.py``'s ``bound_ms`` column is computed from (the
 bound is the larger of bytes over :data:`HBM_BYTES_PER_S` and operations
@@ -38,12 +43,13 @@ from __future__ import annotations
 import contextlib
 import json
 import threading
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 from . import compile_watch as cw
 
 __all__ = [
-    "CostTable", "Work", "record_kernel", "kernel_call", "kernel_listener", "missing_cost_regions",
+    "CostTable", "Work", "record_kernel", "kernel_call", "kernel_listener",
+    "Tape", "count_launches", "missing_cost_regions",
     "roofline", "kernel_byte_ratio", "verify_kernel_claim", "bound_ms",
     "fused_phase1_work", "quant_work", "code_match_work", "codes_work",
     "bucketize_work", "rerank_work", "HBM_BYTES_PER_S",
@@ -187,13 +193,64 @@ class CostTable:
 def record_kernel(program: str, work: Work) -> None:
     """File one call of ``program`` under the innermost region active on
     this thread (``<unattributed>`` on the process-default watch outside
-    every region): the attribution rule of the build watch."""
+    every region): the attribution rule of the build watch.  While a
+    :class:`Tape` is active on the thread the row goes to the tape."""
     stack = getattr(cw._TLS, "stack", None)
     if stack:
         watch, region, sig = stack[-1]
     else:
         watch, region, sig = cw.active_watch(), cw._UNATTRIBUTED, ()
+    tape = getattr(_TAPE, "tape", None)
+    if tape is not None:
+        tape.rows.append((watch, region, sig, program, work))
+        return
     watch.costs.record(region, sig, program, work)
+
+
+def count_launches(count: Callable[[int], None], n: int) -> None:
+    """Add ``n`` kernel launches through ``count``, a kernel module's
+    counter (the ``launches`` of ``kernels/fused_phase1/ops.py`` and
+    ``kernels/code_match/ops.py``, the wrappers a search reaches), or
+    hold them on this thread's :class:`Tape` while one is active."""
+    tape = getattr(_TAPE, "tape", None)
+    if tape is None:
+        count(n)
+    else:
+        tape.launches.append((count, n))
+
+
+# the tape active on each thread (Tape.__enter__)
+_TAPE = threading.local()
+
+
+class Tape:
+    """The bookkeeping of the kernel calls a thread makes while the tape
+    is active on it (``with tape:``): each call's cost row
+    (:func:`record_kernel`) and launch count (:func:`count_launches`),
+    held instead of filed.  It is for work that is recorded once and run
+    later, perhaps many times, as a CUDA graph's capture records work
+    that each replay runs: :meth:`replay` files everything held, once
+    for each run, so a run counts as the same work issued eagerly."""
+
+    def __init__(self):
+        self.rows: List[tuple] = []       # (watch, region, sig, program, work)
+        self.launches: List[tuple] = []   # (count, n)
+        self._prev: Optional["Tape"] = None
+
+    def __enter__(self) -> "Tape":
+        self._prev = getattr(_TAPE, "tape", None)
+        _TAPE.tape = self
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        _TAPE.tape = self._prev
+        return False
+
+    def replay(self) -> None:
+        for watch, region, sig, program, work in self.rows:
+            watch.costs.record(region, sig, program, work)
+        for count, n in self.launches:
+            count(n)
 
 
 # listeners told of each kernel call's extent on this thread (the dry

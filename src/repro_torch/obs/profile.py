@@ -10,9 +10,9 @@ path taken, page/k, merge transport).
 Collection discipline (the same contract as
 :mod:`repro_torch.obs.metrics` / :mod:`repro_torch.obs.tracing`): every
 timestamp is host-side, taken *around* the search dispatch.  In profile
-mode the phase boundaries are fenced with ``torch.cuda.synchronize`` of
-the index's device so a phase's wall time is attributable to that phase
--- a fence changes WHEN the host observes values, never the values
+mode the phase boundaries are fenced with a synchronise of the index
+device's current stream so a phase's wall time is attributable to that
+phase -- a fence changes WHEN the host observes values, never the values
 themselves, so answers with profiling ON are bit-identical.  Without a
 profile no fence is added.
 

@@ -40,7 +40,11 @@ in :data:`SPAN_NAMES`:
 * ``search.encode``, ``search.phase1`` (its args: shards, generations),
   ``search.merge`` and ``search.rescore``: children of ``search.launch``,
   closed where ``profile_phase`` closes a phase but with no fence, so
-  they time the host's issue of the work, not the card's;
+  they time the host's issue of the work, not the card's.  A batch
+  answered by a CUDA graph's replay (:mod:`repro_torch.serve.graphs`)
+  issues none of that work: its launch has one child,
+  ``search.replay``, the queries' write into the graph's input and the
+  replay's launch;
 * ``ingest.add`` (inside the engine lock) and its child
   ``ingest.seal``; ``maintenance.merge`` (a rebuild, its args: outcome,
   kind); ``router.pick`` (a routed submit's group choice).
@@ -301,7 +305,7 @@ SPAN_NAMES = ("batcher.wait", "batcher.form", "search.launch",
               "search.encode", "search.phase1", "search.merge",
               "search.rescore", "search.answer_wait", "batcher.deliver",
               "ingest.add", "ingest.seal", "maintenance.merge",
-              "router.pick")
+              "router.pick", "search.replay")
 _NAME_ID = {n: i for i, n in enumerate(SPAN_NAMES)}
 # what a span's two integer args hold, by span name (0 elsewhere)
 SPAN_ARGS = {"search.phase1": ("shards", "generations"),

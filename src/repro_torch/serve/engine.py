@@ -20,6 +20,12 @@ batch is in flight (``_serving`` is None): the snapshot it searches may
 be the current index, or share its buffers (a delete or a merge keeps
 the active buffer), and may still be reading them.
 
+**CUDA graphs** (:mod:`repro_torch.serve.graphs`): on a card, a fused
+engine's batch without a profiled request is answered by replaying a
+graph of the search, captured at the second batch each index instance
+serves; the first batch of an instance, and every other batch, runs
+eagerly.  The answers are the eager search's, bit for bit.
+
 Lifecycle: ``submit`` after ``close`` raises ``RuntimeError``; a search
 that raises inside the worker fails only that batch's futures and the
 worker keeps serving; ``close`` drains everything already queued.
@@ -72,6 +78,7 @@ from repro_torch.obs.metrics import default_registry
 from repro_torch.obs.profile import ProfileNode
 from repro_torch.obs.slowlog import start_request_trace
 from repro_torch.obs.tracing import annotation, to_ns
+from repro_torch.serve.graphs import SearchGraphs
 
 __all__ = ["BatchedSearchEngine"]
 
@@ -138,6 +145,7 @@ class BatchedSearchEngine:
             "engine.dispatch.latency_s", **lb)
         self._c_kernel_path = self.metrics.counter(
             "engine.kernel_path", engine=self.engine, **lb)
+        self._graphs = SearchGraphs(self.metrics, **lb)
         self._lock = threading.Condition()
         # (query, future, enqueue time, trace, want profile)
         self._queue: List[tuple] = []
@@ -286,6 +294,7 @@ class BatchedSearchEngine:
             self._stop = True
             self._lock.notify()
         self._worker.join()
+        self._graphs.close()
 
     # --------------------------------------------------------------- worker
     def _next_batch(self):
@@ -320,15 +329,18 @@ class BatchedSearchEngine:
             qs = np.concatenate([qs, np.zeros((pad, qs.shape[1]), qs.dtype)])
         return qs
 
-    def _search(self, index, qs, profile=None, sink=None):
+    def _search(self, index, qs, profile=None, sink=None, graph=False):
         """The batch's search and its answers' copies; with a timeline
         ``sink`` the index's phases record under it, and ``sink.t_copy``
-        takes the clock just before the copies."""
+        takes the clock just before the copies.  ``graph``: the batch may
+        be answered by a CUDA graph's replay (no request asked for a
+        profile)."""
         kwargs = {"merge": self.merge} if self.merge else {}
         if self.max_postings is not None:
             kwargs["max_postings"] = self.max_postings
         if profile is not None:
             kwargs["profile"] = profile
+        graph = graph and self._graphs.engages(index, self.engine)
         with annotation("repro.engine.dispatch",
                         self.tracer is not None and self.tracer.annotate):
             # the dtype itself, not its str(): numpy builds that string in
@@ -340,9 +352,10 @@ class BatchedSearchEngine:
                          self.page, self.merge or "gather")):
                 # the index puts the batch on its own device
                 with sink or _NO_SINK:
-                    ids, scores = index.search(
-                        torch.from_numpy(qs), k=self.k, page=self.page,
-                        trim=self.trim, engine=self.engine, **kwargs)
+                    ids, scores = self._graphs.search(
+                        index, qs, lambda q: index.search(
+                            q, k=self.k, page=self.page, trim=self.trim,
+                            engine=self.engine, **kwargs), graph)
                 if sink is not None:
                     sink.t_copy = time.monotonic()
                 # the answers' two copies to the host: the batch's only
@@ -384,7 +397,8 @@ class BatchedSearchEngine:
                     t_dispatch = time.monotonic()
                     ids, scores = self._search(
                         index, qs, prof if prof is not None
-                        and _accepts_profile(index) else None, sink)
+                        and _accepts_profile(index) else None, sink,
+                        graph=prof is None)
                 except Exception as exc:  # noqa: BLE001 - fwd to futures
                     t_done = time.monotonic()
                     error = exc

@@ -47,8 +47,11 @@ class NoCommitError(FileNotFoundError):
 
 
 def _clock(device) -> float:
+    # the current stream's work, not the device's: a serving batcher may
+    # be capturing a CUDA graph, and CUDA forbids a device synchronise
+    # while any stream captures
     if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
     return time.monotonic()
 
 

@@ -587,8 +587,8 @@ def test_host_seam_lint_repo_clean():
 
 
 def test_host_seam_lint_catches_violations(tmp_path):
-    for rel in ("serve/engine.py", "core/search.py", "cluster/router.py",
-                "dist/shard_index.py"):
+    for rel in ("serve/engine.py", "serve/graphs.py", "core/search.py",
+                "cluster/router.py", "dist/shard_index.py"):
         (tmp_path / rel).parent.mkdir(parents=True, exist_ok=True)
         (tmp_path / rel).write_text("")
     (tmp_path / "serve" / "engine.py").write_text(
@@ -621,8 +621,8 @@ def test_host_seam_lint_catches_scalar_reads(tmp_path):
     """``int``/``float``/``bool`` of a non-constant, ``.numpy()`` and
     ``.nonzero()`` are host synchronisations too; a constant argument
     and a marked line are not flagged."""
-    for rel in ("serve/engine.py", "core/search.py", "cluster/router.py",
-                "dist/shard_index.py"):
+    for rel in ("serve/engine.py", "serve/graphs.py", "core/search.py",
+                "cluster/router.py", "dist/shard_index.py"):
         (tmp_path / rel).parent.mkdir(parents=True, exist_ok=True)
         (tmp_path / rel).write_text("")
     (tmp_path / "core" / "search.py").write_text(

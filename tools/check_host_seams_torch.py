@@ -14,8 +14,8 @@ on any argument that is not a constant.  The JAX package's ``tools/check_host_se
 convention (no host calls inside jitted bodies); this lint guards the
 port's, in the serving modules:
 
-* ``serve/engine.py``, ``core/search.py`` and ``cluster/router.py``,
-  every function;
+* ``serve/engine.py``, ``serve/graphs.py``, ``core/search.py`` and
+  ``cluster/router.py``, every function;
 * ``dist/shard_index.py``, the functions of the search path
   (:data:`SEARCH_PATH`); ingest, delete and merges may read to the host.
 
@@ -48,6 +48,7 @@ SEARCH_PATH = ("search", "_shard_pages", "_shard_page", "_gather",
 # module -> the functions on the serving path (None: every function)
 SERVING = {
     os.path.join("serve", "engine.py"): None,
+    os.path.join("serve", "graphs.py"): None,
     os.path.join("core", "search.py"): None,
     os.path.join("cluster", "router.py"): None,
     os.path.join("dist", "shard_index.py"): SEARCH_PATH,

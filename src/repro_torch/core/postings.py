@@ -25,16 +25,27 @@ summed from +0.0 in column order, as the reference's ``segment_sum`` over
 its (C, max_postings) window sums it: the scores are the same bits from
 run to run on the card, and on the CPU equal the JAX package's for the
 same weights.
+
+The host sync that reads the entry and token counts per column is timed
+as ``search.postings.sync`` under an engine's timeline sink, and the
+issue of the rounds after it as ``search.postings.walk``
+(:mod:`repro_torch.obs.tracing`); a :class:`WalkTally` active on the
+thread sums what each walk did from the counts that sync read.  Neither
+adds a synchronisation.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.obs.tracing import child_clock
+
 __all__ = ["Postings", "build_postings", "lookup", "df_lookup", "code_df",
-           "idf_weights", "score_postings", "score_postings_batch"]
+           "idf_weights", "score_postings", "score_postings_batch",
+           "WalkTally"]
 
 # columns sorted per step: torch.sort returns int64 indices, so sorting a
 # 4M-row table whole would hold 8 bytes per code at once
@@ -42,6 +53,42 @@ _SORT_COLUMNS = 32
 # posting entries gathered per step of score_postings_batch (about 36
 # bytes each while a step's rounds run)
 _STEP_ENTRIES = 1 << 25
+
+
+class WalkTally:
+    """What the walks of :func:`score_postings_batch` on this thread did
+    while the tally is active (``with tally:``), summed: ``entries``, the
+    posting entries walked (over the kept tokens, each token's document
+    frequency ``hi - lo``, capped at ``max_postings`` where set);
+    ``tokens``, the kept tokens with a non-empty list; ``rounds``, the
+    ``index_add_`` rounds issued, one a column that holds an entry.  A
+    tally opened inside another adds its sums to the outer one when it
+    closes."""
+
+    __slots__ = ("entries", "tokens", "rounds", "_prev")
+
+    def __init__(self):
+        self.entries = self.tokens = self.rounds = 0
+
+    def __enter__(self) -> "WalkTally":
+        self._prev = _TALLY.tally
+        _TALLY.tally = self
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        _TALLY.tally = prev = self._prev
+        if prev is not None:
+            prev.entries += self.entries
+            prev.tokens += self.tokens
+            prev.rounds += self.rounds
+        return False
+
+
+class _Local(threading.local):
+    tally: Optional[WalkTally] = None
+
+
+_TALLY = _Local()
 
 
 class Postings(NamedTuple):
@@ -160,7 +207,16 @@ def score_postings_batch(
     per_col = torch.zeros((2, C), dtype=torch.int64, device=dev)
     per_col[0].index_add_(0, kc, lengths)                   # entries
     per_col[1].index_add_(0, kc, torch.ones_like(kc))       # tokens
+    clock = child_clock()
     entries, tokens = per_col.tolist()
+    rounds = C - entries.count(0)
+    if clock is not None:
+        clock.close("search.postings.sync", sum(tokens), rounds)
+    tally = _TALLY.tally
+    if tally is not None:
+        tally.entries += sum(entries)
+        tally.tokens += sum(tokens)
+        tally.rounds += rounds
     scores = torch.zeros((Q * d,), dtype=torch.float32, device=dev)
     post_docs = postings.post_docs.reshape(-1)
     c = t0 = 0
@@ -191,4 +247,6 @@ def score_postings_batch(
                     o += m
             del target, vals
         c, t0 = c1, t1
+    if clock is not None:
+        clock.close("search.postings.walk")
     return scores.view(Q, d)

@@ -36,7 +36,9 @@ every tensor there.
 rescore children, each phase fenced by :func:`profile_phase`; without a
 profile no fence is added.  Under an engine's timeline sink the same
 boundaries close the spans ``search.encode``, ``search.phase1`` and
-``search.rescore``, unfenced (:func:`repro_torch.obs.tracing.phase_clock`).
+``search.rescore``, unfenced (:func:`repro_torch.obs.tracing.phase_clock`);
+on the composed engines ``search.phase1`` holds ``search.topk``, the
+page's selection, after the engine's own spans.
 """
 
 from __future__ import annotations
@@ -48,14 +50,14 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.obs import cost
-from repro_torch.obs.tracing import phase_clock
+from repro_torch.obs.tracing import child_clock, phase_clock
 
 from .codes import score_codes, score_onehot
 from .encoding import Encoder, RoundingEncoder
 from .filtering import (BestFilter, TrimFilter, expand_mask, feature_mask,
                         index_best_codes)
-from .postings import (Postings, build_postings, df_lookup, idf_weights,
-                       score_postings_batch)
+from .postings import (Postings, WalkTally, build_postings, df_lookup,
+                       idf_weights, score_postings_batch)
 from .quantize import QuantizedTable, quantize_table
 from .rerank import brute_force_topk, normalize, rerank_topk, stable_topk
 
@@ -119,12 +121,17 @@ def phase1_engine_scores(
 ) -> torch.Tensor:
     """Phase-1 scores (Q, d) under one of the composed engines: the single
     engine-dispatch point, so every caller (this index, and later the
-    per-shard query phase) gets every engine."""
+    per-shard query phase) gets every engine.  The walk's cost row is
+    filed after it, from the entry count its sync read."""
     if engine == "postings":
-        return score_postings_batch(
-            postings, qcodes, col_weights > 0, max_postings=max_postings,
-            weighting="count",   # the weights are folded into col_weights
-            col_weights=col_weights)
+        with WalkTally() as walk:
+            scores = score_postings_batch(
+                postings, qcodes, col_weights > 0, max_postings=max_postings,
+                weighting="count",   # the weights are folded into col_weights
+                col_weights=col_weights)
+        cost.record_kernel("score_postings", cost.postings_work(
+            walk.entries, qcodes.shape[0], postings.n_docs))
+        return scores
     if engine == "codes":
         cost.record_kernel("score_codes", cost.codes_work(
             codes.shape[0], qcodes.shape[0], qcodes.shape[1],
@@ -308,7 +315,10 @@ class VectorIndex:
                                               page=page)
             else:
                 scores1 = self.phase1_scores(qcodes, w, engine, max_postings)
+                sub = child_clock()
                 _, cand = stable_topk(scores1, page)
+                if sub is not None:
+                    sub.close("search.topk")
                 del scores1
         if profile is not None:
             t_prof = profile_phase(

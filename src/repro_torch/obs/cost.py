@@ -27,6 +27,10 @@ over the peak rate of their kind).  The composed ``codes`` phase 1 is
 plain torch; its row is the byte model of
 ``artifacts/BENCH_kernel_scale.json``: the code table, the queries, and
 a (Q, d) f32 score matrix written and read back (``2 * Q * d * 4``).
+The ``postings`` walk's row, :func:`postings_work`, is the same least
+bytes as the benchmark's frozen copy (``portbench/roofline/postings.py``);
+its work depends on the data, so its row holds the entry count of the
+first call with its key.
 
 The contract is the JAX package's: every region the build watch counted
 an ``nvcc`` build for must also own a cost row
@@ -52,7 +56,7 @@ __all__ = [
     "Tape", "count_launches", "missing_cost_regions",
     "roofline", "kernel_byte_ratio", "verify_kernel_claim", "bound_ms",
     "fused_phase1_work", "quant_work", "code_match_work", "codes_work",
-    "bucketize_work", "rerank_work", "HBM_BYTES_PER_S",
+    "postings_work", "bucketize_work", "rerank_work", "HBM_BYTES_PER_S",
     "CUDA_CORE_OPS_PER_S", "INT8_TC_OPS_PER_S", "OPS_PER_ELEMENT",
 ]
 
@@ -103,6 +107,14 @@ def codes_work(d: int, Q: int, C: int, code_bytes: int) -> Work:
     by the page selection (``BENCH_kernel_scale.json``'s byte model)."""
     nbytes = d * C * code_bytes + Q * C * (code_bytes + 4) + 2 * Q * d * 4
     return Work(OPS_PER_ELEMENT * Q * d * C, nbytes)
+
+
+def postings_work(entries: int, Q: int, d: int) -> Work:
+    """The ``postings`` walk of a batch: each of the ``entries`` posting
+    entries walked reads its int32 doc id and reads and writes its f32
+    accumulator cell (12 bytes), and the dense (Q, d) f32 accumulator is
+    filled once and read once by the page selection; one add an entry."""
+    return Work(entries, entries * 12 + 2 * Q * d * 4)
 
 
 def quant_work(d: int, Q: int, n: int, page: int, live: bool) -> Work:

@@ -47,7 +47,28 @@ in :data:`SPAN_NAMES`:
   replay's launch;
 * ``ingest.add`` (inside the engine lock) and its child
   ``ingest.seal``; ``maintenance.merge`` (a rebuild, its args: outcome,
-  kind); ``router.pick`` (a routed submit's group choice).
+  kind); ``router.pick`` (a routed submit's group choice);
+* children of ``search.phase1``, which keeps its meaning and its args:
+  on the ``postings`` engine's walk (:mod:`repro_torch.core.postings`),
+  ``search.postings.sync``, the host blocked reading the entry counts
+  per column (its args: the kept tokens with a non-empty posting list,
+  and the columns that hold any; the kept tokens' ``nonzero`` just
+  before it waits for the card too, for its output's size), then
+  ``search.postings.walk``, from the sync's return until the last
+  ``index_add_`` round is issued; on the flat index's composed path
+  (``postings``, ``codes``, ``onehot``, ``codes_pallas``),
+  ``search.topk``, the page's stable top-``page`` of the (Q, n_docs)
+  scores.  Unfenced like their parent: the walk's span ends when its
+  rounds are issued, not run.
+
+The walk also feeds three always-on counters, which the engine keeps
+beside ``engine.graph.*`` (labelled ``group`` under a router), from the
+host integers its sync already read: ``search.postings.entries``,
+the posting entries walked (the sum, over the batch's kept tokens, of
+each token's document frequency, capped at ``max_postings`` where set);
+``search.postings.tokens``, the kept tokens with a non-empty list; and
+``search.postings.rounds``, the ``index_add_`` rounds issued, one a
+column that holds an entry.  A batch of another engine adds nothing.
 
 Each span is one row of a ring of :data:`TIMELINE_CAPACITY` rows of a
 preallocated numpy array (start and end in ``time.monotonic_ns``, name
@@ -57,7 +78,8 @@ Python object, takes no lock, and a wrapped ring counts each
 overwritten span in the counter ``timeline.dropped``.  The index code
 cannot see the registry, so the engine sets a :class:`Sink` as the
 thread's active one around a dispatch or an add, and
-:func:`phase_clock` finds it there.
+:func:`phase_clock` finds it there; :func:`child_clock` finds the phase
+a :class:`PhaseClock` has open under it, the parent of a nested span.
 
 The timeline records only while a ``torch.profiler`` session records
 and the registry is enabled.  The check is the profiler's process-wide
@@ -90,8 +112,8 @@ import numpy as np
 from torch.autograd import profiler as _autograd_profiler
 
 __all__ = ["Span", "Trace", "Tracer", "NULL_TRACE", "annotation",
-           "Timeline", "Sink", "PhaseClock", "phase_clock", "SPAN_NAMES",
-           "TIMELINE_CAPACITY", "to_ns"]
+           "Timeline", "Sink", "PhaseClock", "phase_clock", "child_clock",
+           "SPAN_NAMES", "TIMELINE_CAPACITY", "to_ns"]
 
 
 def annotation(name: str, enabled: bool = True):
@@ -305,11 +327,13 @@ SPAN_NAMES = ("batcher.wait", "batcher.form", "search.launch",
               "search.encode", "search.phase1", "search.merge",
               "search.rescore", "search.answer_wait", "batcher.deliver",
               "ingest.add", "ingest.seal", "maintenance.merge",
-              "router.pick", "search.replay")
+              "router.pick", "search.replay", "search.postings.sync",
+              "search.postings.walk", "search.topk")
 _NAME_ID = {n: i for i, n in enumerate(SPAN_NAMES)}
 # what a span's two integer args hold, by span name (0 elsewhere)
 SPAN_ARGS = {"search.phase1": ("shards", "generations"),
-             "maintenance.merge": ("outcome", "kind")}
+             "maintenance.merge": ("outcome", "kind"),
+             "search.postings.sync": ("tokens", "columns")}
 MERGE_OUTCOMES = ("applied", "discarded", "failed")
 MERGE_KINDS = ("merge", "compact")
 TIMELINE_CAPACITY = 1 << 18
@@ -346,14 +370,17 @@ class Sink:
     of (``parent``, an id drawn when the sink is made), the batch and the
     group.  ``with sink:`` makes it the thread's active sink;
     ``t_copy`` is the engine's clock read just before the answers'
-    copies."""
+    copies; ``phase`` is the id of the phase a :class:`PhaseClock` has
+    open under it (0 before the first)."""
 
-    __slots__ = ("timeline", "parent", "batch", "group", "t_copy", "_prev")
+    __slots__ = ("timeline", "parent", "batch", "group", "t_copy", "phase",
+                 "_prev")
 
     def __init__(self, timeline: "Timeline", batch: int, group: int):
         self.timeline, self.batch, self.group = timeline, batch, group
         self.parent = next(timeline._ids)
         self.t_copy: Optional[float] = None
+        self.phase = 0
 
     def __enter__(self):
         self._prev = _TLS.sink
@@ -367,20 +394,33 @@ class Sink:
 
 class PhaseClock:
     """Closes consecutive phases of one search or add as child spans of
-    the active sink's span: each from the last boundary to now."""
+    the active sink's span (``parent`` None), or of span ``parent``: each
+    from the last boundary to now.  The id of the span it closes next is
+    drawn when the last one closes, so a phase's children can name it
+    while it is open: a clock of the sink's phases publishes it as
+    ``sink.phase``."""
 
-    __slots__ = ("sink", "t")
+    __slots__ = ("sink", "t", "parent", "span")
 
-    def __init__(self, sink: Sink):
-        self.sink = sink
+    def __init__(self, sink: Sink, parent: Optional[int] = None):
+        self.sink, self.parent = sink, parent
         self.t = time.monotonic_ns()
+        self._open()
+
+    def _open(self) -> None:
+        self.span = next(self.sink.timeline._ids)
+        if self.parent is None:
+            self.sink.phase = self.span
 
     def close(self, name: str, arg0: int = 0, arg1: int = 0) -> None:
         t = time.monotonic_ns()
         s = self.sink
-        s.timeline.record(name, self.t, t, parent=s.parent, batch=s.batch,
-                          group=s.group, arg0=arg0, arg1=arg1)
+        s.timeline.record(name, self.t, t, span=self.span,
+                          parent=s.parent if self.parent is None
+                          else self.parent, batch=s.batch, group=s.group,
+                          arg0=arg0, arg1=arg1)
         self.t = t
+        self._open()
 
 
 def phase_clock() -> Optional[PhaseClock]:
@@ -389,6 +429,16 @@ def phase_clock() -> Optional[PhaseClock]:
     batch or the add began).  Off, a search pays this one look-up."""
     sink = _TLS.sink
     return None if sink is None else PhaseClock(sink)
+
+
+def child_clock() -> Optional[PhaseClock]:
+    """A :class:`PhaseClock` from now whose spans are children of the
+    phase open on this thread's active sink (of the sink's span before
+    any phase), or None where there is no sink: the same one look-up
+    off."""
+    sink = _TLS.sink
+    return None if sink is None else PhaseClock(
+        sink, sink.phase or sink.parent)
 
 
 class Timeline:

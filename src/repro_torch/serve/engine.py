@@ -35,7 +35,10 @@ index (a batch in flight finishes on its snapshot), and ``pending``
 
 **Observability** (:mod:`repro_torch.obs`), as the reference threads it:
 request counters, batch occupancy, queue wait, dispatch latency, the
-``engine.kernel_path`` counter and the ingest series go to a
+``engine.kernel_path`` counter, the ``postings`` walk's counters
+``search.postings.entries``, ``.tokens`` and ``.rounds`` (summed by a
+:class:`~repro_torch.core.postings.WalkTally` around each batch's search,
+from host integers the walk already holds) and the ingest series go to a
 :class:`~repro_torch.obs.metrics.MetricsRegistry` (labelled ``group=g``
 when the engine fronts one replica group); ``queue_wait`` /
 ``batch_form`` / ``dispatch`` spans go to the request's
@@ -73,6 +76,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import TrimFilter
+from repro_torch.core.postings import WalkTally
 from repro_torch.obs.compile_watch import active_watch
 from repro_torch.obs.metrics import default_registry
 from repro_torch.obs.profile import ProfileNode
@@ -146,6 +150,12 @@ class BatchedSearchEngine:
         self._c_kernel_path = self.metrics.counter(
             "engine.kernel_path", engine=self.engine, **lb)
         self._graphs = SearchGraphs(self.metrics, **lb)
+        self._c_walk_entries = self.metrics.counter(
+            "search.postings.entries", **lb)
+        self._c_walk_tokens = self.metrics.counter(
+            "search.postings.tokens", **lb)
+        self._c_walk_rounds = self.metrics.counter(
+            "search.postings.rounds", **lb)
         self._lock = threading.Condition()
         # (query, future, enqueue time, trace, want profile)
         self._queue: List[tuple] = []
@@ -351,11 +361,15 @@ class BatchedSearchEngine:
                     sig=(qs.shape, qs.dtype, self.engine, self.k,
                          self.page, self.merge or "gather")):
                 # the index puts the batch on its own device
-                with sink or _NO_SINK:
+                with sink or _NO_SINK, WalkTally() as walk:
                     ids, scores = self._graphs.search(
                         index, qs, lambda q: index.search(
                             q, k=self.k, page=self.page, trim=self.trim,
                             engine=self.engine, **kwargs), graph)
+                if walk.rounds:
+                    self._c_walk_entries.inc(walk.entries)
+                    self._c_walk_tokens.inc(walk.tokens)
+                    self._c_walk_rounds.inc(walk.rounds)
                 if sink is not None:
                     sink.t_copy = time.monotonic()
                 # the answers' two copies to the host: the batch's only

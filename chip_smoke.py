@@ -50,7 +50,10 @@ summary):
      and 4096, duplicate and out-of-range ids, a table 4 bytes off
      16-byte alignment, each with the body its plan picks; bucketize
      (>= 99.99% of codes equal, the rest one bucket off) in both modes,
-     int8 and int16, ragged rows;
+     int8 and int16, ragged rows; postings_walk at the postings cell's
+     shapes (a 4,181,504 x 400 index, 32 noisy rows, trim 0.05, about
+     480M posting entries) bit-equal to its plain version, timed beside
+     it and its bound, its two kernels split by the profiler;
   B  encoders and the int8 quant table on the card against the CPU (codes,
      scale and zero bit-equal);
   C  the ``fused`` path: build, serve 128 noisy corpus rows through
@@ -765,6 +768,76 @@ def phase_a_code_match(gen) -> dict:
             "max_abs_err": worst}
 
 
+def phase_a_postings_walk(gen) -> dict:
+    """The posting walk at ``wiki-postings-closed``'s shapes: the kernel
+    bit-equal to its plain version on the ranges and folded weights
+    ``score_postings_batch`` hands it, its time beside its bound, the
+    plain version's and the benchmark's 12-byte model's; the cut's and
+    the walk's device time apart."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import TrimFilter, VectorIndex
+    from repro_torch.core.postings import lookup
+    from repro_torch.kernels.postings_walk import kernel as pw_kernel
+    from repro_torch.kernels.postings_walk import ref as pw_ref
+    from repro_torch.obs import cost
+
+    d, n, Q = N_DOCS, N_FEATURES, BATCH
+    t = time.monotonic()
+    index = VectorIndex.build(torch.randn((d, n), generator=gen,
+                                          device="cuda"), device="cuda")
+    rows = torch.randint(0, d, (Q,), generator=gen, device="cuda")
+    q = index.vectors[rows] + 0.05 * torch.randn((Q, n), generator=gen,
+                                                 device="cuda")
+    _, qc, w = index.encode_queries(q, TrimFilter(0.05), None, "idf")
+    lo, hi = lookup(index.postings, qc)
+    hi = torch.where((w != 0) & (hi > lo), hi, lo)
+    entries = int((hi - lo).sum())
+    docs = index.postings.post_docs
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t
+
+    def walk():
+        return pw_kernel.postings_walk_cuda(docs, lo, hi, w)
+
+    got = walk()
+    torch.cuda.synchronize()
+    want = pw_ref.postings_walk_ref(docs, lo, hi, w)
+    check(torch.equal(got, want), "postings_walk: not bit-equal to its "
+          "plain version at the cell's shapes")
+    del got, want
+    kernel_ms = cuda_ms(walk, 10)
+    plain_ms = cuda_ms(lambda: pw_ref.postings_walk_ref(docs, lo, hi, w), 3)
+    split = {}
+    walk()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            walk()
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        if "postings_" in ev.key and "_kernel" in ev.key:
+            split[ev.key] = getattr(ev, "device_time_total",
+                                    getattr(ev, "cuda_time_total", 0)) \
+                / 5 / 1e3
+    bound, by = cost.bound_ms(cost.postings_walk_work(entries, Q, d))
+    model, _ = cost.bound_ms(cost.postings_work(entries, Q, d))
+    C = docs.shape[0]
+    props = torch.cuda.get_device_properties(0)
+    tile, n_tiles = pw_kernel.tile_width(
+        d, C, getattr(props, "shared_memory_per_multiprocessor", 233472),
+        props.shared_memory_per_block_optin,
+        pw_kernel.library().postings_walk_smem_bytes)
+    del index, q, qc, w, lo, hi, docs
+    torch.cuda.empty_cache()
+    return {"phase": "A", "kernel": "postings_walk", "max_abs_err": 0.0,
+            "d": d, "Q": Q, "C": C, "entries": entries,
+            "tile": tile, "n_tiles": n_tiles, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "model_12B_ms": model, "kernels_ms": split,
+            "index_build_s": build_s}
+
+
 def quant_inputs(gen, d, n, Q):
     from repro_torch.core import quantize as tq
 
@@ -1136,10 +1209,11 @@ def reset_launches() -> None:
     from repro_torch.kernels.bucketize import ops as bk_ops
     from repro_torch.kernels.code_match import ops as cm_ops
     from repro_torch.kernels.fused_phase1 import ops as fp_ops
+    from repro_torch.kernels.postings_walk import ops as pw_ops
     from repro_torch.kernels.rerank_topk import ops as rk_ops
 
     fp_ops.launches = fp_ops.quant_launches = cm_ops.launches = 0
-    bk_ops.launches = rk_ops.launches = 0
+    bk_ops.launches = rk_ops.launches = pw_ops.launches = 0
     rk_ops.launches_by_body.update(dict.fromkeys(rk_ops.launches_by_body, 0))
 
 
@@ -1657,12 +1731,14 @@ def phase_g(index, queries, src) -> tuple:
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.code_match import kernel as cm_kernel
     from repro_torch.kernels.fused_phase1 import kernel as fp_kernel
+    from repro_torch.kernels.postings_walk import kernel as pw_kernel
     from repro_torch.obs import MetricsRegistry
 
     per = {"fused": {"fused_phase1": fp_kernel.KERNELS_PER_CALL},
            "fused_int8": {"fused_phase1_quant": fp_kernel.KERNELS_PER_CALL},
            "codes_pallas": {"code_match": cm_kernel.KERNELS_PER_CALL},
-           "postings": {}, "codes": {}}
+           "postings": {"postings_walk": pw_kernel.KERNELS_PER_CALL},
+           "codes": {}}
     t_phase = time.monotonic()
     rows, launches, answers_4x2 = {}, {}, {}
     for name in G_ENGINES:
@@ -1782,6 +1858,7 @@ def f_stage(idx, base, new, queries, src, dead, stage, launches,
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.code_match import kernel as cm_kernel
     from repro_torch.kernels.fused_phase1 import kernel as fp_kernel
+    from repro_torch.kernels.postings_walk import kernel as pw_kernel
 
     n_base = base.n_docs
     gens = idx.n_segments + (1 if idx.seg_capacity else 0)
@@ -1793,7 +1870,8 @@ def f_stage(idx, base, new, queries, src, dead, stage, launches,
             "fused_int8": {"fused_phase1_quant": per * (1 + gens)},
             "codes_pallas": {"code_match": (1 + gens)
                              * cm_kernel.KERNELS_PER_CALL},
-            "postings": {"code_match": gens * cm_kernel.KERNELS_PER_CALL},
+            "postings": {"code_match": gens * cm_kernel.KERNELS_PER_CALL,
+                         "postings_walk": pw_kernel.KERNELS_PER_CALL},
             "codes": {"code_match": gens * cm_kernel.KERNELS_PER_CALL}}
     answers, rows = {}, {}
     qn = normalize(torch.from_numpy(queries).cuda())
@@ -2471,11 +2549,13 @@ def i_serve(index, s4, s42, queries, src) -> tuple:
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.code_match import kernel as cm_kernel
     from repro_torch.kernels.fused_phase1 import kernel as fp_kernel
+    from repro_torch.kernels.postings_walk import kernel as pw_kernel
 
     per = {"fused": {"fused_phase1": fp_kernel.KERNELS_PER_CALL},
            "fused_int8": {"fused_phase1_quant": fp_kernel.KERNELS_PER_CALL},
            "codes_pallas": {"code_match": cm_kernel.KERNELS_PER_CALL},
-           "postings": {}, "codes": {}}
+           "postings": {"postings_walk": pw_kernel.KERNELS_PER_CALL},
+           "codes": {}}
     rows, launches, answers_4x2 = {}, {}, {}
     for name in G_ENGINES:
         qs = queries[:BATCH] if name == "codes" else queries
@@ -4359,7 +4439,7 @@ def l4_launcher(root, arch=L_ARCH, tag="L4") -> dict:
 
 def phase_l(smi) -> tuple:
     """The dense LM and its training substrate on the card (see the module
-    doc); every check raises.  -> (the phase line, the five kernels'
+    doc); every check raises.  -> (the phase line, the six kernels'
     launches: all 0, the LM path reaches none of them)."""
     import dataclasses
     import shutil
@@ -5583,7 +5663,7 @@ def n3_mixtral(dev) -> dict:
 
 def phase_n(smi, dev="cuda") -> tuple:
     """The two MoE LMs on the card (see the module doc); every check
-    raises.  -> (the phase line, the five kernels' launches: all 0, the
+    raises.  -> (the phase line, the six kernels' launches: all 0, the
     MoE path reaches none of them)."""
     import dataclasses
     import shutil
@@ -5997,6 +6077,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.bucketize import kernel as bk_kernel
     from repro_torch.kernels.code_match import kernel as cm_kernel
     from repro_torch.kernels.fused_phase1 import kernel as fp_kernel
+    from repro_torch.kernels.postings_walk import kernel as pw_kernel
     from repro_torch.kernels.rerank_topk import kernel as rk_kernel
 
     smi = subprocess.run(
@@ -6009,7 +6090,8 @@ def main(argv=None) -> int:
               "fused_phase1_quant": fp_kernel.quant_library,
               "code_match": cm_kernel.library,
               "bucketize": bk_kernel.library,
-              "rerank_topk": rk_kernel.library}
+              "rerank_topk": rk_kernel.library,
+              "postings_walk": pw_kernel.library}
     with ThreadPoolExecutor(len(builds)) as pool:   # one nvcc each, at once
         for f in [pool.submit(fn) for fn in builds.values()]:
             f.result()
@@ -6057,7 +6139,8 @@ def main(argv=None) -> int:
         a = phase_a(gen)
         emit(a)
         for line in (phase_a_code_match(gen), phase_a_quant(gen),
-                     phase_a_rerank(gen), phase_a_bucketize(gen)):
+                     phase_a_rerank(gen), phase_a_bucketize(gen),
+                     phase_a_postings_walk(gen)):
             emit(line)
             a_err[line["kernel"]] = line["max_abs_err"]
     if "B" in args.phases:

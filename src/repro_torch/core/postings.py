@@ -6,29 +6,37 @@ that order whose codes equal ``b``, found by binary search -- the term
 dictionary lookup of a fulltext engine.  Its length is the token's
 document frequency, which the idf weights of every engine read.
 
+The invariant the walk rests on: every table is built by
+:func:`build_postings`'s stable sort of each column (a sharded index's
+tables per shard, a merge's rebuilt ones and a restored store's alike),
+so within one token's range ``[lo, hi)`` of ``post_docs[c]`` the doc ids
+ascend.  A range's docs in any doc interval are then one contiguous
+sub-range of it, two binary searches away.
+
 Scoring (the ``postings`` engine) walks the posting list of every
-surviving query token and scatter-adds the token's weight into a dense
-``(Q, d)`` accumulator -- the hash-map accumulator of the paper.  The
-reference reads a fixed window of ``max_postings`` entries per column from
-``lo``, masked past ``hi``; that is the range ``[lo, min(hi, lo +
-max_postings))``, and only those ranges are gathered here, so no
-``(C, max_postings)`` window exists.  ``max_postings >= n_docs`` is exact;
-smaller values truncate each list as a real engine's early termination
-does.
+surviving query token and adds the token's weight into a dense ``(Q, d)``
+accumulator -- the hash-map accumulator of the paper.  The reference
+reads a fixed window of ``max_postings`` entries per column from ``lo``,
+masked past ``hi``; that is the range ``[lo, min(hi, lo + max_postings))``
+(still contiguous and ascending), and only those ranges are walked, so no
+``(C, max_postings)`` window exists.  ``max_postings >= n_docs`` is
+exact; smaller values truncate each list as a real engine's early
+termination does.  The walk is
+:func:`repro_torch.kernels.postings_walk.ops.postings_walk`: on the card
+one hand-written kernel whose blocks each own a doc tile of one query's
+accumulator in shared memory, on the CPU the plain version, which expands
+the ranges and adds them by one ``index_add_`` round a column.
 
 The sums run in a fixed order, the reference's: a doc sits in exactly one
-posting list per code column, so one ``index_add_`` per column (a
-"round"), over every query's kept range of that column into the flat
-``q * d + doc`` accumulator, adds at most once to any address, and the
-rounds run in increasing column order.  So every (query, doc) score is
-summed from +0.0 in column order, as the reference's ``segment_sum`` over
-its (C, max_postings) window sums it: the scores are the same bits from
-run to run on the card, and on the CPU equal the JAX package's for the
-same weights.
+posting list per code column, so every (query, doc) score is summed from
++0.0 in increasing column order, each column adding at most once to it,
+as the reference's ``segment_sum`` over its (C, max_postings) window sums
+it: the scores are the same bits from run to run and on the card and the
+CPU, and on the CPU equal the JAX package's for the same weights.
 
 The host sync that reads the entry and token counts per column is timed
 as ``search.postings.sync`` under an engine's timeline sink, and the
-issue of the rounds after it as ``search.postings.walk``
+issue of the walk after it as ``search.postings.walk``
 (:mod:`repro_torch.obs.tracing`); a :class:`WalkTally` active on the
 thread sums what each walk did from the counts that sync read.  Neither
 adds a synchronisation.
@@ -41,6 +49,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.postings_walk import ops as walk_ops
 from repro_torch.obs.tracing import child_clock
 
 __all__ = ["Postings", "build_postings", "lookup", "df_lookup", "code_df",
@@ -50,9 +59,6 @@ __all__ = ["Postings", "build_postings", "lookup", "df_lookup", "code_df",
 # columns sorted per step: torch.sort returns int64 indices, so sorting a
 # 4M-row table whole would hold 8 bytes per code at once
 _SORT_COLUMNS = 32
-# posting entries gathered per step of score_postings_batch (about 36
-# bytes each while a step's rounds run)
-_STEP_ENTRIES = 1 << 25
 
 
 class WalkTally:
@@ -61,9 +67,10 @@ class WalkTally:
     posting entries walked (over the kept tokens, each token's document
     frequency ``hi - lo``, capped at ``max_postings`` where set);
     ``tokens``, the kept tokens with a non-empty list; ``rounds``, the
-    ``index_add_`` rounds issued, one a column that holds an entry.  A
-    tally opened inside another adds its sums to the outer one when it
-    closes."""
+    columns that hold an entry: the column steps of the walk (inside the
+    kernel on the card, one ``index_add_`` round each in the plain
+    version).  A tally opened inside another adds its sums to the outer
+    one when it closes."""
 
     __slots__ = ("entries", "tokens", "rounds", "_prev")
 
@@ -180,12 +187,11 @@ def score_postings_batch(
     weighting: str = "idf",
     col_weights: Optional[torch.Tensor] = None,  # (Q, C) or None
 ) -> torch.Tensor:
-    """Dense scores (Q, d) by posting-list traversal and one scatter-add
-    round per column, in column order (see the module doc).  The kept
-    ranges are gathered a run of columns at a time, near
-    ``_STEP_ENTRIES`` entries a run; one host sync reads the entry counts
-    per column."""
-    C, d = postings.post_codes.shape
+    """Dense scores (Q, d) by posting-list traversal, summed in column
+    order (see the module doc): the lookup, the kept tokens, one host
+    sync for the entry and token counts per column, then the walk of the
+    kept ranges."""
+    C = postings.post_codes.shape[0]
     Q = qcodes.shape[0]
     dev = qcodes.device
     lo, hi = lookup(postings, qcodes)                       # (Q, C)
@@ -199,14 +205,9 @@ def score_postings_batch(
         w = w * col_weights
     if max_postings is not None:
         hi = torch.minimum(hi, lo + max_postings)
-    # the kept tokens in column-major order: column, then query
-    kc, kq = (col_mask & (w != 0) & (hi > lo)).T.nonzero(as_tuple=True)
-    lengths = (hi - lo)[kq, kc]
-    starts = kc * d + lo[kq, kc]
-    w = w[kq, kc]
-    per_col = torch.zeros((2, C), dtype=torch.int64, device=dev)
-    per_col[0].index_add_(0, kc, lengths)                   # entries
-    per_col[1].index_add_(0, kc, torch.ones_like(kc))       # tokens
+    # the kept tokens' ranges; every other token's range emptied
+    hi = torch.where(col_mask & (w != 0) & (hi > lo), hi, lo)
+    per_col = torch.stack(((hi - lo).sum(0), (hi > lo).sum(0)))
     clock = child_clock()
     entries, tokens = per_col.tolist()
     rounds = C - entries.count(0)
@@ -217,36 +218,7 @@ def score_postings_batch(
         tally.entries += sum(entries)
         tally.tokens += sum(tokens)
         tally.rounds += rounds
-    scores = torch.zeros((Q * d,), dtype=torch.float32, device=dev)
-    post_docs = postings.post_docs.reshape(-1)
-    c = t0 = 0
-    while c < C:
-        c1, n = c + 1, entries[c]                   # a run of columns
-        while c1 < C and n + entries[c1] <= _STEP_ENTRIES:
-            n += entries[c1]
-            c1 += 1
-        t1 = t0 + sum(tokens[c:c1])
-        if n:
-            ln = lengths[t0:t1]
-            # every kept posting position of the run, flat over (C, d):
-            # starts repeated per entry plus the entry's offset in its range
-            first = torch.repeat_interleave(torch.cumsum(ln, 0) - ln, ln,
-                                            output_size=n)
-            pos = torch.repeat_interleave(starts[t0:t1], ln, output_size=n)
-            pos += torch.arange(n, device=dev) - first
-            del first
-            target = torch.repeat_interleave(kq[t0:t1] * d, ln,
-                                             output_size=n)
-            target += post_docs[pos]
-            del pos
-            vals = torch.repeat_interleave(w[t0:t1], ln, output_size=n)
-            o = 0
-            for m in entries[c:c1]:         # one round per column
-                if m:
-                    scores.index_add_(0, target[o:o + m], vals[o:o + m])
-                    o += m
-            del target, vals
-        c, t0 = c1, t1
+    scores = walk_ops.postings_walk(postings.post_docs, lo, hi, w)
     if clock is not None:
         clock.close("search.postings.walk")
-    return scores.view(Q, d)
+    return scores

@@ -15,13 +15,19 @@ package's ``kernel.py`` / ``ops.py`` / ``ref.py`` split:
   ``src/repro/kernels/rerank_topk/kernel.py::rerank_scores_pallas``);
 * ``bucketize`` -- fused row normalize + quantize at build and ingest
   (``csrc/bucketize.cu``, replacing
-  ``src/repro/kernels/bucketize/kernel.py::bucketize_pallas``).
+  ``src/repro/kernels/bucketize/kernel.py::bucketize_pallas``);
+* ``postings_walk`` -- the ``postings`` engine's walk of the kept posting
+  ranges into dense (Q, d) scores, a doc tile of the accumulator a block
+  in shared memory (``csrc/postings_walk.cu`` with ``csrc/walk_cut.cuh``;
+  it replaces no TPU kernel: the JAX package's walk is a plain
+  ``segment_sum``).
 
-As in the JAX package, ``VectorIndex`` does not call the last two: they
-are reached through their wrappers, ``rerank_topk.ops.rerank_topk`` and
-``bucketize.ops.encode``.  ``csrc/match_tree.cuh`` holds the fp32
-code-match cell scorer both code-match kernels use.  ``_build`` compiles
-the CUDA sources with ``nvcc`` at first use.
+As in the JAX package, ``VectorIndex`` calls neither ``rerank_topk`` nor
+``bucketize``: they are reached through their wrappers,
+``rerank_topk.ops.rerank_topk`` and ``bucketize.ops.encode``.
+``csrc/match_tree.cuh`` holds the fp32 code-match cell scorer both
+code-match kernels use.  ``_build`` compiles the CUDA sources with
+``nvcc`` at first use.
 """
 
 __all__ = ["launch_counts"]
@@ -33,9 +39,11 @@ def launch_counts() -> dict:
     from .bucketize import ops as bk_ops
     from .code_match import ops as cm_ops
     from .fused_phase1 import ops as fp_ops
+    from .postings_walk import ops as pw_ops
     from .rerank_topk import ops as rk_ops
 
     return {"fused_phase1": fp_ops.launches,
             "fused_phase1_quant": fp_ops.quant_launches,
             "code_match": cm_ops.launches, "bucketize": bk_ops.launches,
-            "rerank_topk": rk_ops.launches}
+            "rerank_topk": rk_ops.launches,
+            "postings_walk": pw_ops.launches}

@@ -56,7 +56,8 @@ __all__ = [
     "Tape", "count_launches", "missing_cost_regions",
     "roofline", "kernel_byte_ratio", "verify_kernel_claim", "bound_ms",
     "fused_phase1_work", "quant_work", "code_match_work", "codes_work",
-    "postings_work", "bucketize_work", "rerank_work", "HBM_BYTES_PER_S",
+    "postings_work", "postings_walk_work", "bucketize_work", "rerank_work",
+    "HBM_BYTES_PER_S",
     "CUDA_CORE_OPS_PER_S", "INT8_TC_OPS_PER_S", "OPS_PER_ELEMENT",
 ]
 
@@ -115,6 +116,15 @@ def postings_work(entries: int, Q: int, d: int) -> Work:
     accumulator cell (12 bytes), and the dense (Q, d) f32 accumulator is
     filled once and read once by the page selection; one add an entry."""
     return Work(entries, entries * 12 + 2 * Q * d * 4)
+
+
+def postings_walk_work(entries: int, Q: int, d: int) -> Work:
+    """The postings_walk kernel's own least work: each of the ``entries``
+    posting entries walked reads its int32 doc id once, and each (Q, d)
+    f32 score is written once (its accumulator lives in shared memory);
+    one add an entry.  Below :func:`postings_work`, which also counts an
+    accumulator in device memory."""
+    return Work(entries, entries * 4 + Q * d * 4)
 
 
 def quant_work(d: int, Q: int, n: int, page: int, live: bool) -> Work:

@@ -576,6 +576,121 @@ def test_score_postings_fixed_order_on_card(gen):
     assert float((runs[0] > 0).float().mean()) > 0.9
 
 
+# (d, C, Q, codes a column, max_postings): several tiles with d not a
+# multiple of the tile, a table narrower than one tile, Q 1 and 32, the
+# truncated walk, and the most columns a block takes
+_WALK_SHAPES = [(200_003, 48, 32, 6, None), (200_003, 48, 1, 6, None),
+                (700, 400, 32, 3, None), (700, 37, 1, 3, None),
+                (100_000, 64, 8, 4, 5_000), (65_537, 4096, 2, 2, None)]
+
+
+def _walk_inputs(gen, d, C, Q, n_codes, max_postings):
+    """A posting table and the walk's ranges and weights as
+    score_postings_batch makes them, with a column no query keeps, a
+    column of zero weights, a column of codes the table lacks (empty
+    ranges), zero weights and masked tokens at random."""
+    from repro_torch.core import postings as tpost
+
+    codes = torch.randint(0, n_codes, (d, C), generator=gen,
+                          device="cuda").to(torch.int8)
+    post = tpost.build_postings(codes)
+    qc = codes[torch.randint(0, d, (Q,), generator=gen, device="cuda")]
+    qc[:, 3 % C] = n_codes + 1
+    lo, hi = tpost.lookup(post, qc)
+    w = _spread_weights(gen, (Q, C))
+    w[torch.rand((Q, C), generator=gen, device="cuda") < 0.1] = 0
+    w[:, 2 % C] = 0
+    mask = torch.rand((Q, C), generator=gen, device="cuda") < 0.8
+    mask[:, 1 % C] = False
+    if max_postings is not None:
+        hi = torch.minimum(hi, lo + max_postings)
+    hi = torch.where(mask & (w != 0) & (hi > lo), hi, lo)
+    return post, lo, hi, w
+
+
+@pytest.mark.parametrize("shape", _WALK_SHAPES)
+def test_postings_walk_kernel_vs_plain(gen, shape):
+    """The walk kernel bit-equal to its plain version on the card, both
+    CUDA kernels of a call counted."""
+    from repro_torch.kernels.postings_walk import kernel as pw_kernel
+    from repro_torch.kernels.postings_walk import ops as pw_ops
+    from repro_torch.kernels.postings_walk import ref as pw_ref
+
+    post, lo, hi, w = _walk_inputs(gen, *shape)
+    before = pw_ops.launches
+    got = pw_ops.postings_walk(post.post_docs, lo, hi, w)
+    assert pw_ops.launches == before + pw_kernel.KERNELS_PER_CALL
+    want = pw_ref.postings_walk_ref(post.post_docs, lo, hi, w)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(got, want)
+    if shape[-1] is None:
+        assert float((got > 0).float().mean()) > 0.5
+    else:
+        assert bool(((hi - lo) == shape[-1]).any())   # lists were cut
+
+
+def test_postings_walk_kernel_rejects_bad_input(gen):
+    from repro_torch.kernels.postings_walk import kernel as pw_kernel
+
+    post, lo, hi, w = _walk_inputs(gen, 1000, 8, 3, 3, None)
+    with pytest.raises(TypeError, match="int32"):
+        pw_kernel.postings_walk_cuda(post.post_docs.long(), lo, hi, w)
+    with pytest.raises(TypeError, match="float32"):
+        pw_kernel.postings_walk_cuda(post.post_docs, lo, hi, w.double())
+    with pytest.raises(ValueError, match="shape"):
+        pw_kernel.postings_walk_cuda(post.post_docs, lo[:, :4], hi, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        pw_kernel.postings_walk_cuda(post.post_docs.T.contiguous().T, lo,
+                                     hi, w)
+    with pytest.raises(ValueError, match="empty"):
+        pw_kernel.postings_walk_cuda(post.post_docs, lo[:0], hi[:0], w[:0])
+    with pytest.raises(ValueError, match="on cpu"):
+        pw_kernel.postings_walk_cuda(post.post_docs, lo.cpu(), hi, w)
+
+
+@pytest.mark.parametrize("max_postings", [None, "auto"])
+def test_sharded_postings_search_kernel_vs_plain_on_card(gen, monkeypatch,
+                                                         max_postings):
+    """A 2-shard index with sealed generations, a delete and an active
+    buffer, searched with engine="postings": the walk kernel, once a shard
+    a search, gives the ids and scores the plain walk gives on the card."""
+    import types
+
+    from repro_torch.core import postings as tpost
+    from repro_torch.kernels.postings_walk import kernel as pw_kernel
+    from repro_torch.kernels.postings_walk import ops as pw_ops
+    from repro_torch.kernels.postings_walk import ref as pw_ref
+
+    from repro_torch.dist.shard_index import ShardedVectorIndex
+    from repro_torch.launch import make_shard_mesh
+
+    V = torch.randn((6000, 48), generator=gen, device="cuda")
+    sidx = ShardedVectorIndex.build_sharded(V, seal_threshold=64,
+                                            mesh=make_shard_mesh(2, 1))
+    for _ in range(3):
+        sidx = sidx.add_documents(torch.randn(
+            (64, sidx.n_features), generator=gen, device="cuda"))
+    sidx = sidx.add_documents(sidx.vectors[0, :5] * 2).delete(
+        [7, 3001, 6010, 6100])
+    assert sidx.n_segments >= 3 and sidx.n_active > 0
+    q = trerank.normalize(torch.cat([sidx.vectors[0, :4], sidx.vectors[1, :4],
+                                     torch.randn((24, sidx.n_features),
+                                                 generator=gen,
+                                                 device="cuda")]))
+    for page in (33, 320):
+        before = pw_ops.launches
+        got = sidx.search(q, k=10, page=page, engine="postings",
+                          max_postings=max_postings)
+        assert pw_ops.launches - before == \
+            sidx.n_shards * pw_kernel.KERNELS_PER_CALL
+        with monkeypatch.context() as m:
+            m.setattr(tpost, "walk_ops", types.SimpleNamespace(
+                postings_walk=pw_ref.postings_walk_ref))
+            want = sidx.search(q, k=10, page=page, engine="postings",
+                               max_postings=max_postings)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_mlt_scores_fixed_order_on_card(gen):
     """MLTIndex.scores on the card: two runs give the same bits."""
     from repro_torch.core import MLTIndex

@@ -31,6 +31,7 @@ from repro_torch.core import encoding as tenc
 from repro_torch.core import postings as tpost
 from repro_torch.core import search as tsearch
 from repro_torch.core.filtering import BestFilter
+from repro_torch.kernels.postings_walk import ref as walk_ref
 
 from test_torch_search import _assert_search_close, _carry, _data
 
@@ -132,7 +133,7 @@ def test_score_postings_batch_bit_equal_to_jax(pair, max_postings,
     from repro.core import postings as jpost
 
     if step_entries is not None:
-        monkeypatch.setattr(tpost, "_STEP_ENTRIES", step_entries)
+        monkeypatch.setattr(walk_ref, "_STEP_ENTRIES", step_entries)
     jidx, tidx, Q = pair
     qc, _ = _query_tokens(jidx, Q, "count", trim=None)
     rng = np.random.default_rng(7)

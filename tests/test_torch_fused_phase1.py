@@ -431,9 +431,11 @@ def test_fold_plan_answers_any_page(scorer, d, Q, page):
     __import__("repro_torch.kernels.bucketize.kernel",
                fromlist=["_SOURCES"])._SOURCES,
     __import__("repro_torch.kernels.rerank_topk.kernel",
+               fromlist=["_SOURCES"])._SOURCES,
+    __import__("repro_torch.kernels.postings_walk.kernel",
                fromlist=["_SOURCES"])._SOURCES],
     ids=["fused_phase1", "fused_phase1_quant", "code_match", "bucketize",
-         "rerank_topk"])
+         "rerank_topk", "postings_walk"])
 def test_library_sources_name_every_included_header(sources):
     """A library is cached under the hash of its sources, so every header
     its .cu files include (directly or through another header) must be

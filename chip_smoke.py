@@ -104,8 +104,8 @@ summary):
      and freed; after the deletes, in both histories, the kernels called
      on the tombstoned tables with their live masks and held to their
      plain versions as in A (fused_phase1 and fused_phase1_quant on the
-     base, fused_phase1_quant and code_match on the first sealed segment
-     and the active or flat buffer); add, delete, merge and compact
+     base, the two and code_match on the first sealed segment and the
+     active or flat buffer); add, delete, merge and compact
      seconds, batch latency per stage and peak memory.  At 17 generations
      each engine is served once more with the full observability plane
      and a profile on every request (as in G): answers bit-equal to the
@@ -1865,8 +1865,7 @@ def f_stage(idx, base, new, queries, src, dead, stage, launches,
     # one query phase per shard and per group's row-block of a batch
     n_batches = len(queries) // BATCH * idx.n_shards * idx.n_replicas
     per = fp_kernel.KERNELS_PER_CALL
-    want = {"fused": {"fused_phase1": per,
-                      "code_match": gens * cm_kernel.KERNELS_PER_CALL},
+    want = {"fused": {"fused_phase1": per * (1 + gens)},
             "fused_int8": {"fused_phase1_quant": per * (1 + gens)},
             "codes_pallas": {"code_match": (1 + gens)
                              * cm_kernel.KERNELS_PER_CALL},
@@ -2049,8 +2048,9 @@ def f_holds(idx, queries, ctx) -> dict:
     """Each kernel of the lifecycle held to its plain version on the
     tombstoned tables and live masks the served path hands it, at Q 32:
     ``fused_phase1`` and ``fused_phase1_quant`` on the base (when
-    ``idx`` has tombstones in it), ``fused_phase1_quant`` and
-    ``code_match`` on the first sealed segment and the active buffer.
+    ``idx`` has tombstones in it), ``fused_phase1``,
+    ``fused_phase1_quant`` and ``code_match`` on the first sealed segment
+    and the active buffer.
     ``fused_phase1`` bit-equal to ``ref.fused_phase1_stream`` (the tile
     fold of ``fused_phase1_ref``, whose (Q, d, C) temporary the full base
     cannot hold), ``fused_phase1_quant`` bit-equal to the split reference and
@@ -2073,7 +2073,8 @@ def f_holds(idx, queries, ctx) -> dict:
         where = (f"{ctx} {name} ({codes.shape[0]} rows, "
                  f"{int((~live).sum())} dead)")
         hold_table(codes, live, quant, q, qcodes, w, where, errs,
-                   ("fused_phase1",) if name == "base" else ("code_match",))
+                   ("fused_phase1",) if name == "base"
+                   else ("fused_phase1", "code_match"))
     check(len(tables) >= 2, f"{ctx}: {len(tables)} tables held")
     return {"tables": [t[0] for t in tables], "max_abs_err": errs}
 

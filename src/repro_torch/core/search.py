@@ -22,7 +22,9 @@ Phase 1 retrieves ``page`` candidates with one of the engines
 
 The composed engines (the first four) select the page with a stable
 top-``page`` over their (Q, n_docs) scores, ties to the lower doc id as
-``jax.lax.top_k`` breaks them.  Phase 2 re-ranks the page by exact fp32
+``jax.lax.top_k`` breaks them; the fused two are page kernels.
+:data:`ENGINES` holds what the code branches on for each, and
+:func:`phase1` dispatches.  Phase 2 re-ranks the page by exact fp32
 cosine (:mod:`repro_torch.core.rerank`) for every engine, the quantized one
 included, so reported scores are always exact fp32.
 
@@ -31,14 +33,11 @@ index-side ``best`` at build time.  The index lives on one device
 (``device``, ``"cuda"`` unless the caller asks for the CPU) and makes
 every tensor there.
 
-``search(profile=node)`` annotates a
-:class:`repro_torch.obs.profile.ProfileNode` with encode / phase1 /
-rescore children, each phase fenced by :func:`profile_phase`; without a
-profile no fence is added.  Under an engine's timeline sink the same
-boundaries close the spans ``search.encode``, ``search.phase1`` and
-``search.rescore``, unfenced (:func:`repro_torch.obs.tracing.phase_clock`);
-on the composed engines ``search.phase1`` holds ``search.topk``, the
-page's selection, after the engine's own spans.
+A :class:`PhaseRecorder` closes each phase (encode / phase1 / rescore): a
+fenced child of ``search(profile=node)``'s ProfileNode (no fence without
+one), and under a timeline sink the span ``search.encode``,
+``search.phase1`` or ``search.rescore``, unfenced; on the composed
+engines ``search.phase1`` holds ``search.topk``, after their own spans.
 """
 
 from __future__ import annotations
@@ -61,13 +60,41 @@ from .postings import (Postings, WalkTally, build_postings, df_lookup,
 from .quantize import QuantizedTable, quantize_table
 from .rerank import brute_force_topk, normalize, rerank_topk, stable_topk
 
-__all__ = ["VectorIndex", "SearchParams", "phase1_engine_scores",
-           "encode_table", "profile_phase", "FUSED_ENGINES"]
+__all__ = ["VectorIndex", "SearchParams", "Engine", "ENGINES",
+           "FUSED_ENGINES", "engine_spec", "phase1", "phase1_engine_scores",
+           "token_weights", "encode_table", "PhaseRecorder"]
 
-# engines that fuse phase-1 scoring with candidate selection: they return
-# the candidate page directly instead of a (Q, d) score matrix, so they
-# dispatch around phase1_engine_scores
-FUSED_ENGINES = ("fused", "fused_int8")
+
+@dataclasses.dataclass(frozen=True)
+class Engine:
+    """What the search path branches on for one phase-1 engine."""
+
+    reads_tokens: bool    # phase 1 reads the query tokens and their weights
+    returns_page: bool    # its call is a page kernel: it returns the page
+    captured: bool        # SearchGraphs may capture its search
+
+
+# In the launcher's order.  Only the page kernels are captured: postings
+# syncs the host once a batch, and no other composed engine ever was.
+ENGINES = {  # name: Engine(reads_tokens, returns_page, captured)
+    "codes": Engine(True, False, False),
+    "postings": Engine(True, False, False),
+    "onehot": Engine(True, False, False),
+    "codes_pallas": Engine(True, False, False),
+    "fused": Engine(True, True, True),
+    "fused_int8": Engine(False, True, True),
+}
+
+FUSED_ENGINES = tuple(n for n, e in ENGINES.items() if e.returns_page)
+
+
+def engine_spec(name: str) -> Engine:
+    """The table's record of engine ``name``; ValueError when unknown."""
+    spec = ENGINES.get(name)
+    if spec is None:
+        raise ValueError(f"unknown engine {name!r}")
+    return spec
+
 
 _SENTINEL = {  # never-matching code per dtype (outside any bucket range)
     torch.int8: 127,
@@ -78,6 +105,13 @@ _SENTINEL = {  # never-matching code per dtype (outside any bucket range)
 # rows encoded per step at build: the elementwise temporaries of encode
 # then stay a few hundred MB at paper scale
 _ENCODE_ROWS = 1 << 18
+
+
+def _cached(obj, key: str, make):
+    """``obj.__dict__[key]``, made by ``make()`` at its first read."""
+    if key not in obj.__dict__:
+        obj.__dict__[key] = make()
+    return obj.__dict__[key]
 
 
 def encode_table(vectors: torch.Tensor, encoder: Encoder,
@@ -94,20 +128,49 @@ def encode_table(vectors: torch.Tensor, encoder: Encoder,
     return torch.cat(parts) if len(parts) > 1 else parts[0]
 
 
-def profile_phase(profile, name: str, t0: float, device, **attrs) -> float:
-    """Close one phase of a profiled search: wait for the work queued on
-    ``device``'s current stream, where the search runs (nothing to wait
-    for on the CPU), then add child ``name`` to ``profile`` with the wall
-    seconds since ``t0`` -> the clock read, the next phase's start.  The
-    fence changes when the host observes values, never the values.  It
-    waits for the stream, not the whole device: another batcher may be
-    capturing a CUDA graph (:mod:`repro_torch.serve.graphs`), and CUDA
-    forbids a device synchronise while any stream captures."""
-    if torch.device(device).type == "cuda":
-        torch.cuda.current_stream(device).synchronize()
-    t = time.monotonic()
-    profile.child(name, t - t0, **attrs)
-    return t
+class PhaseRecorder:
+    """One search's phase boundaries: each closes the ``profile``'s child,
+    fenced, then the span under the thread's timeline sink, unfenced."""
+
+    __slots__ = ("profile", "device", "t", "clock")
+
+    def __init__(self, profile, device):
+        self.profile, self.device = profile, device
+        self.t = time.monotonic() if profile is not None else 0.0
+        self.clock = phase_clock()
+
+    def close(self, name: str, span: str, *span_args: int, **attrs):
+        """Close profile child ``name`` (with ``attrs``) and span ``span``
+        (with ``span_args``) -> the child, or None without a profile."""
+        node = (None if self.profile is None
+                else self.profile_phase(name, attrs))
+        if self.clock is not None:
+            self.clock.close(span, *span_args)
+        return node
+
+    def profile_phase(self, name: str, attrs: dict):
+        """Wait for the device's current stream, where the search runs
+        (not the device: another batcher may be capturing a CUDA graph,
+        and CUDA forbids a device synchronise then), and add child
+        ``name`` timed since the last boundary.  The fence changes when
+        the host observes values, never the values."""
+        if torch.device(self.device).type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        t0, self.t = self.t, time.monotonic()
+        return self.profile.child(name, self.t - t0, **attrs)
+
+
+def token_weights(weighting: str, mask: torch.Tensor, df,
+                  n_docs: int) -> torch.Tensor:
+    """(Q, C) weights of the query tokens, 0 where ``mask`` drops one:
+    idf of the frequencies ``df()`` over ``n_docs``, or 1 (``count``)."""
+    if weighting == "idf":
+        w = idf_weights(df(), n_docs)
+    elif weighting == "count":
+        w = torch.ones(mask.shape, dtype=torch.float32, device=mask.device)
+    else:
+        raise ValueError(f"unknown weighting {weighting!r}")
+    return torch.where(mask, w, 0.0)
 
 
 def phase1_engine_scores(
@@ -119,10 +182,9 @@ def phase1_engine_scores(
     max_postings: Optional[int],
     max_abs_bucket: int,
 ) -> torch.Tensor:
-    """Phase-1 scores (Q, d) under one of the composed engines: the single
-    engine-dispatch point, so every caller (this index, and later the
-    per-shard query phase) gets every engine.  The walk's cost row is
-    filed after it, from the entry count its sync read."""
+    """Phase-1 scores (Q, d) under one of the composed engines (the
+    composed half of :func:`phase1`).  The walk's cost row is filed after
+    it, from the entry count its sync read."""
     if engine == "postings":
         with WalkTally() as walk:
             scores = score_postings_batch(
@@ -146,13 +208,36 @@ def phase1_engine_scores(
     raise ValueError(f"unknown engine {engine!r}")
 
 
+def phase1(engine: str, codes, postings, quant, q, qcodes, col_weights,
+           page: int, live: Optional[torch.Tensor] = None,
+           max_postings: Optional[int] = None, max_abs_bucket: int = 0):
+    """Phase 1 of one table (an index, a shard's base, a generation): a
+    page kernel -> (scores, ids int32) (Q, page), another engine -> (Q, d)
+    scores; rows ``live`` marks False score -inf.  ``quant()`` gives the
+    int8 table, read only by the engine that reads no tokens."""
+    spec = engine_spec(engine)
+    if not spec.returns_page:
+        scores = phase1_engine_scores(codes, postings, qcodes, col_weights,
+                                      engine, max_postings, max_abs_bucket)
+        return (scores if live is None
+                else scores.masked_fill(~live[None, :], float("-inf")))
+    from repro_torch.kernels.fused_phase1 import ops as fp_ops
+
+    if spec.reads_tokens:
+        return fp_ops.fused_phase1(codes, qcodes, col_weights, page=page,
+                                   live=live)
+    t = quant()
+    return fp_ops.fused_phase1_quant(t.codes, t.scale, t.zero, q, page=page,
+                                     live=live)
+
+
 @dataclasses.dataclass(frozen=True)
 class SearchParams:
     k: int = 10
     page: int = 320
     trim: Optional[TrimFilter] = None
     best: Optional[BestFilter] = None
-    engine: str = "postings"  # postings|codes|onehot|codes_pallas|fused|fused_int8
+    engine: str = "postings"       # a name of ENGINES
     weighting: str = "idf"         # idf | count
     max_postings: Optional[int] = None  # None -> exact (= n_docs)
 
@@ -197,15 +282,11 @@ class VectorIndex:
 
     @property
     def quantized(self) -> QuantizedTable:
-        """int8 per-row quantized copy of ``vectors`` for ``fused_int8``
-        phase-1 selection.  Derived at first use (a pure function of the
-        vector bits, never stored) and cached on this instance: the index
-        is immutable, so the cache cannot go stale."""
-        cached = self.__dict__.get("_quant_cache")
-        if cached is None:
-            cached = quantize_table(self.vectors)
-            self.__dict__["_quant_cache"] = cached
-        return cached
+        """int8 per-row copy of ``vectors`` for ``fused_int8``, derived at
+        first use (never stored) and cached: the index is immutable, so
+        the cache cannot go stale."""
+        return _cached(self, "_quant_cache",
+                       lambda: quantize_table(self.vectors))
 
     def resident_leaves(self):
         """``(path, section, tensor)`` of the tables this index holds,
@@ -233,15 +314,9 @@ class VectorIndex:
         qcodes = self.encoder.encode(q)
         mask = expand_mask(feature_mask(q, trim=trim, best=best),
                            qcodes.shape[-1])
-        if weighting == "idf":
-            w = idf_weights(df_lookup(self.postings, qcodes),
-                            self.postings.n_docs)
-        elif weighting == "count":
-            w = torch.ones(qcodes.shape, dtype=torch.float32,
-                           device=self.device)
-        else:
-            raise ValueError(f"unknown weighting {weighting!r}")
-        return q, qcodes, torch.where(mask, w, 0.0)
+        return q, qcodes, token_weights(
+            weighting, mask, lambda: df_lookup(self.postings, qcodes),
+            self.postings.n_docs)
 
     # ----------------------------------------------------------------- phase 1
     def phase1_scores(
@@ -282,56 +357,34 @@ class VectorIndex:
         phase1 / rescore children with host wall times (the JAX package's
         names and attributes; ``kernel`` is the engine for the fused
         engines, else ``"composed"``)."""
-        t_prof = time.monotonic() if profile is not None else 0.0
-        clock = phase_clock()
+        spec = engine_spec(engine)
+        phases = PhaseRecorder(profile, self.device)
         queries = torch.atleast_2d(torch.as_tensor(
             queries, dtype=torch.float32, device=self.device))
         page = min(page, self.n_docs)
         k = min(k, page)
-        if engine == "fused_int8":
-            from repro_torch.kernels.fused_phase1 import ops as fp_ops
-
-            q = normalize(queries)
-            if profile is not None:
-                t_prof = profile_phase(profile, "encode", t_prof,
-                                       self.device, n_queries=q.shape[0])
-            if clock is not None:
-                clock.close("search.encode")
-            qt = self.quantized
-            _, cand = fp_ops.fused_phase1_quant(qt.codes, qt.scale, qt.zero,
-                                                q, page=page)
+        q, qcodes, w = (self.encode_queries(queries, trim, best, weighting)
+                        if spec.reads_tokens
+                        else (normalize(queries), None, None))
+        phases.close("encode", "search.encode", n_queries=q.shape[0])
+        out = phase1(engine, self.codes, self.postings,
+                     lambda: self.quantized, q, qcodes, w, page,
+                     max_postings=max_postings,
+                     max_abs_bucket=self.encoder.max_abs_bucket)
+        if spec.returns_page:
+            cand = out[1]
         else:
-            q, qcodes, w = self.encode_queries(queries, trim, best,
-                                               weighting)
-            if profile is not None:
-                t_prof = profile_phase(profile, "encode", t_prof,
-                                       self.device, n_queries=q.shape[0])
-            if clock is not None:
-                clock.close("search.encode")
-            if engine == "fused":
-                from repro_torch.kernels.fused_phase1 import ops as fp_ops
-
-                _, cand = fp_ops.fused_phase1(self.codes, qcodes, w,
-                                              page=page)
-            else:
-                scores1 = self.phase1_scores(qcodes, w, engine, max_postings)
-                sub = child_clock()
-                _, cand = stable_topk(scores1, page)
-                if sub is not None:
-                    sub.close("search.topk")
-                del scores1
-        if profile is not None:
-            t_prof = profile_phase(
-                profile, "phase1", t_prof, self.device, engine=engine,
-                kernel=engine if engine in FUSED_ENGINES else "composed",
-                page=page, k=k, candidates=cand.numel())
-        if clock is not None:
-            clock.close("search.phase1", 1, 1)     # one shard, one table
+            sub = child_clock()
+            _, cand = stable_topk(out, page)
+            if sub is not None:
+                sub.close("search.topk")
+        del out
+        phases.close("phase1", "search.phase1", 1, 1,  # one shard, one table
+                     engine=engine, kernel=engine if spec.returns_page
+                     else "composed", page=page, k=k,
+                     candidates=cand.numel())
         ids, scores = rerank_topk(self.vectors, cand, q, k)
-        if profile is not None:
-            profile_phase(profile, "rescore", t_prof, self.device, k=k)
-        if clock is not None:
-            clock.close("search.rescore")
+        phases.close("rescore", "search.rescore", k=k)
         return ids, scores
 
     def shard(self, mesh=None, **kwargs):

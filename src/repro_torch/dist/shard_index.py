@@ -63,12 +63,12 @@ same bits in a 4,096-row segment as in a 65,536-row flat buffer, and in a
 shard as in the whole table.  So every generation is scored by a function
 whose per-row bits do not depend on the table's width:
 
-* the code-matching engines (``postings``, ``codes``, ``onehot``,
-  ``codes_pallas``, ``fused``) score generations with ``code_match``,
-  whose sums run in an order fixed by C alone (on the card the kernel; on
-  the CPU its plain version, one ``sum`` per row);
-* ``fused_int8`` scores each generation with ``fused_phase1_quant``
-  (exact integer sums and a fixed combine on the card);
+* the composed engines score generations with ``code_match``, whose sums
+  run in an order fixed by C alone (on the card the kernel; on the CPU
+  its plain version, one ``sum`` per row);
+* the page kernels score each with their own kernel at its top page:
+  ``fused_phase1`` sums in ``code_match``'s tree on the card, and
+  ``fused_phase1_quant`` exactly in integers with a fixed combine;
 * the page is re-ranked with :func:`repro_torch.core.rerank.tree_dot`, and
   the final ``(Q, k, n)`` rescore is the einsum of
   :func:`repro_torch.core.rerank.exact_scores`.
@@ -83,8 +83,8 @@ live doc can fill report ``(id=-1, score=-inf)``.  idf weighting uses
 from __future__ import annotations
 
 import dataclasses
-import time
-from typing import List, Optional, Tuple
+import itertools
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -93,13 +93,14 @@ from repro_torch.core.encoding import Encoder, RoundingEncoder
 from repro_torch.core.filtering import (BestFilter, TrimFilter, expand_mask,
                                         feature_mask, index_best_codes)
 from repro_torch.core.postings import (Postings, build_postings, code_df,
-                                       df_lookup, idf_weights)
-from repro_torch.core.quantize import quantize_table
+                                       df_lookup)
+from repro_torch.core.quantize import QuantizedTable, quantize_table
 from repro_torch.core.rerank import (check_fp32_matmul, normalize,
                                      stable_topk, tree_dot)
-from repro_torch.core.search import (_SENTINEL, FUSED_ENGINES, VectorIndex,
-                                     encode_table, phase1_engine_scores,
-                                     profile_phase)
+from repro_torch.core.search import (_SENTINEL, PhaseRecorder, VectorIndex,
+                                     _cached,
+                                     encode_table, engine_spec, phase1,
+                                     token_weights)
 from repro_torch.obs.compile_watch import watch_region
 from repro_torch.obs.tracing import phase_clock
 
@@ -203,11 +204,7 @@ class Segment:
         """The int8 per-row table of this segment's vectors for
         ``fused_int8``, derived at first use and cached (tombstones keep
         the vectors, so :meth:`ShardedVectorIndex.delete` carries it)."""
-        cached = self.__dict__.get("_quant_cache")
-        if cached is None:
-            cached = _quantize(self.vectors)
-            self.__dict__["_quant_cache"] = cached
-        return cached
+        return _cached(self, "_quant_cache", lambda: _quantize(self.vectors))
 
 
 @dataclasses.dataclass
@@ -326,32 +323,23 @@ class ShardedVectorIndex:
     @property
     def max_df(self) -> int:
         """Longest live posting list over every shard and column: the exact
-        per-shard ``max_postings`` window.  Cached per instance (mutations return new
+        per-shard ``max_postings`` window, cached (mutations make new
         instances)."""
-        cached = self.__dict__.get("_max_df_cache")
-        if cached is None:
-            cached = max(_max_df(pc, _SENTINEL[self.codes.dtype])
-                         for pc in self.post_codes)
-            self.__dict__["_max_df_cache"] = cached
-        return cached
+        sentinel = _SENTINEL[self.codes.dtype]
+        return _cached(self, "_max_df_cache", lambda: max(
+            _max_df(pc, sentinel) for pc in self.post_codes))
 
     # ------------------------------------------------------ quantized tables
     # int8 per-row copies of the vectors for fused_int8, derived at first
     # use and cached per instance.  Tombstones change no vector, so the
     # mutation paths carry them wherever the vectors are shared.
     def _quant_base(self) -> Quant:
-        cached = self.__dict__.get("_quant_base_cache")
-        if cached is None:
-            cached = _quantize(self.vectors)
-            self.__dict__["_quant_base_cache"] = cached
-        return cached
+        return _cached(self, "_quant_base_cache",
+                       lambda: _quantize(self.vectors))
 
     def _quant_active(self) -> Quant:
-        cached = self.__dict__.get("_quant_active_cache")
-        if cached is None:
-            cached = _quantize(self.seg_vectors)
-            self.__dict__["_quant_active_cache"] = cached
-        return cached
+        return _cached(self, "_quant_active_cache",
+                       lambda: _quantize(self.seg_vectors))
 
     def _carry_quant(self, out: "ShardedVectorIndex", base: bool = False,
                      active: bool = False) -> "ShardedVectorIndex":
@@ -857,8 +845,8 @@ class ShardedVectorIndex:
         generations), ``search.merge`` and ``search.rescore``, unfenced."""
         if merge not in ("gather", "stream"):
             raise ValueError(f"unknown merge transport {merge!r}")
-        t_prof = time.monotonic() if profile is not None else 0.0
-        clock = phase_clock()
+        spec = engine_spec(engine)
+        phases = PhaseRecorder(profile, self.device)
         R = self.n_replicas
         if live_groups is None:
             groups = tuple(range(R))
@@ -885,11 +873,7 @@ class ShardedVectorIndex:
         qcodes = self.encoder.encode(q)
         mask = expand_mask(feature_mask(q, trim=trim, best=best),
                            qcodes.shape[-1])
-        if profile is not None:
-            t_prof = profile_phase(profile, "encode", t_prof, self.device,
-                                   n_queries=n_q, groups=U)
-        if clock is not None:
-            clock.close("search.encode")
+        phases.close("encode", "search.encode", n_queries=n_q, groups=U)
         if max_postings == "auto":
             max_postings = max(1, self.max_df)
         L = (self.docs_per_shard if max_postings is None
@@ -914,17 +898,14 @@ class ShardedVectorIndex:
         q = q[:n_q]
         generations = len(self.segments) + (
             1 if self.n_appended and self.seg_capacity else 0)
+        node = phases.close(
+            "phase1", "search.phase1", self.n_shards, generations,
+            engine=engine, kernel=engine if spec.returns_page
+            else "composed", page=page, page_loc=page_loc, k=k, merge=merge)
+        out = _merge_phase(gid, s2, cvec, q, k, phases, generations)
         if profile is not None:
-            profile_phase(profile, "phase1", t_prof, self.device,
-                          engine=engine, kernel=engine if engine
-                          in FUSED_ENGINES else "composed", page=page,
-                          page_loc=page_loc, k=k, merge=merge)
-            self._count_candidates(profile.children[-1], gid, n_q, groups,
-                                   B)
-        if clock is not None:
-            clock.close("search.phase1", self.n_shards, generations)
-        return _merge_phase(gid, s2, cvec, q, k, profile=profile,
-                            generations=generations, clock=clock)
+            self._count_candidates(node, gid, n_q, groups, B)
+        return out
 
     def _count_candidates(self, node, gid, n_q, groups, B) -> None:
         """The phase1 node's children, as the reference makes them: the
@@ -951,15 +932,16 @@ class ShardedVectorIndex:
                        tombstones=self.active_tombstones,
                        candidates=int(np.isin(appended, ag[ag >= 0]).sum()))
 
-    def _generations(self, s: int) -> List[Tuple[torch.Tensor, ...]]:
+    def _generations(self, s: int) -> list:
         """(vectors, codes, gids, live) of each generation's column on
-        shard ``s``, (W, .) each: the sealed segments oldest first, then
-        the active buffer."""
-        gens = [(g.vectors[s], g.codes[s], g.gids[s], g.live[s])
-                for g in self.segments]
+        shard ``s``, (W, .) each, and the getter of its (S, W, .) int8
+        table: sealed segments oldest first, then the active buffer."""
+        gens = [(g.vectors[s], g.codes[s], g.gids[s], g.live[s],
+                 g.quantized) for g in self.segments]
         if self.seg_capacity:
             gens.append((self.seg_vectors[s], self.seg_codes[s],
-                         self.seg_gids[s], self.seg_live[s]))
+                         self.seg_gids[s], self.seg_live[s],
+                         self._quant_active))
         return gens
 
     def _shard_pages(self, q, qcodes, mask, engine, weighting, max_postings,
@@ -968,17 +950,9 @@ class ShardedVectorIndex:
         summed over the shards, then each shard's page of ``page_loc``
         candidates -> [(gids (Q, P) int32, scores (Q, P), vectors
         (Q, P, n))] in shard order."""
-        if engine == "fused_int8":
-            w = None    # reads no tokens: no df, no idf
-        elif weighting == "idf":
-            w = idf_weights(self._df(qcodes), self.n_ids)
-        elif weighting == "count":
-            w = torch.ones(qcodes.shape, dtype=torch.float32,
-                           device=self.device)
-        else:
-            raise ValueError(f"unknown weighting {weighting!r}")
-        if w is not None:
-            w = torch.where(mask, w, 0.0)
+        w = (token_weights(weighting, mask, lambda: self._df(qcodes),
+                           self.n_ids)
+             if engine_spec(engine).reads_tokens else None)   # no df, no idf
         return [self._shard_page(s, q, qcodes, w, engine, max_postings,
                                  page_loc) for s in range(self.n_shards)]
 
@@ -987,65 +961,41 @@ class ShardedVectorIndex:
         exact cosines -> (gids (Q, P) int32, scores (Q, P), vectors
         (Q, P, n))."""
         dp = self.docs_per_shard
-        codes, lv = self.codes[s], self.live[s]
         gens = self._generations(s)
-
-        if engine in FUSED_ENGINES:
-            from repro_torch.kernels.fused_phase1 import ops as fp_ops
-
-            # the fused kernel's top min(page_loc, dp) of the base holds
-            # every base doc the joined selection can take
-            p_base = min(page_loc, dp)
-            if engine == "fused_int8":
-                b8, bsc, bzp = self._quant_base()
-                parts = [fp_ops.fused_phase1_quant(b8[s], bsc[s], bzp[s], q,
-                                                   page=p_base, live=lv)]
-                tables = [g.quantized() for g in self.segments]
-                if self.seg_capacity:
-                    tables.append(self._quant_active())
-                # each generation's own top page, sorted by score with ties
-                # to the lower slot: joined in generation order, its stable
-                # selection is that of the generation's scores in slot
-                # order, and no doc outside a generation's top page_loc can
-                # reach the joined top page_loc
-                for (g8, gsc, gzp), (_, _, _, gl) in zip(tables, gens):
-                    parts.append(fp_ops.fused_phase1_quant(
-                        g8[s], gsc[s], gzp[s], q,
-                        page=min(gl.shape[0], page_loc), live=gl))
-            else:
-                parts = [fp_ops.fused_phase1(codes, qcodes, w, page=p_base,
-                                             live=lv)]
-                for _, gc, _, gl in gens:
-                    sc = _generation_scores(gc, gl, qcodes, w)
-                    parts.append((sc, torch.arange(
-                        sc.shape[1], device=sc.device).expand_as(sc)))
-            if len(parts) == 1:
-                cand_s, cand = parts[0]
-                cand = cand.long()
-            else:
-                offs = [0, dp]
-                for g in gens[:-1]:
-                    offs.append(offs[-1] + g[0].shape[0])
-                cat_s = torch.cat([p for p, _ in parts], dim=1)
-                cat_i = torch.cat([i.long() + o for (_, i), o
-                                   in zip(parts, offs)], dim=1)
-                cand_s, pos = stable_topk(cat_s, page_loc)
-                cand = torch.gather(cat_i, 1, pos)
-        else:
-            postings = Postings(self.post_docs[s], self.post_codes[s], dp)
-            s1 = phase1_engine_scores(codes, postings, qcodes, w, engine,
-                                      max_postings,
-                                      self.encoder.max_abs_bucket)
-            parts = [s1.masked_fill(~lv[None, :], _NEG_INF)]
-            parts += [_generation_scores(gc, gl, qcodes, w)
-                      for _, gc, _, gl in gens]
-            s1 = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-            del parts
+        # a page kernel's top min(page_loc, dp) of the base holds every
+        # base doc the joined selection can take
+        base = phase1(engine, self.codes[s], Postings(
+            self.post_docs[s], self.post_codes[s], dp),
+            lambda: _quant_at(self._quant_base(), s), q, qcodes, w,
+            min(page_loc, dp), live=self.live[s], max_postings=max_postings,
+            max_abs_bucket=self.encoder.max_abs_bucket)
+        if not engine_spec(engine).returns_page:
+            s1 = base if not gens else torch.cat([base] + [
+                _generation_scores(gc, gl, qcodes, w)
+                for _, gc, _, gl, _ in gens], dim=1)
             cand_s, cand = stable_topk(s1, page_loc)
+        elif not gens:
+            cand_s, cand = base[0], base[1].long()
+        else:
+            # each generation's own top page, ties to the lower slot: joined
+            # in generation order its stable selection is that of the scores
+            # in slot order, and no doc outside a table's top page_loc can
+            # reach the joined top page_loc
+            parts = [base] + [phase1(
+                engine, gc, None, lambda f=f: _quant_at(f(), s), q, qcodes,
+                w, min(gl.shape[0], page_loc), live=gl)
+                for _, gc, _, gl, f in gens]
+            offs = itertools.accumulate(
+                [dp] + [g[0].shape[0] for g in gens[:-1]], initial=0)
+            cat_s = torch.cat([p for p, _ in parts], dim=1)
+            cat_i = torch.cat([i.long() + o for (_, i), o
+                               in zip(parts, offs)], dim=1)
+            cand_s, pos = stable_topk(cat_s, page_loc)
+            cand = torch.gather(cat_i, 1, pos)
 
         cvec, live_c, gid = self._gather(s, cand, gens)
         s2 = tree_dot(cvec, q[:, None, :])
-        # the fused kernels' -inf slots carry unspecified ids: -inf by the
+        # the page kernels' -inf slots carry unspecified ids: -inf by the
         # phase-1 score, not only by the row's live flag
         s2 = s2.masked_fill(~live_c | torch.isneginf(cand_s), _NEG_INF)
         return gid, s2, cvec
@@ -1062,8 +1012,8 @@ class ShardedVectorIndex:
         gid = (base + self.offsets[s]).to(torch.int32)
         if not gens:
             return cvec, live_c, gid
-        gv, gg, gl = (torch.cat(t) for t in zip(*((v, g, l)
-                                                  for v, _, g, l in gens)))
+        gv, gg, gl = (torch.cat(t) for t in
+                      zip(*((gen[0], gen[2], gen[3]) for gen in gens)))
         inside = cand >= dp
         loc = (cand - dp).clamp(0, gv.shape[0] - 1)
         cvec = torch.where(inside[..., None], gv[loc], cvec)
@@ -1121,25 +1071,19 @@ def _take(pos, gid, s2, cvec):
             torch.gather(cvec, 1, pos[..., None].expand(-1, -1, n)))
 
 
-def _merge_phase(gid, s2, cvec, q, k, profile=None, generations=0,
-                 clock=None):
+def _merge_phase(gid, s2, cvec, q, k, phases, generations):
     """Stable top-``k`` over the page's exact cosines, then the reported
     scores from the (Q, k, n) einsum of ``exact_scores``; slots whose
-    score is -inf report (id=-1, score=-inf).  With a ``profile`` the two
-    steps are its ``merge_select`` and ``rescore`` children; with a
-    timeline ``clock`` they close ``search.merge`` and
+    score is -inf report (id=-1, score=-inf).  The two steps close
+    ``phases``' ``merge_select`` / ``search.merge`` and ``rescore`` /
     ``search.rescore``."""
-    t_prof = time.monotonic() if profile is not None else 0.0
     with watch_region("search.merge_select",
                       sig=(tuple(gid.shape), k, generations)):
         top_s, pos = stable_topk(s2, k)
         top_ids, _, hits = _take(pos, gid, s2, cvec)
         top_ids = top_ids.masked_fill(torch.isneginf(top_s), -1)
-    if profile is not None:
-        t_prof = profile_phase(profile, "merge_select", t_prof, q.device,
-                               k=k, generations=generations)
-    if clock is not None:
-        clock.close("search.merge")
+    phases.close("merge_select", "search.merge", k=k,
+                 generations=generations)
     check_fp32_matmul(hits)
     with watch_region("search.rescore", sig=(tuple(q.shape), k)):
         scores = torch.einsum("qkn,qn->qk", hits, q)
@@ -1149,11 +1093,13 @@ def _merge_phase(gid, s2, cvec, q, k, profile=None, generations=0,
         top_ids = torch.nn.functional.pad(top_ids, (0, short), value=-1)
         scores = torch.nn.functional.pad(scores, (0, short),
                                          value=_NEG_INF)
-    if profile is not None:
-        profile_phase(profile, "rescore", t_prof, q.device, k=k)
-    if clock is not None:
-        clock.close("search.rescore")
+    phases.close("rescore", "search.rescore", k=k)
     return top_ids, scores
+
+
+def _quant_at(table: Quant, s: int) -> QuantizedTable:
+    """Shard ``s``'s slice of an (S, W, .) int8 table."""
+    return QuantizedTable(*(t[s] for t in table))
 
 
 def _max_df(post_codes: torch.Tensor, sentinel: int) -> int:

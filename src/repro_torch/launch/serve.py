@@ -75,13 +75,11 @@ import torch
 from repro_torch.core import (CombinedEncoder, IntervalEncoder,
                               RoundingEncoder, TrimFilter, VectorIndex,
                               brute_force_topk, normalize, precision_at_k)
+from repro_torch.core.search import ENGINES
 from repro_torch.data import make_corpus
 from repro_torch.kernels import launch_counts
 from repro_torch.lsa import build_lsa
 from repro_torch.serve.engine import BatchedSearchEngine
-
-ENGINES = ("codes", "postings", "onehot", "codes_pallas", "fused",
-           "fused_int8")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -92,7 +90,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch-size", type=int, default=32)
     ap.add_argument("--page", type=int, default=320)
     ap.add_argument("--trim", type=float, default=0.05)
-    ap.add_argument("--engine", default="codes", choices=ENGINES)
+    ap.add_argument("--engine", default="codes", choices=tuple(ENGINES))
     ap.add_argument("--device", default="cuda",
                     help="the device every tensor lives on (cuda unless "
                          "the CPU is asked for)")

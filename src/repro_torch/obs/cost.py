@@ -69,11 +69,6 @@ OPS_PER_ELEMENT = 3                # compare, select, add per (q, doc, col)
 _PEAK = {"cuda_core": CUDA_CORE_OPS_PER_S, "int8_tensor_core":
          INT8_TC_OPS_PER_S}
 
-# engine names as they appear in the query phase's sig, by phase-1 lowering
-_FUSED_ENGINES = ("fused_int8", "fused")
-_COMPOSED_ENGINES = ("codes", "postings", "onehot")
-
-
 class Work(NamedTuple):
     """The least work of one call: ``ops`` operations of kind ``kind``
     (``cuda_core`` or ``int8_tensor_core``) and ``nbytes`` of memory
@@ -352,15 +347,21 @@ def roofline(watch, phase_seconds: Dict[str, float]) -> List[dict]:
 
 
 def _phase1_rows_by_variant(watch, region: str = "search.query_phase"):
+    from repro_torch.core.search import ENGINES
+
+    # engine names in the query phase's sig: the page kernels', and the
+    # reference's composed three (codes_pallas left out, as it leaves it)
+    page = {n for n, e in ENGINES.items() if e.returns_page}
+    composed_names = set(ENGINES) - page - {"codes_pallas"}
     fused: List[dict] = []
     composed: List[dict] = []
     for r in watch.costs.rows():
         if r["region"] != region or not r["bytes_accessed"]:
             continue
         sig = r["sig"]
-        if any(e in sig for e in _FUSED_ENGINES):
+        if any(e in sig for e in page):
             fused.append(r)
-        elif any(e in sig for e in _COMPOSED_ENGINES):
+        elif any(e in sig for e in composed_names):
             composed.append(r)
     return fused, composed
 

@@ -39,7 +39,7 @@ in :data:`SPAN_NAMES`:
   batch share its batch id;
 * ``search.encode``, ``search.phase1`` (its args: shards, generations),
   ``search.merge`` and ``search.rescore``: children of ``search.launch``,
-  closed where ``profile_phase`` closes a phase but with no fence, so
+  closed where a profiled search files its phase but with no fence, so
   they time the host's issue of the work, not the card's.  A batch
   answered by a CUDA graph's replay (:mod:`repro_torch.serve.graphs`)
   issues none of that work: its launch has one child,

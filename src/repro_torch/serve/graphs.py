@@ -13,9 +13,9 @@ one index instance serves.  :class:`SearchGraphs` captures it once and
 replays it: the kernels, their order and their arithmetic are those of
 the eager search, so the answers are bit for bit the same.
 
-**When it engages** (:meth:`SearchGraphs.engages`): the engine is one of
-:data:`repro_torch.core.search.FUSED_ENGINES`, whose search has no
-synchronisation, the served index's tensors are on a CUDA device, and
+**When it engages** (:meth:`SearchGraphs.engages`): the engine is
+``captured`` in :data:`repro_torch.core.search.ENGINES` (its search has
+no synchronisation), the served index's tensors are on a CUDA device, and
 no request of the batch asked for a profile (the engine's check).  Every
 other batch runs eagerly: CPU indexes, the composed engines, profiled
 batches.  On an index instance that engages,
@@ -88,7 +88,7 @@ import torch
 
 from torch.autograd import profiler as _autograd_profiler
 
-from repro_torch.core.search import FUSED_ENGINES
+from repro_torch.core.search import ENGINES
 from repro_torch.obs import cost
 from repro_torch.obs.tracing import phase_clock
 
@@ -164,7 +164,8 @@ class SearchGraphs:
         self.last_failure: Optional[str] = None   # the last capture's error
 
     def engages(self, index, engine: str) -> bool:
-        return (engine in FUSED_ENGINES
+        spec = ENGINES.get(engine)      # an unknown one fails in the search
+        return (spec is not None and spec.captured
                 and self.backend.engages(getattr(index, "device", None)))
 
     def search(self, index, qs: np.ndarray, search: Callable,

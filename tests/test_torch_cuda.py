@@ -788,7 +788,9 @@ def test_sharded_lifecycle_segmented_vs_flat_on_card(gen, engine):
 def test_sharded_generations_scored_by_code_match_on_card(gen):
     """On the card a generation's code-match scores come from the
     code_match kernel, bit-equal to ref.match_scores, once per generation
-    per ``fused`` search, and two fused_phase1 kernels score the base."""
+    per ``codes_pallas`` search beside the base's; a page kernel scores
+    the base and each generation with its own kernel (``fused``:
+    fused_phase1, no code_match; ``fused_int8``: fused_phase1_quant)."""
     from repro_torch.dist import shard_index as si
 
     seg, _, V = _sharded_pair(gen)
@@ -805,10 +807,14 @@ def test_sharded_generations_scored_by_code_match_on_card(gen):
             ~s.live[0][None, :], float("-inf"))
         assert torch.equal(got, want)
     n_gens = seg.n_segments + 1
+    before_cm = cm_ops.launches
+    seg.search(q, k=10, page=320, engine="codes_pallas")
+    assert cm_ops.launches - before_cm == \
+        (1 + n_gens) * cm_kernel.KERNELS_PER_CALL
     before_cm, before_fp = cm_ops.launches, tops.launches
     seg.search(q, k=10, page=320, engine="fused")
-    assert cm_ops.launches - before_cm == n_gens * cm_kernel.KERNELS_PER_CALL
-    assert tops.launches - before_fp == tkernel.KERNELS_PER_CALL
+    assert cm_ops.launches == before_cm
+    assert tops.launches - before_fp == (1 + n_gens) * tkernel.KERNELS_PER_CALL
     before_q = tops.quant_launches
     seg.search(q, k=10, page=320, engine="fused_int8")
     assert tops.quant_launches - before_q == \

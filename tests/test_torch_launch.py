@@ -34,6 +34,8 @@ import sys
 import numpy as np
 import pytest
 
+from repro_torch.core.search import ENGINES
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = ["--docs", "1500", "--features", "64", "--queries", "24",
          "--batch-size", "8"]
@@ -228,6 +230,19 @@ def test_argument_checks_match_reference():
         assert exc.value.code == ref_code == 2, argv
         assert err[0].startswith(msg), (argv, err)
         assert f"error: {err[0]}" in ref_err, (argv, ref_err)
+
+
+@pytest.mark.parametrize("engine", list(ENGINES))
+def test_engine_choices_are_the_engine_table(engine):
+    """``--engine`` offers the engine table's names in its order, with
+    ``codes`` the default, and each parses."""
+    from repro_torch.launch import serve
+
+    ap = serve._parser()
+    (action,) = [a for a in ap._actions if a.dest == "engine"]
+    assert list(action.choices) == list(ENGINES)
+    assert action.default == "codes"
+    assert ap.parse_args(["--engine", engine]).engine == engine
 
 
 # ----------------------------------------------------------- smoke runs

@@ -22,6 +22,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.cluster.router import ClusterEngine
 from repro_torch.core import TrimFilter, VectorIndex
+from repro_torch.core.search import ENGINES
 from repro_torch.dist.shard_index import ShardedVectorIndex
 from repro_torch.kernels.fused_phase1 import ops as fp_ops
 from repro_torch.launch.mesh import make_shard_mesh
@@ -33,6 +34,8 @@ from repro_torch.serve.engine import BatchedSearchEngine
 N_DOCS, N_FEAT, B = 240, 16, 4
 KW = dict(k=5, page=40, trim=TrimFilter(0.05))
 COUNTERS = ("captures", "replays", "eager", "failed")
+CAPTURED = [n for n, e in ENGINES.items() if e.captured]
+EAGER = [n for n, e in ENGINES.items() if not e.captured]
 
 
 class RecordingBackend:
@@ -122,7 +125,7 @@ def _assert_same(got, want):
 
 
 # ------------------------------------------------------------ the cycle
-@pytest.mark.parametrize("engine", ["fused", "fused_int8"])
+@pytest.mark.parametrize("engine", CAPTURED)
 def test_second_batch_captures_later_batches_replay(index, engine):
     backend, reg = RecordingBackend(), MetricsRegistry()
     eng = _engine(index, engine, backend, reg)
@@ -176,10 +179,10 @@ def test_new_capture_after_swap_and_add(vectors):
 
 
 # ------------------------------------------------------- staying eager
-@pytest.mark.parametrize("case", ["cpu_index", "postings", "codes"])
+@pytest.mark.parametrize("case", ["cpu_index"] + EAGER)
 def test_eager_where_graphs_do_not_engage(index, case):
-    """A CPU index under the card's backend, and the composed engines
-    under any backend, run every batch eagerly."""
+    """A CPU index under the card's backend, and every engine the table
+    does not capture under any backend, run every batch eagerly."""
     backend = None if case == "cpu_index" else RecordingBackend()
     engine = "fused" if case == "cpu_index" else case
     reg = MetricsRegistry()

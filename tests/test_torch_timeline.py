@@ -12,6 +12,9 @@
 * a merge rebuild an add races is thrown away, counted in
   ``maintenance.merges.discarded`` and marked ``discarded``;
 * one ``router.pick`` span per routed submit, on the submitting thread;
+* under a sink, a flat search and a segmented one close the same
+  ``search.*`` phases in order, for every engine of the table, the
+  segmented one with ``search.merge`` before its rescore;
 * the Prometheus text, the JSONL history and the diagnostics bundle are
   unchanged by the snapshot's ``timeline`` section.
 """
@@ -28,6 +31,7 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.cluster import (ClusterEngine, MaintenanceDaemon,
                                  TieredMergePolicy)
 from repro_torch.core import VectorIndex
+from repro_torch.core.search import ENGINES
 from repro_torch.dist import ShardedVectorIndex
 from repro_torch.obs import (MetricsExporter, MetricsRegistry, Tracer,
                              diagnostics_bundle, prometheus_text)
@@ -303,6 +307,30 @@ def test_an_add_that_seals_records_its_seal_as_a_child():
     hist = reg.snapshot()["histograms"]["engine.ingest.latency_s"]
     assert abs(hist["group=1"]["sum"]
                - (add["t1_ns"] - add["t0_ns"]) * 1e-9) < 1e-8
+
+
+@pytest.mark.parametrize("engine", list(ENGINES))
+def test_flat_and_segmented_close_the_same_phase_spans(index, queries,
+                                                       engine):
+    rng = np.random.default_rng(6)
+    sidx = _segmented(rng).add_documents(
+        rng.normal(size=(2, N_FEAT)).astype(np.float32))
+    assert sidx.n_segments == 3 and sidx.n_active == 2
+    tl = MetricsRegistry().timeline
+    got = {}
+    for name, idx in (("flat", index), ("segmented", sidx)):
+        with tl.sink(batch=1) as sink:
+            idx.search(torch.from_numpy(queries[:3]), k=3, page=8,
+                       engine=engine)
+        got[name] = [(s["name"], s["arg0"], s["arg1"])
+                     for s in _spans(tl.snapshot())
+                     if s["parent"] == sink.parent]
+    assert got["flat"] == [("search.encode", 0, 0), ("search.phase1", 1, 1),
+                           ("search.rescore", 0, 0)]
+    assert got["segmented"] == [("search.encode", 0, 0),
+                                ("search.phase1", 1, 4),
+                                ("search.merge", 0, 0),
+                                ("search.rescore", 0, 0)]
 
 
 def test_one_router_pick_span_per_routed_submit(index, queries):

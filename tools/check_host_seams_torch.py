@@ -43,7 +43,8 @@ DEFAULT_ROOT = os.path.join(os.path.dirname(os.path.dirname(
 
 SEARCH_PATH = ("search", "_shard_pages", "_shard_page", "_gather",
                "_generations", "_df", "_shards_df", "_generation_scores",
-               "_gather_merge", "_stream_merge", "_take", "_merge_phase")
+               "_gather_merge", "_stream_merge", "_take", "_merge_phase",
+               "_quant_at")
 
 # module -> the functions on the serving path (None: every function)
 SERVING = {

@@ -53,7 +53,11 @@ summary):
      int8 and int16, ragged rows; postings_walk at the postings cell's
      shapes (a 4,181,504 x 400 index, 32 noisy rows, trim 0.05, about
      480M posting entries) bit-equal to its plain version, timed beside
-     it and its bound, its two kernels split by the profiler;
+     it and its bound, its two kernels split by the profiler; page_select
+     on that walk's 32 x 4,181,504 scores at page 320, bit-equal to
+     stable_topk on the card and the CPU, timed beside its bound, the
+     plain version and torch.topk, its host issue and its nine kernels
+     split by the profiler;
   B  encoders and the int8 quant table on the card against the CPU (codes,
      scale and zero bit-equal);
   C  the ``fused`` path: build, serve 128 noisy corpus rows through
@@ -768,12 +772,13 @@ def phase_a_code_match(gen) -> dict:
             "max_abs_err": worst}
 
 
-def phase_a_postings_walk(gen) -> dict:
+def phase_a_postings_walk(gen) -> tuple:
     """The posting walk at ``wiki-postings-closed``'s shapes: the kernel
     bit-equal to its plain version on the ranges and folded weights
     ``score_postings_batch`` hands it, its time beside its bound, the
     plain version's and the benchmark's 12-byte model's; the cut's and
-    the walk's device time apart."""
+    the walk's device time apart; -> (that line, the walk's (Q, d)
+    scores, for the page selection's phase)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import TrimFilter, VectorIndex
@@ -805,7 +810,7 @@ def phase_a_postings_walk(gen) -> dict:
     want = pw_ref.postings_walk_ref(docs, lo, hi, w)
     check(torch.equal(got, want), "postings_walk: not bit-equal to its "
           "plain version at the cell's shapes")
-    del got, want
+    del want
     kernel_ms = cuda_ms(walk, 10)
     plain_ms = cuda_ms(lambda: pw_ref.postings_walk_ref(docs, lo, hi, w), 3)
     split = {}
@@ -835,7 +840,66 @@ def phase_a_postings_walk(gen) -> dict:
             "tile": tile, "n_tiles": n_tiles, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "model_12B_ms": model, "kernels_ms": split,
-            "index_build_s": build_s}
+            "index_build_s": build_s}, got
+
+
+def phase_a_page_select(scores) -> dict:
+    """The page selection at ``wiki-postings-closed``'s shapes (Q 32, d
+    4,181,504, page 320) on a real walk's scores: the kernels bit-equal
+    to the plain version, ``stable_topk``, on the card and on the CPU;
+    their time beside their bound, the plain version's and
+    ``torch.topk``'s (the library yardstick, which promises no order of
+    ties); the host's issue of one call; each kernel's device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.rerank import stable_topk
+    from repro_torch.kernels.page_select import kernel as ps_kernel
+    from repro_torch.obs import cost
+
+    Q, d = scores.shape
+
+    def select():
+        return ps_kernel.page_select_cuda(scores, PAGE)
+
+    vals, pos = select()
+    torch.cuda.synchronize()
+    want_v, want_p = stable_topk(scores, PAGE)
+    check(torch.equal(pos, want_p)
+          and torch.equal(vals.view(torch.int32), want_v.view(torch.int32)),
+          "page_select: not bit-equal to stable_topk on the card")
+    cpu_v, cpu_p = stable_topk(scores.cpu(), PAGE)
+    check(torch.equal(pos.cpu(), cpu_p) and torch.equal(vals.cpu(), cpu_v),
+          "page_select: not bit-equal to stable_topk on the CPU")
+    del vals, pos, want_v, want_p, cpu_v, cpu_p
+    kernel_ms = cuda_ms(select, 20)
+    plain_ms = cuda_ms(lambda: stable_topk(scores, PAGE), 5)
+    library_ms = cuda_ms(lambda: torch.topk(scores, PAGE, dim=1), 10)
+    issue = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        select()
+        issue.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    split = {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            select()
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        if "page_select_" in ev.key:
+            split[ev.key] = getattr(ev, "device_time_total",
+                                    getattr(ev, "cuda_time_total", 0)) \
+                / 5 / 1e3
+    bound, by = cost.bound_ms(cost.page_select_work(Q, d, PAGE))
+    n_splits, split_len, n_tiles = ps_kernel.launch_plan(
+        Q, d, PAGE, torch.cuda.get_device_properties(0).multi_processor_count)
+    return {"phase": "A", "kernel": "page_select", "max_abs_err": 0.0,
+            "Q": Q, "d": d, "page": PAGE, "n_splits": n_splits,
+            "split_len": split_len, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound, "bound_by": by,
+            "host_issue_ms": median_after_first(issue), "kernels_ms": split}
 
 
 def quant_inputs(gen, d, n, Q):
@@ -1209,11 +1273,13 @@ def reset_launches() -> None:
     from repro_torch.kernels.bucketize import ops as bk_ops
     from repro_torch.kernels.code_match import ops as cm_ops
     from repro_torch.kernels.fused_phase1 import ops as fp_ops
+    from repro_torch.kernels.page_select import ops as ps_ops
     from repro_torch.kernels.postings_walk import ops as pw_ops
     from repro_torch.kernels.rerank_topk import ops as rk_ops
 
     fp_ops.launches = fp_ops.quant_launches = cm_ops.launches = 0
     bk_ops.launches = rk_ops.launches = pw_ops.launches = 0
+    ps_ops.launches = 0
     rk_ops.launches_by_body.update(dict.fromkeys(rk_ops.launches_by_body, 0))
 
 
@@ -1422,6 +1488,7 @@ def phase_d(gen, index, queries, src, raw_state) -> tuple:
     from repro_torch.kernels.code_match import kernel as cm_kernel
     from repro_torch.kernels.fused_phase1 import kernel as fp_kernel
     from repro_torch.kernels.fused_phase1 import ref as fp_ref
+    from repro_torch.kernels.page_select import kernel as ps_kernel
     from repro_torch.obs import cost
     from repro_torch.serve import BatchedSearchEngine
 
@@ -1431,10 +1498,11 @@ def phase_d(gen, index, queries, src, raw_state) -> tuple:
           .default == "postings", "VectorIndex.search default is not "
           "postings")
     per_batch = N_QUERIES // BATCH
-    want_launches = {"codes": {},
+    ps = {"page_select": ps_kernel.KERNELS_PER_CALL * per_batch}
+    want_launches = {"codes": ps,
                      "codes_pallas": {"code_match":
                                       cm_kernel.KERNELS_PER_CALL
-                                      * per_batch},
+                                      * per_batch, **ps},
                      "fused_int8": {"fused_phase1_quant":
                                     fp_kernel.KERNELS_PER_CALL * per_batch}}
     engines = {}
@@ -1731,14 +1799,17 @@ def phase_g(index, queries, src) -> tuple:
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.code_match import kernel as cm_kernel
     from repro_torch.kernels.fused_phase1 import kernel as fp_kernel
+    from repro_torch.kernels.page_select import kernel as ps_kernel
     from repro_torch.kernels.postings_walk import kernel as pw_kernel
     from repro_torch.obs import MetricsRegistry
 
+    ps = {"page_select": ps_kernel.KERNELS_PER_CALL}
     per = {"fused": {"fused_phase1": fp_kernel.KERNELS_PER_CALL},
            "fused_int8": {"fused_phase1_quant": fp_kernel.KERNELS_PER_CALL},
-           "codes_pallas": {"code_match": cm_kernel.KERNELS_PER_CALL},
-           "postings": {"postings_walk": pw_kernel.KERNELS_PER_CALL},
-           "codes": {}}
+           "codes_pallas": {"code_match": cm_kernel.KERNELS_PER_CALL,
+                            **ps},
+           "postings": {"postings_walk": pw_kernel.KERNELS_PER_CALL, **ps},
+           "codes": ps}
     t_phase = time.monotonic()
     rows, launches, answers_4x2 = {}, {}, {}
     for name in G_ENGINES:
@@ -1858,6 +1929,7 @@ def f_stage(idx, base, new, queries, src, dead, stage, launches,
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.code_match import kernel as cm_kernel
     from repro_torch.kernels.fused_phase1 import kernel as fp_kernel
+    from repro_torch.kernels.page_select import kernel as ps_kernel
     from repro_torch.kernels.postings_walk import kernel as pw_kernel
 
     n_base = base.n_docs
@@ -1865,13 +1937,17 @@ def f_stage(idx, base, new, queries, src, dead, stage, launches,
     # one query phase per shard and per group's row-block of a batch
     n_batches = len(queries) // BATCH * idx.n_shards * idx.n_replicas
     per = fp_kernel.KERNELS_PER_CALL
+    ps = ps_kernel.KERNELS_PER_CALL       # one page cut a shard's search
     want = {"fused": {"fused_phase1": per * (1 + gens)},
             "fused_int8": {"fused_phase1_quant": per * (1 + gens)},
             "codes_pallas": {"code_match": (1 + gens)
-                             * cm_kernel.KERNELS_PER_CALL},
+                             * cm_kernel.KERNELS_PER_CALL,
+                             "page_select": ps},
             "postings": {"code_match": gens * cm_kernel.KERNELS_PER_CALL,
-                         "postings_walk": pw_kernel.KERNELS_PER_CALL},
-            "codes": {"code_match": gens * cm_kernel.KERNELS_PER_CALL}}
+                         "postings_walk": pw_kernel.KERNELS_PER_CALL,
+                         "page_select": ps},
+            "codes": {"code_match": gens * cm_kernel.KERNELS_PER_CALL,
+                      "page_select": ps}}
     answers, rows = {}, {}
     qn = normalize(torch.from_numpy(queries).cuda())
     appended = idx.n_ids > n_base
@@ -2550,13 +2626,16 @@ def i_serve(index, s4, s42, queries, src) -> tuple:
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.code_match import kernel as cm_kernel
     from repro_torch.kernels.fused_phase1 import kernel as fp_kernel
+    from repro_torch.kernels.page_select import kernel as ps_kernel
     from repro_torch.kernels.postings_walk import kernel as pw_kernel
 
+    ps = {"page_select": ps_kernel.KERNELS_PER_CALL}
     per = {"fused": {"fused_phase1": fp_kernel.KERNELS_PER_CALL},
            "fused_int8": {"fused_phase1_quant": fp_kernel.KERNELS_PER_CALL},
-           "codes_pallas": {"code_match": cm_kernel.KERNELS_PER_CALL},
-           "postings": {"postings_walk": pw_kernel.KERNELS_PER_CALL},
-           "codes": {}}
+           "codes_pallas": {"code_match": cm_kernel.KERNELS_PER_CALL,
+                            **ps},
+           "postings": {"postings_walk": pw_kernel.KERNELS_PER_CALL, **ps},
+           "codes": ps}
     rows, launches, answers_4x2 = {}, {}, {}
     for name in G_ENGINES:
         qs = queries[:BATCH] if name == "codes" else queries
@@ -3770,7 +3849,7 @@ K_RUNS = (
      "fused_phase1", False),
     ("K3", ["--docs", str(E_DOCS // 4), "--features", str(N_FEATURES),
             "--shards", "4", "--cluster", "--fail-on-recompile",
-            "--profile", "--slow-threshold", "0"], None, False),
+            "--profile", "--slow-threshold", "0"], "page_select", False),
     ("K4", ["--docs", str(E_DOCS // 4), "--features", str(N_FEATURES),
             "--engine", "codes_pallas", "--shards", "4", "--cluster",
             "--fail-on-recompile", "--diagnostics-on-exit", "build/k4_diag"],
@@ -6078,6 +6157,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.bucketize import kernel as bk_kernel
     from repro_torch.kernels.code_match import kernel as cm_kernel
     from repro_torch.kernels.fused_phase1 import kernel as fp_kernel
+    from repro_torch.kernels.page_select import kernel as ps_kernel
     from repro_torch.kernels.postings_walk import kernel as pw_kernel
     from repro_torch.kernels.rerank_topk import kernel as rk_kernel
 
@@ -6092,7 +6172,8 @@ def main(argv=None) -> int:
               "code_match": cm_kernel.library,
               "bucketize": bk_kernel.library,
               "rerank_topk": rk_kernel.library,
-              "postings_walk": pw_kernel.library}
+              "postings_walk": pw_kernel.library,
+              "page_select": ps_kernel.library}
     with ThreadPoolExecutor(len(builds)) as pool:   # one nvcc each, at once
         for f in [pool.submit(fn) for fn in builds.values()]:
             f.result()
@@ -6140,10 +6221,14 @@ def main(argv=None) -> int:
         a = phase_a(gen)
         emit(a)
         for line in (phase_a_code_match(gen), phase_a_quant(gen),
-                     phase_a_rerank(gen), phase_a_bucketize(gen),
-                     phase_a_postings_walk(gen)):
+                     phase_a_rerank(gen), phase_a_bucketize(gen)):
             emit(line)
             a_err[line["kernel"]] = line["max_abs_err"]
+        walk_line, walk_scores = phase_a_postings_walk(gen)
+        for line in (walk_line, phase_a_page_select(walk_scores)):
+            emit(line)
+            a_err[line["kernel"]] = line["max_abs_err"]
+        del walk_scores
     if "B" in args.phases:
         emit(phase_b())
     if "C" in args.phases:

@@ -20,9 +20,11 @@ Phase 1 retrieves ``page`` candidates with one of the engines
   of the vectors (:mod:`repro_torch.core.quantize`, derived lazily and
   cached per index instance) -- phase-1 selection only
 
-The composed engines (the first four) select the page with a stable
-top-``page`` over their (Q, n_docs) scores, ties to the lower doc id as
-``jax.lax.top_k`` breaks them; the fused two are page kernels.
+The composed engines (the first four) cut their (Q, n_docs) scores to
+the page with :func:`select_page`, a stable top-``page``, ties to the
+lower doc id as ``jax.lax.top_k`` breaks them (on the card the
+``page_select`` kernel, :mod:`repro_torch.kernels.page_select`); the fused
+two are page kernels.
 :data:`ENGINES` holds what the code branches on for each, and
 :func:`phase1` dispatches.  Phase 2 re-ranks the page by exact fp32
 cosine (:mod:`repro_torch.core.rerank`) for every engine, the quantized one
@@ -37,17 +39,20 @@ A :class:`PhaseRecorder` closes each phase (encode / phase1 / rescore): a
 fenced child of ``search(profile=node)``'s ProfileNode (no fence without
 one), and under a timeline sink the span ``search.encode``,
 ``search.phase1`` or ``search.rescore``, unfenced; on the composed
-engines ``search.phase1`` holds ``search.topk``, after their own spans.
+engines ``search.phase1`` holds ``search.topk`` (:func:`select_page`),
+after their own spans.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.page_select import ops as ps_ops
 from repro_torch.obs import cost
 from repro_torch.obs.tracing import child_clock, phase_clock
 
@@ -58,11 +63,12 @@ from .filtering import (BestFilter, TrimFilter, expand_mask, feature_mask,
 from .postings import (Postings, WalkTally, build_postings, df_lookup,
                        idf_weights, score_postings_batch)
 from .quantize import QuantizedTable, quantize_table
-from .rerank import brute_force_topk, normalize, rerank_topk, stable_topk
+from .rerank import brute_force_topk, normalize, rerank_topk
 
 __all__ = ["VectorIndex", "SearchParams", "Engine", "ENGINES",
            "FUSED_ENGINES", "engine_spec", "phase1", "phase1_engine_scores",
-           "token_weights", "encode_table", "PhaseRecorder"]
+           "token_weights", "encode_table", "PhaseRecorder", "select_page",
+           "page_rows"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,6 +212,31 @@ def phase1_engine_scores(
     if engine == "onehot":
         return score_onehot(codes, qcodes, col_weights, max_abs_bucket)
     raise ValueError(f"unknown engine {engine!r}")
+
+
+class _PageRows(threading.local):
+    rows = 0
+
+
+_PAGE_ROWS = _PageRows()
+
+
+def page_rows() -> int:
+    """The rows :func:`select_page` has cut on this thread so far; a
+    batch's count is the difference across its search."""
+    return _PAGE_ROWS.rows
+
+
+def select_page(scores: torch.Tensor, page: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A composed engine's dense (Q, d) phase-1 scores cut to their page ->
+    (values, positions int64) (Q, page), ``stable_topk``'s: the
+    ``page_select`` kernels on the card, ``stable_topk`` on the CPU.  Files
+    the cost row ``page_select`` and adds the Q rows to :func:`page_rows`."""
+    Q, d = scores.shape
+    cost.record_kernel("page_select", cost.page_select_work(Q, d, page))
+    _PAGE_ROWS.rows += Q
+    return ps_ops.page_select(scores, page)
 
 
 def phase1(engine: str, codes, postings, quant, q, qcodes, col_weights,
@@ -375,7 +406,7 @@ class VectorIndex:
             cand = out[1]
         else:
             sub = child_clock()
-            _, cand = stable_topk(out, page)
+            _, cand = select_page(out, page)
             if sub is not None:
                 sub.close("search.topk")
         del out

@@ -57,7 +57,9 @@ one-group index sharing the tensors: the unit a router batches.
 **Per shard**, phase 1 scores the base, then each generation (sealed
 segments oldest first, then the active buffer), and keeps the top ``page``
 of the joined positions ``[base | generations... | active]`` by a stable
-selection (the order of append, so ties go to the lower id).  Sealing and
+selection (the order of append, so ties go to the lower id): for the
+composed engines :func:`repro_torch.core.search.select_page` of the joined
+dense scores (on the card the ``page_select`` kernel).  Sealing and
 sharding must be invisible: a row has to score the
 same bits in a 4,096-row segment as in a 65,536-row flat buffer, and in a
 shard as in the whole table.  So every generation is scored by a function
@@ -100,7 +102,7 @@ from repro_torch.core.rerank import (check_fp32_matmul, normalize,
 from repro_torch.core.search import (_SENTINEL, PhaseRecorder, VectorIndex,
                                      _cached,
                                      encode_table, engine_spec, phase1,
-                                     token_weights)
+                                     select_page, token_weights)
 from repro_torch.obs.compile_watch import watch_region
 from repro_torch.obs.tracing import phase_clock
 
@@ -973,7 +975,7 @@ class ShardedVectorIndex:
             s1 = base if not gens else torch.cat([base] + [
                 _generation_scores(gc, gl, qcodes, w)
                 for _, gc, _, gl, _ in gens], dim=1)
-            cand_s, cand = stable_topk(s1, page_loc)
+            cand_s, cand = select_page(s1, page_loc)
         elif not gens:
             cand_s, cand = base[0], base[1].long()
         else:

@@ -20,13 +20,18 @@ package's ``kernel.py`` / ``ops.py`` / ``ref.py`` split:
   ranges into dense (Q, d) scores, a doc tile of the accumulator a block
   in shared memory (``csrc/postings_walk.cu`` with ``csrc/walk_cut.cuh``;
   it replaces no TPU kernel: the JAX package's walk is a plain
-  ``segment_sum``).
+  ``segment_sum``);
+* ``page_select`` -- the page of a composed engine's dense (Q, d) scores
+  by a radix threshold selection, the bits of ``stable_topk``
+  (``csrc/page_select.cu`` with ``csrc/select_key.cuh``; it replaces no
+  TPU kernel: the JAX package cuts the page with ``lax.top_k``).
 
 As in the JAX package, ``VectorIndex`` calls neither ``rerank_topk`` nor
 ``bucketize``: they are reached through their wrappers,
 ``rerank_topk.ops.rerank_topk`` and ``bucketize.ops.encode``.
 ``csrc/match_tree.cuh`` holds the fp32 code-match cell scorer both
-code-match kernels use.  ``_build`` compiles the CUDA sources with
+code-match kernels use, ``csrc/block_scan.cuh`` the block scan of the
+walk and the page selection.  ``_build`` compiles the CUDA sources with
 ``nvcc`` at first use.
 """
 
@@ -39,6 +44,7 @@ def launch_counts() -> dict:
     from .bucketize import ops as bk_ops
     from .code_match import ops as cm_ops
     from .fused_phase1 import ops as fp_ops
+    from .page_select import ops as ps_ops
     from .postings_walk import ops as pw_ops
     from .rerank_topk import ops as rk_ops
 
@@ -46,4 +52,5 @@ def launch_counts() -> dict:
             "fused_phase1_quant": fp_ops.quant_launches,
             "code_match": cm_ops.launches, "bucketize": bk_ops.launches,
             "rerank_topk": rk_ops.launches,
-            "postings_walk": pw_ops.launches}
+            "postings_walk": pw_ops.launches,
+            "page_select": ps_ops.launches}

@@ -47,6 +47,7 @@
 
 #include <stdint.h>
 
+#include "../../csrc/block_scan.cuh"
 #include "walk_cut.cuh"
 
 namespace {
@@ -94,31 +95,6 @@ postings_cut_kernel(const int32_t* __restrict__ docs, long long row_stride,
                                  lo[(size_t)q * C + c], hi[(size_t)q * C + c],
                                  (long long)k * tile, d);
   }
-}
-
-// Exclusive running sum of v over the block; *total gets the whole sum.
-__device__ inline int block_exclusive_sum(int v, int* scan, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) scan[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int t = lane < kWarps ? scan[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, t, o);
-      if (lane >= o) t += y;
-    }
-    if (lane < kWarps) scan[lane] = t;
-  }
-  __syncthreads();
-  *total = scan[kWarps - 1];
-  return x - v + (warp ? scan[warp - 1] : 0);
 }
 
 // This thread's kPer doc ids of the chunk of flat entries from `base`
@@ -176,7 +152,7 @@ postings_walk_kernel(const int32_t* __restrict__ docs, long long row_stride,
     sum += len;
   }
   int n_entries;
-  int run = block_exclusive_sum(sum, s_scan, &n_entries);
+  int run = block_scan::exclusive_sum<kWarps>(sum, s_scan, &n_entries);
   for (int c = c_lo; c < c_hi; ++c) {
     run += s_off[c + 1];
     s_off[c + 1] = run;

@@ -33,7 +33,8 @@ _TILE_ALIGN = 32           # docs; a tile is a whole number of these
 _CUT_BLOCKS_PER_SM = 16    # grid of the cut kernel (a grid-stride loop)
 
 _SOURCES = (pathlib.Path(__file__).parent / "csrc" / "postings_walk.cu",
-            pathlib.Path(__file__).parent / "csrc" / "walk_cut.cuh")
+            pathlib.Path(__file__).parent / "csrc" / "walk_cut.cuh",
+            pathlib.Path(__file__).parents[1] / "csrc" / "block_scan.cuh")
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 3
              + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
 

@@ -56,7 +56,8 @@ __all__ = [
     "Tape", "count_launches", "missing_cost_regions",
     "roofline", "kernel_byte_ratio", "verify_kernel_claim", "bound_ms",
     "fused_phase1_work", "quant_work", "code_match_work", "codes_work",
-    "postings_work", "postings_walk_work", "bucketize_work", "rerank_work",
+    "postings_work", "postings_walk_work", "page_select_work",
+    "bucketize_work", "rerank_work",
     "HBM_BYTES_PER_S",
     "CUDA_CORE_OPS_PER_S", "INT8_TC_OPS_PER_S", "OPS_PER_ELEMENT",
 ]
@@ -120,6 +121,13 @@ def postings_walk_work(entries: int, Q: int, d: int) -> Work:
     one add an entry.  Below :func:`postings_work`, which also counts an
     accumulator in device memory."""
     return Work(entries, entries * 4 + Q * d * 4)
+
+
+def page_select_work(Q: int, d: int, page: int) -> Work:
+    """The page selection of a (Q, d) f32 score matrix: the matrix read
+    once, the page's f32 values and int64 positions written once; one
+    compare a score."""
+    return Work(Q * d, Q * d * 4 + Q * page * 12)
 
 
 def quant_work(d: int, Q: int, n: int, page: int, live: bool) -> Work:

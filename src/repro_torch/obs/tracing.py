@@ -58,8 +58,9 @@ in :data:`SPAN_NAMES`:
   ``index_add_`` round is issued; on the flat index's composed path
   (``postings``, ``codes``, ``onehot``, ``codes_pallas``),
   ``search.topk``, the page's stable top-``page`` of the (Q, n_docs)
-  scores.  Unfenced like their parent: the walk's span ends when its
-  rounds are issued, not run.
+  scores (``select_page``: on the card the ``page_select`` kernels).
+  Unfenced like their parent: the walk's span ends when its rounds are
+  issued, not run.
 
 The walk also feeds three always-on counters, which the engine keeps
 beside ``engine.graph.*`` (labelled ``group`` under a router), from the
@@ -69,6 +70,10 @@ each token's document frequency, capped at ``max_postings`` where set);
 ``search.postings.tokens``, the kept tokens with a non-empty list; and
 ``search.postings.rounds``, the ``index_add_`` rounds issued, one a
 column that holds an entry.  A batch of another engine adds nothing.
+Beside them, ``search.page_select.rows{engine}`` counts the rows whose
+page ``select_page`` cut from a composed engine's dense scores (``Q`` a
+search on the flat index, ``Q`` a shard on a sharded one); a batch of a
+page kernel (``fused``, ``fused_int8``) adds nothing.
 
 Each span is one row of a ring of :data:`TIMELINE_CAPACITY` rows of a
 preallocated numpy array (start and end in ``time.monotonic_ns``, name

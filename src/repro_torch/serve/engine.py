@@ -38,7 +38,9 @@ request counters, batch occupancy, queue wait, dispatch latency, the
 ``engine.kernel_path`` counter, the ``postings`` walk's counters
 ``search.postings.entries``, ``.tokens`` and ``.rounds`` (summed by a
 :class:`~repro_torch.core.postings.WalkTally` around each batch's search,
-from host integers the walk already holds) and the ingest series go to a
+from host integers the walk already holds), the page selection's
+``search.page_select.rows{engine}`` (the batch's difference of
+:func:`~repro_torch.core.search.page_rows`) and the ingest series go to a
 :class:`~repro_torch.obs.metrics.MetricsRegistry` (labelled ``group=g``
 when the engine fronts one replica group); ``queue_wait`` /
 ``batch_form`` / ``dispatch`` spans go to the request's
@@ -77,6 +79,7 @@ import torch
 
 from repro_torch.core import TrimFilter
 from repro_torch.core.postings import WalkTally
+from repro_torch.core.search import page_rows
 from repro_torch.obs.compile_watch import active_watch
 from repro_torch.obs.metrics import default_registry
 from repro_torch.obs.profile import ProfileNode
@@ -156,6 +159,8 @@ class BatchedSearchEngine:
             "search.postings.tokens", **lb)
         self._c_walk_rounds = self.metrics.counter(
             "search.postings.rounds", **lb)
+        self._c_page_rows = self.metrics.counter(
+            "search.page_select.rows", engine=self.engine, **lb)
         self._lock = threading.Condition()
         # (query, future, enqueue time, trace, want profile)
         self._queue: List[tuple] = []
@@ -361,6 +366,7 @@ class BatchedSearchEngine:
                     sig=(qs.shape, qs.dtype, self.engine, self.k,
                          self.page, self.merge or "gather")):
                 # the index puts the batch on its own device
+                rows = page_rows()
                 with sink or _NO_SINK, WalkTally() as walk:
                     ids, scores = self._graphs.search(
                         index, qs, lambda q: index.search(
@@ -370,6 +376,9 @@ class BatchedSearchEngine:
                     self._c_walk_entries.inc(walk.entries)
                     self._c_walk_tokens.inc(walk.tokens)
                     self._c_walk_rounds.inc(walk.rounds)
+                rows = page_rows() - rows
+                if rows:
+                    self._c_page_rows.inc(rows)
                 if sink is not None:
                     sink.t_copy = time.monotonic()
                 # the answers' two copies to the host: the batch's only

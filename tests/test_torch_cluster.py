@@ -1478,7 +1478,7 @@ class _YieldingKernel:
 
 @pytest.mark.parametrize("name", ("fused_phase1", "fused_phase1_quant",
                                   "code_match", "bucketize", "rerank_topk",
-                                  "postings_walk"))
+                                  "postings_walk", "page_select"))
 def test_launch_counters_exact_under_threads(name, monkeypatch):
     """8 threads launch through one wrapper at once, through a counting
     stub of the launch: the wrapper's count is exactly the CUDA kernels
@@ -1486,6 +1486,7 @@ def test_launch_counters_exact_under_threads(name, monkeypatch):
     from repro_torch.kernels.bucketize import ops as bk_ops
     from repro_torch.kernels.code_match import ops as cm_ops
     from repro_torch.kernels.fused_phase1 import ops as fp_ops
+    from repro_torch.kernels.page_select import ops as ps_ops
     from repro_torch.kernels.postings_walk import ops as pw_ops
     from repro_torch.kernels.rerank_topk import ops as rk_ops
 
@@ -1505,6 +1506,8 @@ def test_launch_counters_exact_under_threads(name, monkeypatch):
                         lambda: rk_ops.candidate_scores(x, ids, x)),
         "postings_walk": (pw_ops, "launches", "postings_walk_cuda",
                           lambda: pw_ops.postings_walk(x, x, x, x)),
+        "page_select": (ps_ops, "launches", "page_select_cuda",
+                        lambda: ps_ops.page_select(x, 4)),
     }[name]
     kernel = _YieldingKernel(ops.kernel, fn)
     monkeypatch.setattr(ops, "kernel", kernel)

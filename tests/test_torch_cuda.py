@@ -691,6 +691,153 @@ def test_sharded_postings_search_kernel_vs_plain_on_card(gen, monkeypatch,
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+# ------------------------------------------------------- page selection
+def _page_rows(gen, Q, d, kind):
+    """(Q, d) scores on the card the page selection has to get right:
+    ties at every split edge, all equal, -inf rows and ties (a sharded
+    index's dead docs), signed zeros, NaNs and +inf, and plain normal
+    scores misaligned by one float (no row starts on a 16-byte
+    boundary)."""
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    if kind == "ties":
+        return torch.randint(0, 4, (Q, d), generator=gen,
+                             device="cuda").float()
+    if kind == "equal":
+        return torch.full((Q, d), 0.25, device="cuda")
+    if kind == "neg_inf":
+        x = torch.randn((Q, d), generator=gen, device="cuda")
+        x[rand(Q, d) < 0.8] = float("-inf")
+        x[0] = float("-inf")
+        return x
+    if kind == "zeros":
+        x = torch.where(rand(Q, d) < 0.5, -0.0, 0.0)
+        x[rand(Q, d) < 0.05] = 1.0
+        return x
+    if kind == "nan":           # NaNs rank first, as the sort puts them
+        x = torch.randn((Q, d), generator=gen, device="cuda")
+        x[rand(Q, d) < 0.01] = float("nan")
+        x[rand(Q, d) < 0.01] = float("inf")
+        return x
+    buf = torch.randn(Q * d + 1, generator=gen, device="cuda")
+    return buf[1:].view(Q, d)
+
+
+# (Q, d, page): d no multiple of four or of a split, page == d, page 1,
+# one score, a page over two sort tiles (the second of one word) and
+# three, and many splits a query
+_PAGE_SHAPES = [(3, 1001, 37), (2, 999, 999), (4, 4097, 1), (1, 1, 1),
+                (5, 70001, 4097), (2, 20001, 9000), (8, 200003, 320)]
+
+
+@pytest.mark.parametrize("kind", ["ties", "equal", "neg_inf", "zeros",
+                                  "nan", "misaligned"])
+@pytest.mark.parametrize("shape", _PAGE_SHAPES)
+def test_page_select_kernel_vs_stable_topk(gen, shape, kind):
+    """The kernels bit-equal to stable_topk on the CPU: positions, and
+    values to the bit (-0.0 kept); all nine kernels of a call counted.  A
+    matrix of no rows launches nothing and gives an empty page."""
+    from repro_torch.kernels.page_select import kernel as ps_kernel
+    from repro_torch.kernels.page_select import ops as ps_ops
+
+    Q, d, page = shape
+    scores = _page_rows(gen, Q, d, kind)
+    before = ps_ops.launches
+    vals, pos = ps_ops.page_select(scores, page)
+    assert ps_ops.launches == before + ps_kernel.KERNELS_PER_CALL
+    torch.cuda.synchronize()
+    want_v, want_p = trerank.stable_topk(scores.cpu(), page)
+    assert pos.dtype == torch.int64 and vals.dtype == torch.float32
+    assert torch.equal(pos.cpu(), want_p)
+    assert torch.equal(vals.cpu().view(torch.int32),
+                       want_v.view(torch.int32))
+    if kind == "equal":
+        assert torch.equal(pos.cpu(), torch.arange(page).expand(Q, page))
+    before = ps_ops.launches
+    vals, pos = ps_ops.page_select(scores[:0], page)
+    assert vals.shape == pos.shape == (0, page)
+    assert ps_ops.launches == before
+
+
+def test_page_select_kernel_at_the_postings_cells_shape(gen):
+    """32 x 4,181,504 scores from a real walk (the postings cell's index
+    and queries), page 320: the kernels bit-equal to stable_topk on the
+    CPU."""
+    from repro_torch.core import TrimFilter, VectorIndex
+    from repro_torch.core.postings import score_postings_batch
+    from repro_torch.kernels.page_select import ops as ps_ops
+
+    d, n, Q = 4_181_504, 400, 32
+    index = VectorIndex.build(torch.randn((d, n), generator=gen,
+                                          device="cuda"), device="cuda")
+    rows = torch.randint(0, d, (Q,), generator=gen, device="cuda")
+    q = index.vectors[rows] + 0.05 * torch.randn((Q, n), generator=gen,
+                                                 device="cuda")
+    _, qc, w = index.encode_queries(q, TrimFilter(0.05), None, "idf")
+    scores = score_postings_batch(index.postings, qc, w > 0,
+                                  weighting="count", col_weights=w)
+    del index
+    vals, pos = ps_ops.page_select(scores, 320)
+    want_v, want_p = trerank.stable_topk(scores.cpu(), 320)
+    assert torch.equal(pos.cpu(), want_p)
+    assert torch.equal(vals.cpu(), want_v)
+    assert bool((want_v > 0).all())              # every page fully scored
+
+
+def test_page_select_kernel_rejects_bad_input(gen):
+    from repro_torch.kernels.page_select import kernel as ps_kernel
+
+    x = torch.randn((4, 100), generator=gen, device="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        ps_kernel.page_select_cuda(x.double(), 10)
+    with pytest.raises(ValueError, match=r"\(Q, d\)"):
+        ps_kernel.page_select_cuda(x[0], 10)
+    with pytest.raises(ValueError, match="contiguous"):
+        ps_kernel.page_select_cuda(x.T.contiguous().T, 10)
+    with pytest.raises(ValueError, match="empty"):
+        ps_kernel.page_select_cuda(x[:, :0], 10)
+    for page in (0, 101):
+        with pytest.raises(ValueError, match="outside"):
+            ps_kernel.page_select_cuda(x, page)
+
+
+@pytest.mark.parametrize("engine", ["postings", "codes"])
+def test_sharded_page_select_search_kernel_vs_plain_on_card(gen, monkeypatch,
+                                                            engine):
+    """A 2-shard index with sealed generations, a delete and an active
+    buffer: the search with the page kernels, once a shard a search, gives
+    the ids and scores of the same search with stable_topk cutting each
+    shard's page."""
+    from repro_torch.core import search as tsearch
+    from repro_torch.dist.shard_index import ShardedVectorIndex
+    from repro_torch.kernels.page_select import kernel as ps_kernel
+    from repro_torch.kernels.page_select import ops as ps_ops
+    from repro_torch.launch import make_shard_mesh
+
+    import types
+
+    V = torch.randn((6000, 48), generator=gen, device="cuda")
+    sidx = ShardedVectorIndex.build_sharded(V, seal_threshold=64,
+                                            mesh=make_shard_mesh(2, 1))
+    for _ in range(3):
+        sidx = sidx.add_documents(torch.randn(
+            (64, sidx.n_features), generator=gen, device="cuda"))
+    sidx = sidx.delete([7, 3001, 6010, 6100])
+    q = trerank.normalize(torch.cat([sidx.vectors[0, :4], torch.randn(
+        (28, sidx.n_features), generator=gen, device="cuda")]))
+    for page in (33, 320):
+        before = ps_ops.launches
+        got = sidx.search(q, k=10, page=page, engine=engine)
+        assert ps_ops.launches - before == \
+            sidx.n_shards * ps_kernel.KERNELS_PER_CALL
+        with monkeypatch.context() as m:
+            m.setattr(tsearch, "ps_ops", types.SimpleNamespace(
+                page_select=trerank.stable_topk))
+            want = sidx.search(q, k=10, page=page, engine=engine)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_mlt_scores_fixed_order_on_card(gen):
     """MLTIndex.scores on the card: two runs give the same bits."""
     from repro_torch.core import MLTIndex

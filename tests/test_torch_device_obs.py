@@ -335,6 +335,7 @@ def test_cost_rows_cover_every_built_region(building, queries):
     stats = watch.costs.stats()
     rows = {(r["region"], r["program"]): r for r in stats["rows"]}
     assert set(rows) == {("search.query_phase", "score_codes"),
+                         ("search.query_phase", "page_select"),
                          ("search.query_phase", "fused_phase1")}
     # one row per (region, sig, program): the first call writes it, each
     # later call with the key counts a launch
@@ -343,6 +344,10 @@ def test_cost_rows_cover_every_built_region(building, queries):
         cost.fused_phase1_work(400, 4, 12, 52, 1, True).nbytes)
     assert rows["search.query_phase", "score_codes"]["bytes_accessed"] == (
         cost.codes_work(400, 4, 12, 1).nbytes)
+    # the codes engine's page cut of the joined (base | active) scores
+    joined = idx.docs_per_shard + idx.seg_capacity
+    assert rows["search.query_phase", "page_select"]["bytes_accessed"] == (
+        cost.page_select_work(4, joined, 52).nbytes)
     for region, agg in stats["by_region"].items():
         assert agg["launches"] >= 1 and agg["bytes_accessed"] > 0, region
     ratio = kernel_byte_ratio(watch)

@@ -164,7 +164,8 @@ def test_prints_the_reference_lines(reference_run):
     launches = json.loads(run.stdout.splitlines()[-1].split(": ", 1)[1])
     assert launches == dict.fromkeys(
         ("fused_phase1", "fused_phase1_quant", "code_match", "bucketize",
-         "rerank_topk", "postings_walk"), 0)  # the CPU runs the plain ones
+         "rerank_topk", "postings_walk", "page_select"),
+        0)  # the CPU runs the plain ones
 
 
 # the refused combinations, each with the start of the reference's message

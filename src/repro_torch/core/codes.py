@@ -20,13 +20,21 @@ Both are blocked over documents so that no (Q, d, C) tensor and no
 (d, C * B) one-hot table exists.  Their float32 products need TF32 off on
 the card (``torch.backends.cuda.matmul.allow_tf32 = False``); they agree
 with the reference to float tolerance, not bits.
+
+Under an engine's timeline sink, ``codes``'s issue of its block loop is
+timed as ``search.codes.score`` (:mod:`repro_torch.obs.tracing`), with
+the doc blocks and the docs a block; :func:`code_blocks` is the loop's
+block count, which ``core/search.py`` tallies.  Neither adds a
+synchronisation.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["score_codes", "onehot_expand", "score_onehot"]
+from repro_torch.obs.tracing import child_clock
+
+__all__ = ["score_codes", "code_blocks", "onehot_expand", "score_onehot"]
 
 # elements of the per-block temporary of either engine: a (Q, block, C)
 # match block, or a (block, C * B) one-hot block, stays a few hundred MB
@@ -35,6 +43,12 @@ _BLOCK_ELEMENTS = 1 << 26
 
 def _block(per_doc: int) -> int:
     return max(1, _BLOCK_ELEMENTS // max(1, per_doc))
+
+
+def code_blocks(d: int, Q: int, C: int) -> int:
+    """The doc blocks :func:`score_codes` walks for ``Q`` queries of ``C``
+    codes over ``d`` docs."""
+    return -(-d // _block(Q * C))
 
 
 def score_codes(
@@ -47,10 +61,14 @@ def score_codes(
     Q, C = qcodes.shape
     out = torch.empty((Q, d), dtype=torch.float32, device=doc_codes.device)
     w = col_weights[:, :, None]                                # (Q, C, 1)
-    for lo in range(0, d, _block(Q * C)):
-        blk = doc_codes[lo:lo + _block(Q * C)]
+    step = _block(Q * C)
+    clock = child_clock()
+    for lo in range(0, d, step):
+        blk = doc_codes[lo:lo + step]
         eq = (qcodes[:, None, :] == blk[None, :, :]).to(torch.float32)
         out[:, lo:lo + blk.shape[0]] = torch.bmm(eq, w)[..., 0]
+    if clock is not None:
+        clock.close("search.codes.score", code_blocks(d, Q, C), step)
     return out
 
 

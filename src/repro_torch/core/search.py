@@ -40,7 +40,7 @@ fenced child of ``search(profile=node)``'s ProfileNode (no fence without
 one), and under a timeline sink the span ``search.encode``,
 ``search.phase1`` or ``search.rescore``, unfenced; on the composed
 engines ``search.phase1`` holds ``search.topk`` (:func:`select_page`),
-after their own spans.
+after their own spans (``codes``: ``search.codes.score``).
 """
 
 from __future__ import annotations
@@ -56,7 +56,7 @@ from repro_torch.kernels.page_select import ops as ps_ops
 from repro_torch.obs import cost
 from repro_torch.obs.tracing import child_clock, phase_clock
 
-from .codes import score_codes, score_onehot
+from .codes import code_blocks, score_codes, score_onehot
 from .encoding import Encoder, RoundingEncoder
 from .filtering import (BestFilter, TrimFilter, expand_mask, feature_mask,
                         index_best_codes)
@@ -68,7 +68,7 @@ from .rerank import brute_force_topk, normalize, rerank_topk
 __all__ = ["VectorIndex", "SearchParams", "Engine", "ENGINES",
            "FUSED_ENGINES", "engine_spec", "phase1", "phase1_engine_scores",
            "token_weights", "encode_table", "PhaseRecorder", "select_page",
-           "page_rows"]
+           "page_rows", "codes_tally"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,7 +190,8 @@ def phase1_engine_scores(
 ) -> torch.Tensor:
     """Phase-1 scores (Q, d) under one of the composed engines (the
     composed half of :func:`phase1`).  The walk's cost row is filed after
-    it, from the entry count its sync read."""
+    it, from the entry count its sync read; ``codes`` adds its
+    comparisons and doc blocks to :func:`codes_tally`."""
     if engine == "postings":
         with WalkTally() as walk:
             scores = score_postings_batch(
@@ -201,9 +202,11 @@ def phase1_engine_scores(
             walk.entries, qcodes.shape[0], postings.n_docs))
         return scores
     if engine == "codes":
+        d, (Q, C) = codes.shape[0], qcodes.shape
         cost.record_kernel("score_codes", cost.codes_work(
-            codes.shape[0], qcodes.shape[0], qcodes.shape[1],
-            codes.element_size()))
+            d, Q, C, codes.element_size()))
+        _CODES.cells += Q * d * C
+        _CODES.blocks += code_blocks(d, Q, C)
         return score_codes(codes, qcodes, col_weights)
     if engine == "codes_pallas":
         from repro_torch.kernels.code_match import ops as cm_ops
@@ -225,6 +228,22 @@ def page_rows() -> int:
     """The rows :func:`select_page` has cut on this thread so far; a
     batch's count is the difference across its search."""
     return _PAGE_ROWS.rows
+
+
+class _CodesTally(threading.local):
+    cells = 0
+    blocks = 0
+
+
+_CODES = _CodesTally()
+
+
+def codes_tally() -> Tuple[int, int]:
+    """(comparisons, doc blocks) the ``codes`` engine has made on this
+    thread so far: Q·d·C (query, doc, column) comparisons a table scored,
+    and the blocks its loop walked; a batch's is the difference across
+    its search."""
+    return _CODES.cells, _CODES.blocks
 
 
 def select_page(scores: torch.Tensor, page: int

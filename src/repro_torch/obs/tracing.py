@@ -55,7 +55,11 @@ in :data:`SPAN_NAMES`:
   and the columns that hold any; the kept tokens' ``nonzero`` just
   before it waits for the card too, for its output's size), then
   ``search.postings.walk``, from the sync's return until the last
-  ``index_add_`` round is issued; on the flat index's composed path
+  ``index_add_`` round is issued; on the ``codes`` engine
+  (:mod:`repro_torch.core.codes`), ``search.codes.score``, the issue of
+  its block loop, from the first doc block until the last block's
+  ``bmm`` and its write are issued (its args: the doc blocks, and the
+  docs a block); on the flat index's composed path
   (``postings``, ``codes``, ``onehot``, ``codes_pallas``),
   ``search.topk``, the page's stable top-``page`` of the (Q, n_docs)
   scores (``select_page``: on the card the ``page_select`` kernels).
@@ -73,7 +77,13 @@ column that holds an entry.  A batch of another engine adds nothing.
 Beside them, ``search.page_select.rows{engine}`` counts the rows whose
 page ``select_page`` cut from a composed engine's dense scores (``Q`` a
 search on the flat index, ``Q`` a shard on a sharded one); a batch of a
-page kernel (``fused``, ``fused_int8``) adds nothing.
+page kernel (``fused``, ``fused_int8``) adds nothing.  The ``codes``
+engine feeds two more, from the host integers of its shapes:
+``search.codes.cells``, the (query, doc, column) comparisons, Q·d·C a
+table scored, and ``search.codes.blocks``, the doc blocks its loop
+walked; a sharded index's bases count, its generations (scored by
+``code_match``, which no cell runs) do not, and another engine adds
+nothing.
 
 Each span is one row of a ring of :data:`TIMELINE_CAPACITY` rows of a
 preallocated numpy array (start and end in ``time.monotonic_ns``, name
@@ -333,12 +343,13 @@ SPAN_NAMES = ("batcher.wait", "batcher.form", "search.launch",
               "search.rescore", "search.answer_wait", "batcher.deliver",
               "ingest.add", "ingest.seal", "maintenance.merge",
               "router.pick", "search.replay", "search.postings.sync",
-              "search.postings.walk", "search.topk")
+              "search.postings.walk", "search.topk", "search.codes.score")
 _NAME_ID = {n: i for i, n in enumerate(SPAN_NAMES)}
 # what a span's two integer args hold, by span name (0 elsewhere)
 SPAN_ARGS = {"search.phase1": ("shards", "generations"),
              "maintenance.merge": ("outcome", "kind"),
-             "search.postings.sync": ("tokens", "columns")}
+             "search.postings.sync": ("tokens", "columns"),
+             "search.codes.score": ("blocks", "docs_per_block")}
 MERGE_OUTCOMES = ("applied", "discarded", "failed")
 MERGE_KINDS = ("merge", "compact")
 TIMELINE_CAPACITY = 1 << 18

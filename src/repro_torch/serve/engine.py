@@ -38,7 +38,11 @@ request counters, batch occupancy, queue wait, dispatch latency, the
 ``engine.kernel_path`` counter, the ``postings`` walk's counters
 ``search.postings.entries``, ``.tokens`` and ``.rounds`` (summed by a
 :class:`~repro_torch.core.postings.WalkTally` around each batch's search,
-from host integers the walk already holds), the page selection's
+from host integers the walk already holds), the ``codes`` engine's
+``search.codes.cells`` and ``.blocks`` (the batch's difference of
+:func:`~repro_torch.core.search.codes_tally`: its (query, doc, column)
+comparisons and doc blocks, a sharded index's bases included, its
+generations, which ``code_match`` scores, not), the page selection's
 ``search.page_select.rows{engine}`` (the batch's difference of
 :func:`~repro_torch.core.search.page_rows`) and the ingest series go to a
 :class:`~repro_torch.obs.metrics.MetricsRegistry` (labelled ``group=g``
@@ -79,7 +83,7 @@ import torch
 
 from repro_torch.core import TrimFilter
 from repro_torch.core.postings import WalkTally
-from repro_torch.core.search import page_rows
+from repro_torch.core.search import codes_tally, page_rows
 from repro_torch.obs.compile_watch import active_watch
 from repro_torch.obs.metrics import default_registry
 from repro_torch.obs.profile import ProfileNode
@@ -159,6 +163,10 @@ class BatchedSearchEngine:
             "search.postings.tokens", **lb)
         self._c_walk_rounds = self.metrics.counter(
             "search.postings.rounds", **lb)
+        self._c_codes_cells = self.metrics.counter(
+            "search.codes.cells", **lb)
+        self._c_codes_blocks = self.metrics.counter(
+            "search.codes.blocks", **lb)
         self._c_page_rows = self.metrics.counter(
             "search.page_select.rows", engine=self.engine, **lb)
         self._lock = threading.Condition()
@@ -367,6 +375,7 @@ class BatchedSearchEngine:
                          self.page, self.merge or "gather")):
                 # the index puts the batch on its own device
                 rows = page_rows()
+                cells, blocks = codes_tally()
                 with sink or _NO_SINK, WalkTally() as walk:
                     ids, scores = self._graphs.search(
                         index, qs, lambda q: index.search(
@@ -379,6 +388,10 @@ class BatchedSearchEngine:
                 rows = page_rows() - rows
                 if rows:
                     self._c_page_rows.inc(rows)
+                cells1, blocks1 = codes_tally()
+                if blocks1 != blocks:
+                    self._c_codes_cells.inc(cells1 - cells)
+                    self._c_codes_blocks.inc(blocks1 - blocks)
                 if sink is not None:
                     sink.t_copy = time.monotonic()
                 # the answers' two copies to the host: the batch's only

@@ -8,8 +8,8 @@
   ``.rounds`` likewise;
 * under a recording profiler ``search.postings.sync``, ``.walk`` and
   ``search.topk`` are children of their batch's ``search.phase1``, inside
-  it and in that order, and the other composed engines hold
-  ``search.topk`` alone;
+  it and in that order, ``codes`` holds ``search.codes.score`` before
+  ``search.topk``, and ``onehot`` holds ``search.topk`` alone;
 * the check fails on this path: a page from posting lists truncated to
   about half the mean kept list breaks ``page_shortfall`` or ``rank_gap`` (an
   eighth of the corpus would truncate nothing: no P2 bucket of Gaussian
@@ -178,7 +178,7 @@ def test_postings_walk_tallies_nest():
 
 # --------------------------------------------------------------- spans
 @pytest.mark.parametrize("engine,kids", [
-    ("postings", WALK), ("codes", ("search.topk",)),
+    ("postings", WALK), ("codes", ("search.codes.score", "search.topk")),
     ("onehot", ("search.topk",))])
 def test_postings_spans_nest_inside_phase1_in_order(corpus, engine, kids):
     base, index, q = corpus
